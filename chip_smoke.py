@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA Hopper card.
+"""Drive the PyTorch port's main paths once on one NVIDIA Hopper card.
 
-The main path is the deg-2^16 Goldilocks negacyclic ring multiply at
-batch 80 through ``stark_rings_tpu_torch.Mxu2FusedNTT``: six digit GEMMs
+Slice A is the deg-2^16 Goldilocks negacyclic ring multiply at batch 80
+through ``stark_rings_tpu_torch.Mxu2FusedNTT``: six digit GEMMs
 (``torch._int_mm``) and the hand-written CUDA fold kernels K1
 (``fold_tw``), K2 (``fold_end2_mul``) and K3 (``fold_end``).
+
+Slice E is the Goldilocks MLE and sumcheck path at nv = 20 (one scale
+point at nv = 24): the Fiat-Shamir sumcheck proof of
+``stark_rings_tpu_torch.examples.sumcheck``, the one-pass prover K7
+(``sumcheck_prove_many_goldilocks``), full evaluation K5
+(``evaluate_goldilocks``) and fix-last-variables K6
+(``fix_last_goldilocks``).
 
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
@@ -13,7 +20,8 @@ compute capability 9.x and ``nvcc``:
 
 Phases, one line each:
   1. device: the card, its name and power limit (nvidia-smi);
-  2. build: nvcc builds the kernels from ``stark_rings_tpu_torch/csrc``;
+  2. build: nvcc builds the kernels from ``stark_rings_tpu_torch/csrc``,
+     one process per source, side by side;
   3. kernel parity: each kernel against its plain twin on the card, bit
      for bit, at the main path's shapes, on buckets from the real GEMM,
      at the bucket bound and over the whole int32 range; both digit
@@ -28,7 +36,28 @@ Phases, one line each:
      against its plain twin, the four digit GEMMs, and whole multiplies
      per second on the kernel path and on the plain path;
   7. profile: device busy time of one mul and its top kernels
-     (torch.profiler).
+     (torch.profiler);
+  8. mle parity: K5, K6 and K7 against their plain twins on the card, bit
+     for bit, on tables of zeros, of q-1 and of random values: K5 at
+     nv = 4, 11, 20 and 24, K6 at nv = 20 for k in {1, 7, 13}, K7 (twin:
+     the generic msb prover) at nv = 4, 11 and 20 for k = 2 and 3 and at
+     nv = 24 for k = 2;
+  9. mle path: the Fiat-Shamir proof at nv = 20 (plain rounds, real
+     transcript) verifies with K5 in its final check, a proof with one
+     message changed is rejected, K7 on the bit-reversed tables with the
+     transcript's challenges reproduces the messages and finals, the
+     verifier recurrence holds in Python ints; K5 at nv = 20 and 24
+     equals DenseMLE.evaluate and evaluate_goldilocks_mxu, K6 at nv = 20
+     equals DenseMLE.fix_last_variables and (k >= 3)
+     fix_last_variables_mxu;
+ 10. mle oracle: K5 at nv = 20 equals a Python-int evaluation of the same
+     table, computed on a host thread;
+ 11. mle launch counts of phase 9 (K5, K6 and K7 must each have run);
+ 12. mle timings (CUDA events, median of 10 after warm-up): each kernel
+     against its twin, proofs/s of K7 (nv = 20, k = 2), evaluations/s at
+     nv = 20 through K5, DenseMLE.evaluate and evaluate_goldilocks_mxu;
+ 13. mle profile: device busy time against wall time of one K7 proof,
+     one K5 evaluation and one Fiat-Shamir prove (torch.profiler).
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record, the last line
@@ -59,10 +88,326 @@ KERNELS = {  # wrapper -> (reference kernel entry point, file:line)
     "fold_end2_mul": "stark_rings_tpu/ops/pallas_fold.py:467",
     "fold_end": "stark_rings_tpu/ops/pallas_fold.py:370",
 }
+NV = 20             # BASELINE config 4: 20-variable MLEs
+NV_BIG = 24         # the scale point (a 128 MB table)
+NV_SMALL = (4, 11)  # below the reference kernels' cuts (nv >= 9, >= 12)
+FIX_KS = (1, 7, 13)
+MLE_SOURCE = "stark_rings_tpu_torch/csrc/mle.cu"
+MLE_KERNELS = {
+    "evaluate_goldilocks": "stark_rings_tpu/mle/pallas_fix.py:182",
+    "fix_last_goldilocks": "stark_rings_tpu/mle/pallas_fix.py:139",
+    "sumcheck_prove_many_goldilocks":
+        "stark_rings_tpu/mle/pallas_sumcheck.py:347",
+}
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def time_ms(fn, inner=1):
+    """Median ms per call over REPS timed groups of ``inner`` calls,
+    after two warm-up calls (CUDA events)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop) / inner)
+    return statistics.median(samples)
+
+
+def u64_err(got, want, what) -> int:
+    """Largest |got - want| over u64 values (0 when bit-equal); raises on
+    a shape or dtype mismatch."""
+    from stark_rings_tpu_torch import to_numpy_u64
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    g, w = got.reshape(-1), want.reshape(-1)
+    bad = (g != w).nonzero().reshape(-1)
+    if not bad.numel():
+        return 0
+    return max(abs(x - y) for x, y in zip(to_numpy_u64(g[bad]).tolist(),
+                                          to_numpy_u64(w[bad]).tolist()))
+
+
+def py_evaluate(table, points, q) -> int:
+    """Multilinear evaluation in Python ints, variable 0 first."""
+    vals = table.tolist()
+    for r in points:
+        vals = [(a + r * (b - a)) % q for a, b in zip(vals[0::2], vals[1::2])]
+    return vals[0]
+
+
+def py_lagrange(ys, x, q) -> int:
+    """The polynomial through (i, ys[i]) evaluated at x, mod q."""
+    acc = 0
+    for i, y in enumerate(ys):
+        num, den = 1, 1
+        for j in range(len(ys)):
+            if j != i:
+                num = num * (x - j) % q
+                den = den * (i - j) % q
+        acc = (acc + y * num * pow(den, q - 2, q)) % q
+    return acc
+
+
+def slice_e(dev, smi, rng) -> list:
+    """Phases 8-13: the Goldilocks MLE and sumcheck path.  Returns the
+    kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import GOLDILOCKS as F, to_numpy_u64, to_torch
+    from stark_rings_tpu_torch.examples import sumcheck as example
+    from stark_rings_tpu_torch.linalg import FieldElems
+    from stark_rings_tpu_torch.mle import DenseMLE
+    from stark_rings_tpu_torch.mle import fix as FX
+    from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+    from stark_rings_tpu_torch.mle.mxu_eval import (evaluate_goldilocks_mxu,
+                                                    fix_last_variables_mxu)
+    from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+    from stark_rings_tpu_torch.rings import Transcript
+
+    q = F.q
+    e = FieldElems(F, dev)
+
+    def table(nv, kind):
+        if kind == "zeros":
+            return torch.zeros(1 << nv, dtype=torch.int64, device=dev)
+        if kind == "q-1":
+            return F.encode([q - 1], dev).expand(1 << nv).contiguous()
+        return F.rand((1 << nv,), rng, dev)
+
+    # the independent oracle: a Python-int evaluation on a host thread
+    T20_np = rng.integers(0, q, 1 << NV, dtype=np.uint64)
+    p20_np = rng.integers(0, q, NV, dtype=np.uint64)
+    pool = ThreadPoolExecutor(max_workers=1)
+    oracle = pool.submit(py_evaluate, T20_np, p20_np.tolist(), q)
+    T20, p20 = to_torch(T20_np, dev), to_torch(p20_np, dev)
+    T24 = table(NV_BIG, "random")
+    p24 = F.rand((NV_BIG,), rng, dev)
+
+    # -- 8. parity against the twins --------------------------------------
+    max_err = {name: 0 for name in MLE_KERNELS}
+
+    def check(name, got, want, what):
+        err = u64_err(got, want, f"{name} {what}")
+        max_err[name] = max(max_err[name], err)
+        if err:
+            raise AssertionError(f"{name} {what}: differs from the plain "
+                                 f"twin, max |err| {err}")
+
+    t0 = time.perf_counter()
+    cases = 0
+    for nv in (*NV_SMALL, NV, NV_BIG):
+        pts = F.rand((nv,), rng, dev)
+        chal = F.rand((nv,), rng, dev)
+        for kind in ("zeros", "q-1", "random"):
+            T = table(nv, kind)
+            check("evaluate_goldilocks", FX.evaluate_goldilocks(T, pts),
+                  FX.evaluate_goldilocks_ref(T, pts), f"nv={nv} {kind}")
+            cases += 1
+            for k in FIX_KS if nv == NV else ():
+                check("fix_last_goldilocks",
+                      FX.fix_last_goldilocks(T, pts[NV - k:]),
+                      FX.fix_last_goldilocks_ref(T, pts[NV - k:]),
+                      f"nv={nv} k={k} {kind}")
+                cases += 1
+            for k in (2,) if nv == NV_BIG else (2, 3):
+                tables = [T] + [table(nv, kind) for _ in range(k - 1)]
+                msgs, finals = SK.sumcheck_prove_many_goldilocks(tables,
+                                                                 chal)
+                want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal)
+                what = f"nv={nv} k={k} {kind}"
+                check("sumcheck_prove_many_goldilocks", msgs, want_m, what)
+                check("sumcheck_prove_many_goldilocks",
+                      torch.stack(finals), torch.stack(want_f), what)
+                cases += 1
+    torch.cuda.synchronize()
+    phase("mle parity", f"{cases} cases of K5/K6/K7 bit-equal to their "
+          f"twins (zeros, q-1, random; nv={NV_SMALL}, {NV} and {NV_BIG}) "
+          f"in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 9. the slice's main path, launches counted ------------------------
+    torch.cuda.synchronize()
+    FX.reset_launches()
+    SK.reset_launches()
+    t0 = time.perf_counter()
+    g, h = DenseMLE.rand(e, NV, rng), DenseMLE.rand(e, NV, rng)
+    S, msgs, chals = example.prove(g.evals, h.evals, Transcript(b"smoke"),
+                                   NV)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    if not example.verify(S, msgs, g, h, Transcript(b"smoke")):
+        raise AssertionError("the honest nv=20 proof was rejected")
+    verify_s = time.perf_counter() - t1
+    bad = [list(m) for m in msgs]
+    bad[NV // 2][1] = F.add(bad[NV // 2][1], F.const(1, dev))
+    if example.verify(S, [tuple(m) for m in bad], g, h,
+                      Transcript(b"smoke")):
+        raise AssertionError("a proof with one message changed by +1 was "
+                             "accepted")
+    m7, f7 = SK.sumcheck_prove_many_goldilocks(
+        [bit_reverse_table(g.evals), bit_reverse_table(h.evals)],
+        torch.stack(chals))
+    gv = FX.evaluate_goldilocks(g.evals, chals)
+    hv = FX.evaluate_goldilocks(h.evals, chals)
+    if u64_err(m7, torch.stack([torch.stack(m) for m in msgs]), "K7") \
+            or u64_err(torch.stack(f7), torch.stack([gv, hv]), "K7 finals"):
+        raise AssertionError("K7 on the bit-reversed tables does not "
+                             "reproduce the proof's messages and finals")
+    # the verifier recurrence, in Python ints
+    claim = int(to_numpy_u64(S))
+    for m, r in zip(msgs, chals):
+        ys = to_numpy_u64(torch.stack(m)).tolist()
+        if (ys[0] + ys[1]) % q != claim:
+            raise AssertionError("p(0) + p(1) != claim in Python ints")
+        claim = py_lagrange(ys, int(to_numpy_u64(r)), q)
+    if claim != int(to_numpy_u64(gv)) * int(to_numpy_u64(hv)) % q:
+        raise AssertionError("final claim != g(r) h(r) in Python ints")
+    # evaluation and fix-variables against DenseMLE and the digit GEMMs
+    for nv, T, pts in ((NV, T20, p20), (NV_BIG, T24, p24)):
+        k5 = FX.evaluate_goldilocks(T, pts)
+        for what, want in (
+                ("DenseMLE.evaluate", DenseMLE(e, nv, T).evaluate(list(pts))),
+                ("evaluate_goldilocks_mxu", evaluate_goldilocks_mxu(T, pts))):
+            if u64_err(k5, want, what):
+                raise AssertionError(f"K5 nv={nv} differs from {what}")
+    for k in FIX_KS:
+        k6 = FX.fix_last_goldilocks(T20, p20[NV - k:])
+        wants = [("DenseMLE.fix_last_variables", DenseMLE(e, NV, T20)
+                  .fix_last_variables(list(p20[NV - k:])).evals)]
+        if k >= 3:
+            wants.append(("fix_last_variables_mxu",
+                          fix_last_variables_mxu(T20, p20[NV - k:])))
+        for what, want in wants:
+            if u64_err(k6, want, what):
+                raise AssertionError(f"K6 k={k} differs from {what}")
+    torch.cuda.synchronize()
+    launches = {**FX.LAUNCHES, **SK.LAUNCHES}
+    phase("mle path", f"nv={NV} proof: prove {prove_s:.3f} s, verify "
+          f"{verify_s:.3f} s, accepted; tampered proof rejected; K7 on the "
+          f"bit-reversed tables reproduces its {NV}x3 messages and finals; "
+          f"verifier recurrence holds in Python ints; K5 (nv={NV}, "
+          f"{NV_BIG}) and K6 (k={FIX_KS}) equal DenseMLE and the digit-GEMM "
+          f"path; {time.perf_counter() - t0:.1f} s")
+
+    # -- 10. the Python-int oracle -----------------------------------------
+    t0 = time.perf_counter()
+    want = oracle.result()
+    pool.shutdown()
+    got = int(to_numpy_u64(FX.evaluate_goldilocks(T20, p20)))
+    if got != want:
+        raise AssertionError(f"K5 nv={NV}: {got} != Python-int oracle "
+                             f"{want}")
+    phase("mle oracle", f"K5 at nv={NV} equals the Python-int evaluation "
+          f"(waited {time.perf_counter() - t0:.1f} s)")
+
+    # -- 11. launch counts --------------------------------------------------
+    phase("mle launches", json.dumps(launches))
+    for name in MLE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the main "
+                                 "path")
+
+    # -- 12. timings --------------------------------------------------------
+    G20, H20 = F.rand((1 << NV,), rng, dev), F.rand((1 << NV,), rng, dev)
+    c20 = F.rand((NV,), rng, dev)
+    def fix_case(k):
+        return ("fix_last_goldilocks", f"nv={NV} k={k}",
+                lambda: FX.fix_last_goldilocks(T20, p20[NV - k:]),
+                lambda: FX.fix_last_goldilocks_ref(T20, p20[NV - k:]))
+
+    timed = [  # (kernel, label, kernel call, twin call); first is recorded
+        ("evaluate_goldilocks", f"nv={NV}",
+         lambda: FX.evaluate_goldilocks(T20, p20),
+         lambda: FX.evaluate_goldilocks_ref(T20, p20)),
+        fix_case(FIX_KS[1]),
+        ("sumcheck_prove_many_goldilocks", f"nv={NV} k=2",
+         lambda: SK.sumcheck_prove_many_goldilocks([G20, H20], c20),
+         lambda: SK.sumcheck_prove_many_ref([G20, H20], c20)),
+        ("evaluate_goldilocks", f"nv={NV_BIG}",
+         lambda: FX.evaluate_goldilocks(T24, p24),
+         lambda: FX.evaluate_goldilocks_ref(T24, p24)),
+        fix_case(FIX_KS[0]),
+        fix_case(FIX_KS[2]),
+        ("sumcheck_prove_many_goldilocks", f"nv={NV} k=3",
+         lambda: SK.sumcheck_prove_many_goldilocks([G20, H20, T20], c20),
+         lambda: SK.sumcheck_prove_many_ref([G20, H20, T20], c20)),
+    ]
+    times = {}
+    for name, label, kern, twin in timed:
+        ms = time_ms(kern, inner=10)
+        plain_ms = time_ms(twin)
+        times.setdefault(name, (ms, plain_ms))
+        phase("mle time", f"{name} {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms  ({smi})")
+    k7_ms = times["sumcheck_prove_many_goldilocks"][0]
+    phase("mle time", f"K7 nv={NV} k=2: {1e3 / k7_ms:.1f} proofs/s; the "
+          f"generic msb prover "
+          f"{1e3 / times['sumcheck_prove_many_goldilocks'][1]:.1f} "
+          f"proofs/s  ({smi})")
+    ev_ms = {
+        "K5 evaluate_goldilocks": times["evaluate_goldilocks"][0],
+        "DenseMLE.evaluate": time_ms(
+            lambda: DenseMLE(e, NV, T20).evaluate(list(p20))),
+        "evaluate_goldilocks_mxu": time_ms(
+            lambda: evaluate_goldilocks_mxu(T20, p20)),
+    }
+    phase("mle time", f"evaluations/s at nv={NV}: " + ", ".join(
+        f"{k} {1e3 / v:.1f} ({v:.4f} ms)" for k, v in ev_ms.items())
+        + f"  ({smi})")
+
+    # -- 13. where the device time of the slice's calls goes ----------------
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [
+        ("K7 nv=20 k=2", 3,
+         lambda: SK.sumcheck_prove_many_goldilocks([G20, H20], c20)),
+        ("K5 nv=20", 3, lambda: FX.evaluate_goldilocks(T20, p20)),
+        ("prove nv=20", 1, lambda: example.prove(
+            G20, H20, Transcript(b"profile"), NV)),
+    ]
+    for label, n, fn in calls:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the window's first kernel goes unrecorded: let it be this one
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        rows = sorted(prof.key_averages(),
+                      key=lambda r: -r.self_device_time_total)
+        busy_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+        top = "; ".join(f"{r.key[:40]} x{r.count // n} "
+                        f"{r.self_device_time_total / 1e3 / n:.4f} ms"
+                        for r in rows[:4])
+        phase("mle profile", f"{label}: device busy {busy_ms:.4f} ms of "
+              f"{wall_ms:.4f} ms wall (profiled), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; {top}  ({smi})")
+
+    return [{"name": name, "route": "cuda", "source": MLE_SOURCE,
+             "replaces": MLE_KERNELS[name], "launches": launches[name],
+             "max_abs_err": max_err[name], "ms": times[name][0],
+             "plain_ms": times[name][1]} for name in MLE_KERNELS]
 
 
 def card_info() -> str:
@@ -76,7 +421,7 @@ def card_info() -> str:
 
 
 def main() -> None:
-    if not (HERE / "stark_rings_tpu_torch" / "csrc" / "fold.cu").is_file():
+    if not (HERE / MLE_SOURCE).is_file() or not (HERE / SOURCE).is_file():
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")
@@ -114,9 +459,11 @@ def main() -> None:
     phase("build", f"{'built' if fresh else 'cached'} {so.name} in "
           f"{time.perf_counter() - t0:.1f} s ({' '.join(_build.NVCC_FLAGS)})")
     if fresh and log.exists():
+        # ptxas's registers and spills, per kernel (mangled names)
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Function properties" in line or "registers" in line \
+                    or "spill" in line:
+                print(f"  {line.strip()}")
 
     rng = np.random.default_rng(SEED)
     q = F.q
@@ -298,22 +645,6 @@ def main() -> None:
                                  "path")
 
     # -- 6. timings ---------------------------------------------------------
-    def time_ms(fn, inner=1):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(REPS):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(inner):
-                fn()
-            stop.record()
-            stop.synchronize()
-            samples.append(start.elapsed_time(stop) / inner)
-        return statistics.median(samples)
-
     Vs = torch.cat([Va, Vb], 1)
     R = eng.mat2.R
 
@@ -379,12 +710,13 @@ def main() -> None:
           f"{wall_ms:.3f} ms wall (profiled), idle share "
           f"{1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
 
-    record = {"kernels": [
+    records = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": KERNELS[name], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in KERNELS]}
-    print(json.dumps(record))
+         "plain_ms": times[name][1]} for name in KERNELS]
+    records += slice_e(dev, smi, rng)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

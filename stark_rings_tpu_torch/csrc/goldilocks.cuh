@@ -39,4 +39,16 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
     return a < b ? d + Q : d;
 }
 
+// Canonical inputs: a carry out of 2^64 or a sum >= q both reduce by q
+// (the wrapped s - q is s + 2^64 - q in the carry case).
+__device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
+    const uint64_t s = a + b;
+    return (s < a || s >= Q) ? s - Q : s;
+}
+
+// l + r*(u - l): binds one multilinear variable to r.
+__device__ __forceinline__ uint64_t lerp(uint64_t l, uint64_t u, uint64_t r) {
+    return add(l, mul(r, sub(u, l)));
+}
+
 }  // namespace gl

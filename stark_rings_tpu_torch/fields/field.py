@@ -59,7 +59,10 @@ class Goldilocks:
 
     name = "goldilocks"
     q = 2**64 - 2**32 + 1
+    bits = 64
     dtype = torch.int64
+    limb_shape: tuple = ()
+    limbed = False
 
     _Q = i64(q)          # q's int64 bit pattern (= -(2^32 - 1))
     _EPS = MASK32        # 2^64 mod q
@@ -84,6 +87,23 @@ class Goldilocks:
         """Uniform canonical elements drawn from ``rng``."""
         return to_torch(rng.integers(0, self.q, size=shape, dtype=np.uint64),
                         get_device(device))
+
+    def const(self, v: int, device="cpu") -> torch.Tensor:
+        """One canonical scalar, as a 0-d tensor."""
+        return torch.tensor(i64(int(v) % self.q), dtype=torch.int64,
+                            device=get_device(device))
+
+    def zeros(self, shape=(), device="cpu") -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=torch.int64,
+                           device=get_device(device))
+
+    def ones(self, shape=(), device="cpu") -> torch.Tensor:
+        return torch.ones(tuple(shape), dtype=torch.int64,
+                          device=get_device(device))
+
+    def from_uint(self, x, device="cpu") -> torch.Tensor:
+        """numpy unsigned ints below q -> storage on ``device``."""
+        return to_torch(np.asarray(x, dtype=np.uint64), device)
 
     # -- elementwise ops -----------------------------------------------------
     def add(self, a, b):
@@ -112,6 +132,51 @@ class Goldilocks:
     def mul(self, a, b):
         hi, lo = _mul64_128(a, b)
         return self._reduce128(hi, lo)
+
+    # -- reductions and powers -----------------------------------------------
+    def sum(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Modular sum over ``axis`` via a halving tree of ``add``s (an odd
+        length parks its last entry and adds it at the end).  ``torch.sum``
+        wraps mod 2^64 and is not a field sum."""
+        axis = axis % x.dim()
+        if x.shape[axis] == 0:
+            shape = x.shape[:axis] + x.shape[axis + 1:]
+            return self.zeros(shape, x.device)
+        rem = None
+        while x.shape[axis] > 1:
+            n = x.shape[axis]
+            if n % 2:
+                tail = x.narrow(axis, n - 1, 1)
+                rem = tail if rem is None else self.add(rem, tail)
+                x = x.narrow(axis, 0, n - 1)
+                n -= 1
+            x = self.add(x.narrow(axis, 0, n // 2),
+                         x.narrow(axis, n // 2, n // 2))
+        if rem is not None:
+            x = self.add(x, rem)
+        return x.squeeze(axis)
+
+    def dot(self, a, b, axis: int) -> torch.Tensor:
+        """Modular inner product over ``axis``: sum(mul(a, b))."""
+        return self.sum(self.mul(a, b), axis)
+
+    def pow_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """x**e for a static exponent (square and multiply)."""
+        if e == 0:
+            return torch.ones_like(x)
+        acc = None
+        base = x
+        while e:
+            if e & 1:
+                acc = base if acc is None else self.mul(acc, base)
+            e >>= 1
+            if e:
+                base = self.mul(base, base)
+        return acc
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse via Fermat (x != 0)."""
+        return self.pow_const(x, self.q - 2)
 
 
 GOLDILOCKS = Goldilocks()

@@ -1,12 +1,16 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled by ``nvcc`` into one shared library with a
-plain C interface, on first use, and loaded with ctypes.  The library
-lives under ``build/torch_kernels/`` at the root of the checkout and is
-keyed by a hash of the sources and the flags, so a stale binary never
-loads.  Nothing is compiled when this module is imported: a machine
-without ``nvcc`` imports it fine and raises only when a kernel is
-asked for.
+plain C interface, on first use, and loaded with ctypes: one ``nvcc -c``
+per source, all started together, then one link.  The library lives
+under ``build/torch_kernels/`` at the root of the checkout and is keyed
+by a hash of the sources and the flags, so a stale binary never loads.
+Nothing is compiled when this module is imported: a machine without
+``nvcc`` imports it fine and raises only when a kernel is asked for.
+
+:func:`on_cuda` and :func:`launch` are the dispatch rule every kernel
+wrapper follows: CPU tensors go to the plain twin, CUDA tensors to the
+kernel (or an exception), and every launch is counted.
 """
 
 from __future__ import annotations
@@ -19,14 +23,17 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["NVCC_FLAGS", "kernels", "library_path", "nvcc"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "kernels", "launch", "library_path", "nvcc",
+           "on_cuda"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
@@ -57,19 +64,29 @@ def library_path() -> pathlib.Path:
     return _BUILD / f"libsrt_kernels.{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands side by side; raise with the log if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
+
+
 def _build(so: pathlib.Path) -> None:
     _BUILD.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    so.with_suffix(".log").write_text(log)
-    os.replace(tmp, so)
+    with tempfile.TemporaryDirectory(dir=_BUILD) as tmpdir:
+        srcs = sorted(_CSRC.glob("*.cu"))
+        objs = [str(pathlib.Path(tmpdir) / (s.stem + ".o")) for s in srcs]
+        log = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                        for s, o in zip(srcs, objs)])
+        tmp = str(pathlib.Path(tmpdir) / "lib.so")
+        log += _run_all([[nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)
 
 
 def kernels() -> ctypes.CDLL:
@@ -87,9 +104,40 @@ def kernels() -> ctypes.CDLL:
     lib.srt_fold_end2_mul.argtypes = [p, i64, p, i64, i64, p, i64, i64,
                                       i32, p]
     lib.srt_fold_end.argtypes = [p, i64, p, i64, i64, i32, p]
-    for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end):
+    lib.srt_mle_eval_tiles.argtypes = [p, p, i64, i32, p, p]
+    lib.srt_mle_fix_top.argtypes = [p, p, i64, i32, p, p]
+    lib.srt_sumcheck_round.argtypes = [p, p, i32, i64, p, i32, p, p]
+    lib.srt_sumcheck_reduce.argtypes = [p, p, i32, i32, i64, p]
+    for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
+               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top,
+               lib.srt_sumcheck_round, lib.srt_sumcheck_reduce):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def on_cuda(name, *tensors) -> bool:
+    """True for CUDA inputs, False for CPU inputs; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type == "cuda":
+        return True
+    raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+def launch(counts: dict, name: str, fn, device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` on ``device``'s
+    current stream, raise if the launch failed, and count it in
+    ``counts[name]``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        msg = kernels().srt_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
+    counts[name] += 1

@@ -141,28 +141,6 @@ def _check_buckets(V, R, signed, name):
                          "kernel's grid")
 
 
-def _on_cuda(name, *tensors) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: inputs on several devices {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type == "cuda":
-        return True
-    raise ValueError(f"{name}: no kernel for device {dev}")
-
-
-def _launch(name, fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        msg = _build.kernels().srt_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
-    LAUNCHES[name] += 1
-
-
 def fold_tw(V, tw, R, *, transpose_out=False, signed):
     """K1: fold(V) times the mid twiddle, broadcast over the batch.
 
@@ -177,15 +155,15 @@ def fold_tw(V, tw, R, *, transpose_out=False, signed):
     cols, t = V.shape[1], tw.shape[1]
     if cols % t:
         raise ValueError(f"fold_tw: t={t} does not divide cols={cols}")
-    if not _on_cuda("fold_tw", V, tw):
+    if not _build.on_cuda("fold_tw", V, tw):
         return fold_tw_ref(V, tw, R, transpose_out=transpose_out,
                            signed=signed)
     shape = (t, cols // t * R) if transpose_out else (R, cols)
     out = torch.empty(shape, dtype=torch.int64, device=V.device)
     lib = _build.kernels()
-    _launch("fold_tw", lib.srt_fold_tw, V.device, V.data_ptr(), cols,
-            tw.data_ptr(), t, out.data_ptr(), R, cols, int(transpose_out),
-            int(signed))
+    _build.launch(LAUNCHES, "fold_tw", lib.srt_fold_tw, V.device,
+                  V.data_ptr(), cols, tw.data_ptr(), t, out.data_ptr(), R,
+                  cols, int(transpose_out), int(signed))
     return out
 
 
@@ -209,7 +187,7 @@ def fold_end2_mul(Va, Vb, R, *, signed):
             raise ValueError(f"fold_end2_mul: Vb's {b_cols} columns do not "
                              f"divide Va's {cols}")
         tensors = (Va, Vb)
-    if not _on_cuda("fold_end2_mul", *tensors):
+    if not _build.on_cuda("fold_end2_mul", *tensors):
         return fold_end2_mul_ref(Va, Vb, R, signed=signed)
     out = torch.empty((R, cols), dtype=torch.int64, device=Va.device)
     lib = _build.kernels()
@@ -218,21 +196,22 @@ def fold_end2_mul(Va, Vb, R, *, signed):
         b_ptr = Va.data_ptr() + cols * Va.element_size()
     else:
         lda, ldb, b_ptr = cols, b_cols, Vb.data_ptr()
-    _launch("fold_end2_mul", lib.srt_fold_end2_mul, Va.device, Va.data_ptr(),
-            lda, b_ptr, ldb, b_cols, out.data_ptr(), R, cols, int(signed))
+    _build.launch(LAUNCHES, "fold_end2_mul", lib.srt_fold_end2_mul,
+                  Va.device, Va.data_ptr(), lda, b_ptr, ldb, b_cols,
+                  out.data_ptr(), R, cols, int(signed))
     return out
 
 
 def fold_end(V, R, *, signed):
     """K3: fold(V), int32 [K*R, cols] -> canonical int64 [R, cols]."""
     _check_buckets(V, R, signed, "fold_end")
-    if not _on_cuda("fold_end", V):
+    if not _build.on_cuda("fold_end", V):
         return fold_end_ref(V, R, signed=signed)
     cols = V.shape[1]
     out = torch.empty((R, cols), dtype=torch.int64, device=V.device)
     lib = _build.kernels()
-    _launch("fold_end", lib.srt_fold_end, V.device, V.data_ptr(), cols,
-            out.data_ptr(), R, cols, int(signed))
+    _build.launch(LAUNCHES, "fold_end", lib.srt_fold_end, V.device,
+                  V.data_ptr(), cols, out.data_ptr(), R, cols, int(signed))
     return out
 
 

@@ -1,0 +1,86 @@
+"""Fiat-Shamir transcript over canonical field bytes (counterpart of
+``stark_rings_tpu/rings/absorb.py``, with the Goldilocks case of
+``stark_rings_tpu/utils/serialize.py`` ``elem_nbytes`` and
+``elements_to_bytes``).
+
+A field element serializes as its canonical integer, little-endian, in
+ceil(bits / 8) bytes: 8 bytes for Goldilocks.  The transcript is a
+SHAKE-256 sponge on the host; what it absorbs comes off device tensors
+(one device-to-host copy per absorb), and the field elements it squeezes
+go to the device asked for.  For the same absorbs it squeezes the same
+bytes and the same elements as the JAX ``Transcript``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import struct
+
+import numpy as np
+import torch
+
+from ..device import to_numpy_u64
+
+__all__ = ["elem_nbytes", "elements_to_bytes", "to_absorb", "Transcript"]
+
+
+def elem_nbytes(f) -> int:
+    return (f.bits + 7) // 8
+
+
+def elements_to_bytes(f, x) -> bytes:
+    """Every element of ``x`` (a storage tensor, or numpy uint64 values),
+    row-major, canonical little-endian, no header."""
+    if f.name != "goldilocks":
+        raise NotImplementedError(f"serialization of {f.name} elements is "
+                                  "not ported yet")
+    host = to_numpy_u64(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x, dtype=np.uint64)
+    return host.astype("<u8").tobytes()
+
+
+def to_absorb(f, x) -> bytes:
+    """Canonical LE bytes of every base-prime-field value in ``x``."""
+    return elements_to_bytes(f, x)
+
+
+class Transcript:
+    """SHAKE-256 duplex-style Fiat-Shamir transcript."""
+
+    def __init__(self, domain: bytes = b"stark-rings-tpu"):
+        self._state = hashlib.shake_256()
+        self._absorb_framed(b"domain", domain)
+        self._counter = 0
+
+    def _absorb_framed(self, label: bytes, data: bytes):
+        self._state.update(struct.pack("<Q", len(label)) + label)
+        self._state.update(struct.pack("<Q", len(data)) + data)
+
+    def absorb_bytes(self, label: bytes, data: bytes):
+        self._absorb_framed(label, data)
+
+    def absorb(self, label: bytes, f, x):
+        """Absorb a storage tensor's (or uint64 array's) canonical bytes."""
+        self._absorb_framed(label, to_absorb(f, x))
+
+    def squeeze_bytes(self, n: int) -> bytes:
+        self._counter += 1
+        h = self._state.copy()
+        h.update(struct.pack("<Q", self._counter))
+        return h.digest(n)
+
+    def squeeze_field_elements(self, f, n: int, device="cpu"):
+        """n uniform canonical field elements, by rejection sampling on
+        the squeezed stream, as a storage tensor [n] on ``device``."""
+        nb = elem_nbytes(f)
+        out = []
+        chunk = max(2 * n, 4)
+        while len(out) < n:
+            data = self.squeeze_bytes(chunk * nb)
+            for i in range(chunk):
+                if len(out) >= n:
+                    break
+                v = int.from_bytes(data[i * nb:(i + 1) * nb], "little")
+                if v < f.q:
+                    out.append(v)
+        return f.encode(np.array(out, dtype=object), device)

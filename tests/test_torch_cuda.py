@@ -1,5 +1,6 @@
-"""The port's CUDA fold kernels on the card, against their plain twins,
-and the fused engine against the kernel-free engine.  Marked ``cuda``:
+"""The port's CUDA kernels on the card, against their plain twins: the
+fold kernels K1-K3 and the fused engine against the kernel-free engine,
+the MLE kernels K5 and K6, and the sumcheck prover K7.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -13,7 +14,14 @@ import torch
 
 from stark_rings_tpu_torch import (GOLDILOCKS, Mxu2FusedNTT, Mxu2NTT,
                                    to_torch)
+from stark_rings_tpu_torch.examples import sumcheck as example
+from stark_rings_tpu_torch.linalg import FieldElems
+from stark_rings_tpu_torch.mle import DenseMLE
+from stark_rings_tpu_torch.mle import fix as FX
+from stark_rings_tpu_torch.mle import mxu_eval as MX
+from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
 from stark_rings_tpu_torch.ops import fold as K
+from stark_rings_tpu_torch.rings import Transcript
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +95,106 @@ def test_wrappers_reject_mixed_devices(dev):
         K.fold_tw(V, tw, 32, signed=False)
     with pytest.raises(ValueError, match="several devices"):
         K.fold_end2_mul(V, V.cpu(), 32, signed=False)
+    T = torch.zeros(1 << 12, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="several devices"):
+        SK.sumcheck_prove_many([T, T.cpu()], [1] * 12)
+
+
+def test_kernels_raise_without_variables(dev):
+    """A one-entry table has no variable to bind: on the card the
+    wrappers raise rather than answer without a launch."""
+    T = torch.zeros(1, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="nv >= 1"):
+        FX.evaluate_goldilocks(T, [])
+    with pytest.raises(ValueError, match="at least one challenge"):
+        SK.sumcheck_prove_many([T, T], torch.empty(0, dtype=torch.int64,
+                                                   device=dev))
+
+
+def _tables(rng, nv, kind):
+    n = 1 << nv
+    if kind == "zeros":
+        return np.zeros(n, dtype=np.uint64)
+    if kind == "q-1":
+        return np.full(n, Q - 1, dtype=np.uint64)
+    return rng.integers(0, Q, n, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv", [4, 9, 11, 13])
+def test_mle_kernels_match_twins(dev, nv, kind):
+    """K5 and K6 against their twins, with distinct random points."""
+    rng = np.random.default_rng(nv)
+    ev = to_torch(_tables(rng, nv, kind), dev)
+    pts = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    before = FX.LAUNCHES["evaluate_goldilocks"]
+    got = FX.evaluate_goldilocks(ev, pts)
+    torch.cuda.synchronize()
+    assert FX.LAUNCHES["evaluate_goldilocks"] == before + (nv + 9) // 10
+    assert torch.equal(got, FX.evaluate_goldilocks_ref(ev, pts))
+    for k in [k for k in (1, 2, 5, 6) if k <= nv - 7]:
+        got = FX.fix_last_goldilocks(ev, pts[:k])
+        torch.cuda.synchronize()
+        assert torch.equal(got, FX.fix_last_goldilocks_ref(ev, pts[:k])), k
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv", [1, 4, 11, 13])
+def test_sumcheck_kernel_matches_generic(dev, nv, k, kind):
+    """K7 launches for every nv >= 1 on the card, small tables included
+    (the reference hands nv < 12 to the generic prover)."""
+    rng = np.random.default_rng(nv * 10 + k)
+    tables = [to_torch(_tables(rng, nv, kind), dev) for _ in range(k)]
+    chal = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    before = SK.LAUNCHES["sumcheck_prove_many_goldilocks"]
+    msgs, finals = SK.sumcheck_prove_many(tables, chal)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["sumcheck_prove_many_goldilocks"] == before + nv + 1
+    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal)
+    assert torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("nv", [4, 10, 14])
+def test_mxu_eval_on_card(dev, nv):
+    """torch._int_mm's CUDA shape rules (rows > 16, multiples of 8) on
+    the digit GEMMs of every mxu_eval entry point, both digit schemes."""
+    rng = np.random.default_rng(nv)
+    ev = to_torch(rng.integers(0, Q, 1 << nv, dtype=np.uint64), dev)
+    pts = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    mle = DenseMLE(FieldElems(GOLDILOCKS, dev), nv, ev)
+    assert torch.equal(MX.evaluate_goldilocks_mxu(ev, pts),
+                       mle.evaluate(list(pts)))
+    for h in sorted({1, 3, nv - 1}):
+        assert torch.equal(MX.fix_last_variables_mxu(ev, pts[:h]),
+                           mle.fix_last_variables(list(pts[:h])).evals), h
+    P = to_torch(rng.integers(0, Q, (4, nv), dtype=np.uint64), dev)
+    want = torch.stack([mle.evaluate(list(p)) for p in P])
+    assert torch.equal(MX.evaluate_many_goldilocks_mxu(ev, P), want)
+
+
+@pytest.mark.parametrize("nv", [5, 12])
+def test_example_proof_on_card(dev, nv):
+    """The Fiat-Shamir proof verifies on the card (final check through
+    K5 at every nv), a tampered one is rejected, and K7 on the
+    bit-reversed tables reproduces its messages."""
+    from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+
+    rng = np.random.default_rng(nv)
+    e = FieldElems(GOLDILOCKS, dev)
+    g, h = DenseMLE.rand(e, nv, rng), DenseMLE.rand(e, nv, rng)
+    S, msgs, chals = example.prove(g.evals, h.evals, Transcript(b"t"), nv)
+    before = FX.LAUNCHES["evaluate_goldilocks"]
+    assert example.verify(S, msgs, g, h, Transcript(b"t"))
+    assert FX.LAUNCHES["evaluate_goldilocks"] == before + 2 * ((nv + 9)
+                                                               // 10)
+    bad = [list(m) for m in msgs]
+    bad[3][0] = GOLDILOCKS.add(bad[3][0], GOLDILOCKS.const(1, dev))
+    assert not example.verify(S, [tuple(m) for m in bad], g, h,
+                              Transcript(b"t"))
+    m7, f7 = SK.sumcheck_prove_many(
+        [bit_reverse_table(g.evals), bit_reverse_table(h.evals)], chals)
+    assert torch.equal(m7, torch.stack([torch.stack(m) for m in msgs]))
+    assert torch.equal(f7[0], FX.evaluate_goldilocks(g.evals, chals))
+    assert torch.equal(f7[1], FX.evaluate_goldilocks(h.evals, chals))

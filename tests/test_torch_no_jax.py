@@ -28,6 +28,15 @@ import stark_rings_tpu_torch
 import stark_rings_tpu_torch.ops.fold
 import stark_rings_tpu_torch.ops._build
 import stark_rings_tpu_torch.native.host
+import stark_rings_tpu_torch.linalg
+import stark_rings_tpu_torch.mle
+import stark_rings_tpu_torch.mle.fix
+import stark_rings_tpu_torch.mle.mxu_eval
+import stark_rings_tpu_torch.mle.sumcheck
+import stark_rings_tpu_torch.mle.sumcheck_kernel
+import stark_rings_tpu_torch.rings.absorb
+import stark_rings_tpu_torch.examples.sumcheck
+stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9)
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked
