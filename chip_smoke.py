@@ -13,6 +13,13 @@ point at nv = 24): the Fiat-Shamir sumcheck proof of
 (``evaluate_goldilocks``) and fix-last-variables K6
 (``fix_last_goldilocks``).
 
+Slice B is the power-of-two ring API, ``get_power_ring(...).mxu_ctx()``:
+BabyBear deg 2^12 at batch 4096 (BASELINE config 2) through
+``MxuBBFusedNTT`` and the K4 folds (``bb_fold_tw``, ``bb_fold_end2_mul``,
+``bb_fold_end``), and Goldilocks deg 2^16 at batch 80 (one point at deg
+2^18, batch 16) through ``Mxu2KernelNTT``: K1 untransposed, K3 and the
+slot-product kernel ``pointwise_mul``.
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -57,12 +64,36 @@ Phases, one line each:
      against its twin, proofs/s of K7 (nv = 20, k = 2), evaluations/s at
      nv = 20 through K5, DenseMLE.evaluate and evaluate_goldilocks_mxu;
  13. mle profile: device busy time against wall time of one K7 proof,
-     one K5 evaluation and one Fiat-Shamir prove (torch.profiler).
+     one K5 evaluation and one Fiat-Shamir prove (torch.profiler);
+ 14. power-ring kernel parity: the K4 kernels against their twins, bit
+     for bit, at B = 4096 (unsigned) and B = 256 (signed), on buckets
+     from the real GEMM, at the bucket bound and over the whole int32
+     range; K1 untransposed and K3 at R = 256 (deg 2^16) and R = 512
+     (deg 2^18); the slot-product kernel on [80, 2^16] and on a length
+     that is not a multiple of its block;
+ 15. power-ring path, launches counted: BabyBear mxu_ctx() mul,
+     stack_forward mul, square and mul_cached (batch-4096 and batch-1
+     operands), each bit-equal to the plain MxuBBNTT and to coeff_mul
+     (the radix NTTContext), 2 rows to the C++ schoolbook over q, and
+     config 2's invertibility check; Goldilocks mxu_ctx() mul /
+     mul_cached / square at deg 2^16 equal to Mxu2FusedNTT (phase 4) and
+     the schoolbook rows, and mul at deg 2^18 equal to coeff_mul;
+ 16. launch counts of phase 15 (each kernel of the path must have run);
+ 17. timings (CUDA events, median of 10 after warm-up): each kernel of
+     the path against its twin and its memory floor, BabyBear mults/s
+     on the kernel and plain engines, Goldilocks mxu_ctx() mults/s
+     beside Mxu2FusedNTT's, the six digit GEMMs of a BabyBear mul, and
+     the host cost of one kernel launch;
+ 18. profile: device busy time against wall time of one BabyBear mul at
+     B = 4096, and its top kernels (torch.profiler).
 
 Every check raises on failure, so the exit code is non-zero.  The next
-to last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.  Without a CUDA card the script fails
-before printing any result.
+to last line is the kernels' JSON record: per kernel its launches on the
+main path, its largest error against its twin, its time and its twin's,
+and its bound (the bytes it must move over the card's memory rate;
+integer ALU work has no published peak, so bytes bound every kernel
+here).  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA card the script fails before printing any result.
 """
 
 from __future__ import annotations
@@ -99,10 +130,54 @@ MLE_KERNELS = {
     "sumcheck_prove_many_goldilocks":
         "stark_rings_tpu/mle/pallas_sumcheck.py:347",
 }
+BB_LOG = 12         # BASELINE config 2: BabyBear deg 2^12 ...
+BB_B = 4096         # ... at the batch the reference measures (bench.py:678)
+BB_B_SIGNED = 256
+GL_BIG_LOG = 18     # the big-degree point of the Goldilocks power ring
+GL_BIG_B = 16
+BB_SOURCE = "stark_rings_tpu_torch/csrc/fold_bb.cu"
+POWER_KERNELS = {  # record name -> (source, reference kernel file:line)
+    "bb_fold_tw": (BB_SOURCE, "stark_rings_tpu/ops/pallas_fold_bb.py:231"),
+    "bb_fold_end2_mul": (BB_SOURCE,
+                         "stark_rings_tpu/ops/pallas_fold_bb.py:241"),
+    "bb_fold_end": (BB_SOURCE, "stark_rings_tpu/ops/pallas_fold_bb.py:226"),
+    "pointwise_mul": (SOURCE, "stark_rings_tpu/ops/pallas_fold.py:658"),
+    # the whole-array folds of mxu_ctx(), served by K1 and K3
+    "fold_tw[transpose_out=False]": (SOURCE,
+                                     "stark_rings_tpu/ops/pallas_fold.py:141"),
+    "fold_end[whole-array]": (SOURCE,
+                              "stark_rings_tpu/ops/pallas_fold.py:122"),
+}
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
+LAUNCH_REPS = 1000
 
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def nbytes(*xs) -> int:
+    """Bytes held by the tensors in ``xs`` (lists and tuples searched)."""
+    import torch
+
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (list, tuple)):
+            total += nbytes(*x)
+    return total
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, moved):
+    """One kernel's entry of the JSON line.  ``moved``: the bytes the
+    call must move (each input read once, each output written once);
+    its time at the card's memory rate is the bound."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None}
 
 
 def time_ms(fn, inner=1):
@@ -126,10 +201,74 @@ def time_ms(fn, inner=1):
     return statistics.median(samples)
 
 
+def shape(*ts) -> str:
+    return " x ".join(str(list(t.shape)) for t in ts)
+
+
+def device_profile(fn, n, dev, top):
+    """Per call of ``fn`` over ``n`` calls under torch.profiler: (device
+    busy ms, wall ms, the ``top`` kernels by device time as text)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the window's first kernel goes unrecorded: let it be this one
+        torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_device_time_total)
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+    text = "; ".join(f"{r.key[:48]} x{r.count // n} "
+                     f"{r.self_device_time_total / 1e3 / n:.4f} ms"
+                     for r in rows[:top])
+    return busy_ms, wall_ms, text
+
+
+def digit_gemms(e, Bx, rng) -> dict:
+    """ms of each level's digit GEMM (planes, ``_int_mm`` and offset
+    terms) of engine ``e`` at batch ``Bx``, and of the six of one mul."""
+    gemm = {}
+    for key in ("w1", "w2", "w2i", "w1i"):
+        mat = getattr(e, "mat" + key[1:])
+        xc = e.F.rand((mat.C, Bx * e.N // mat.C), rng, e.device)
+        gemm[key] = time_ms(lambda: mat.dot(xc, e.c[key],
+                                            e.c.get(key + "_corr")))
+    gemm["six"] = 2 * gemm["w1"] + 2 * gemm["w2"] + gemm["w2i"] + gemm["w1i"]
+    return gemm
+
+
+def time_kernels(mod, timed, smi, tag="time") -> dict:
+    """Time each ``(record, kernel, label, args, kwargs)`` of ``timed``
+    on ``mod``'s wrapper ``kernel`` and on its twin ``<kernel>_ref``.
+    Returns {record: (ms, plain ms, bytes moved)} for the first entry
+    of each record."""
+    times = {}
+    for key, name, label, args, kw in timed:
+        kern, twin = getattr(mod, name), getattr(mod, name + "_ref")
+        moved = nbytes(args, kern(*args, **kw))
+        ms = time_ms(lambda: kern(*args, **kw), inner=10)
+        plain_ms = time_ms(lambda: twin(*args, **kw))
+        times.setdefault(key, (ms, plain_ms, moved))
+        floor = moved / HBM_BYTES_PER_S * 1e3
+        phase(tag, f"{name} {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, memory floor {floor:.4f} ms ({moved} B; "
+              f"{floor / ms:.0%} of the rate)  ({smi})")
+    return times
+
+
 def u64_err(got, want, what) -> int:
-    """Largest |got - want| over u64 values (0 when bit-equal); raises on
+    """Largest |got - want| over the stored words, read unsigned (u64
+    for int64 tensors, u32 for int32 ones; 0 when bit-equal); raises on
     a shape or dtype mismatch."""
-    from stark_rings_tpu_torch import to_numpy_u64
+    import torch
+
+    from stark_rings_tpu_torch import to_numpy_u32, to_numpy_u64
 
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
@@ -138,8 +277,80 @@ def u64_err(got, want, what) -> int:
     bad = (g != w).nonzero().reshape(-1)
     if not bad.numel():
         return 0
-    return max(abs(x - y) for x, y in zip(to_numpy_u64(g[bad]).tolist(),
-                                          to_numpy_u64(w[bad]).tolist()))
+    words = to_numpy_u64 if got.dtype == torch.int64 else to_numpy_u32
+    return max(abs(x - y) for x, y in zip(words(g[bad]).tolist(),
+                                          words(w[bad]).tolist()))
+
+
+def check(max_err, name, got, want, what) -> None:
+    """Fail unless ``got`` is bit-equal to ``want``, recording the largest
+    error under ``max_err[name]``."""
+    err = u64_err(got, want, f"{name} {what}")
+    max_err[name] = max(max_err.get(name, 0), err)
+    if err:
+        raise AssertionError(f"{name} {what}: differs from the plain twin, "
+                             f"max |err| {err}")
+
+
+def kernel_parity(e, Bx, label, mod, prefix, rng, max_err):
+    """Engine ``e``'s three fold kernels (``mod``'s wrappers named
+    ``<prefix>fold_*``) against their twins at batch ``Bx``, on buckets
+    from the real GEMM, at the bucket bound, zero (or -bound) and over
+    the whole int32 range; the level-1 GEMM against a float64 product.
+    Returns the buckets (V1, V2i, V1i, Va, Vb, Vc) for the timings."""
+    import torch
+
+    F, s, R, dev = e.F, e.signed, e.mat1.R, e.device
+    x = F.rand((Bx, e.N), rng, dev)
+    y = F.rand((e.mat2i.C, Bx, e.N1), rng, dev)   # NTT-domain input
+    z = F.rand((e.mat1i.C, Bx, e.N2), rng, dev)
+    V1 = e._dot(e.mat1, e._to_internal(x), e.c, "w1")
+    V2i = e._dot(e.mat2i, y, e.c, "w2i")
+    V1i = e._dot(e.mat1i, z, e.c, "w1i")
+    Va, _, _ = e._fwd_buckets(x, e.c)
+    Vb, _, _ = e._fwd_buckets(F.rand((Bx, e.N), rng, dev), e.c)
+    Vc, _, _ = e._fwd_buckets(F.rand((1, e.N), rng, dev), e.c)
+    bound = (1 << 26) - 1 if s else (1 << 27) - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    extreme = {
+        "bound": torch.full_like(V1, bound),
+        "-bound" if s else "zero": torch.full_like(V1, -bound if s else 0),
+        "int32": torch.randint(-2**31, 2**31, V1.shape, generator=gen,
+                               dtype=torch.int32, device=dev),
+    }
+    cases = [("fold_tw", "tw T", (V1, e.c["tw"], R), {"transpose_out": True}),
+             ("fold_tw", "twi T", (V2i, e.c["twi"], e.mat2i.R),
+              {"transpose_out": True}),
+             ("fold_tw", "tw N", (V1, e.c["tw"], R), {"transpose_out": False}),
+             ("fold_end", "inverse level 2", (V1i, e.mat1i.R), {}),
+             ("fold_end2_mul", "two inputs", (Va, Vb, e.mat2.R), {}),
+             ("fold_end2_mul", f"stacked {tuple(Va.shape[:1])}x"
+              f"{2 * Va.shape[1]}", (torch.cat([Va, Vb], 1), None, e.mat2.R),
+              {}),
+             ("fold_end2_mul", f"batch-1 Vb {tuple(Vc.shape)}",
+              (Va, Vc, e.mat2.R), {})]
+    for key, Vx in extreme.items():
+        cases += [("fold_tw", key, (Vx, e.c["tw"], R),
+                   {"transpose_out": True}),
+                  ("fold_end", key, (Vx, R), {}),
+                  ("fold_end2_mul", key, (Vx, Vx.flip(1).contiguous(), R), {})]
+    for kind, what, args, kw in cases:
+        name = prefix + kind
+        got = getattr(mod, name)(*args, signed=s, **kw)
+        want = getattr(mod, name + "_ref")(*args, signed=s, **kw)
+        torch.cuda.synchronize()
+        check(max_err, name, got, want, f"{label} {what}")
+    # the digit GEMM against an exact float64 product (sums < 2^53)
+    mat = e.mat1
+    d = mat.planes(e._to_internal(x).reshape(mat.C, -1))
+    big = torch.from_numpy(mat.big).to(dev).double()
+    exact = big @ d.double()
+    if not torch.equal(V1.double(), exact):
+        raise AssertionError(f"{label}: digit GEMM differs from the float64 "
+                             "product")
+    phase("parity", f"{label}: {len(cases)} kernel cases bit-equal to the "
+          f"twins; GEMM {tuple(V1.shape)} exact")
+    return V1, V2i, V1i, Va, Vb, Vc
 
 
 def py_evaluate(table, points, q) -> int:
@@ -202,13 +413,6 @@ def slice_e(dev, smi, rng) -> list:
     # -- 8. parity against the twins --------------------------------------
     max_err = {name: 0 for name in MLE_KERNELS}
 
-    def check(name, got, want, what):
-        err = u64_err(got, want, f"{name} {what}")
-        max_err[name] = max(max_err[name], err)
-        if err:
-            raise AssertionError(f"{name} {what}: differs from the plain "
-                                 f"twin, max |err| {err}")
-
     t0 = time.perf_counter()
     cases = 0
     for nv in (*NV_SMALL, NV, NV_BIG):
@@ -216,11 +420,12 @@ def slice_e(dev, smi, rng) -> list:
         chal = F.rand((nv,), rng, dev)
         for kind in ("zeros", "q-1", "random"):
             T = table(nv, kind)
-            check("evaluate_goldilocks", FX.evaluate_goldilocks(T, pts),
+            check(max_err, "evaluate_goldilocks",
+                  FX.evaluate_goldilocks(T, pts),
                   FX.evaluate_goldilocks_ref(T, pts), f"nv={nv} {kind}")
             cases += 1
             for k in FIX_KS if nv == NV else ():
-                check("fix_last_goldilocks",
+                check(max_err, "fix_last_goldilocks",
                       FX.fix_last_goldilocks(T, pts[NV - k:]),
                       FX.fix_last_goldilocks_ref(T, pts[NV - k:]),
                       f"nv={nv} k={k} {kind}")
@@ -231,8 +436,9 @@ def slice_e(dev, smi, rng) -> list:
                                                                  chal)
                 want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal)
                 what = f"nv={nv} k={k} {kind}"
-                check("sumcheck_prove_many_goldilocks", msgs, want_m, what)
-                check("sumcheck_prove_many_goldilocks",
+                check(max_err, "sumcheck_prove_many_goldilocks", msgs,
+                      want_m, what)
+                check(max_err, "sumcheck_prove_many_goldilocks",
                       torch.stack(finals), torch.stack(want_f), what)
                 cases += 1
     torch.cuda.synchronize()
@@ -330,32 +536,39 @@ def slice_e(dev, smi, rng) -> list:
     def fix_case(k):
         return ("fix_last_goldilocks", f"nv={NV} k={k}",
                 lambda: FX.fix_last_goldilocks(T20, p20[NV - k:]),
-                lambda: FX.fix_last_goldilocks_ref(T20, p20[NV - k:]))
+                lambda: FX.fix_last_goldilocks_ref(T20, p20[NV - k:]),
+                (T20, p20[NV - k:]))
 
-    timed = [  # (kernel, label, kernel call, twin call); first is recorded
+    timed = [  # (kernel, label, kernel call, twin call, inputs); the
+        # first per kernel is recorded
         ("evaluate_goldilocks", f"nv={NV}",
          lambda: FX.evaluate_goldilocks(T20, p20),
-         lambda: FX.evaluate_goldilocks_ref(T20, p20)),
+         lambda: FX.evaluate_goldilocks_ref(T20, p20), (T20, p20)),
         fix_case(FIX_KS[1]),
         ("sumcheck_prove_many_goldilocks", f"nv={NV} k=2",
          lambda: SK.sumcheck_prove_many_goldilocks([G20, H20], c20),
-         lambda: SK.sumcheck_prove_many_ref([G20, H20], c20)),
+         lambda: SK.sumcheck_prove_many_ref([G20, H20], c20),
+         (G20, H20, c20)),
         ("evaluate_goldilocks", f"nv={NV_BIG}",
          lambda: FX.evaluate_goldilocks(T24, p24),
-         lambda: FX.evaluate_goldilocks_ref(T24, p24)),
+         lambda: FX.evaluate_goldilocks_ref(T24, p24), (T24, p24)),
         fix_case(FIX_KS[0]),
         fix_case(FIX_KS[2]),
         ("sumcheck_prove_many_goldilocks", f"nv={NV} k=3",
          lambda: SK.sumcheck_prove_many_goldilocks([G20, H20, T20], c20),
-         lambda: SK.sumcheck_prove_many_ref([G20, H20, T20], c20)),
+         lambda: SK.sumcheck_prove_many_ref([G20, H20, T20], c20),
+         (G20, H20, T20, c20)),
     ]
     times = {}
-    for name, label, kern, twin in timed:
+    for name, label, kern, twin, inputs in timed:
+        moved = nbytes(inputs, kern())
         ms = time_ms(kern, inner=10)
         plain_ms = time_ms(twin)
-        times.setdefault(name, (ms, plain_ms))
+        times.setdefault(name, (ms, plain_ms, moved))
         phase("mle time", f"{name} {label}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms  ({smi})")
+              f"{plain_ms:.4f} ms, memory floor "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} B)  "
+              f"({smi})")
     k7_ms = times["sumcheck_prove_many_goldilocks"][0]
     phase("mle time", f"K7 nv={NV} k=2: {1e3 / k7_ms:.1f} proofs/s; the "
           f"generic msb prover "
@@ -373,8 +586,6 @@ def slice_e(dev, smi, rng) -> list:
         + f"  ({smi})")
 
     # -- 13. where the device time of the slice's calls goes ----------------
-    from torch.profiler import ProfilerActivity, profile
-
     calls = [
         ("K7 nv=20 k=2", 3,
          lambda: SK.sumcheck_prove_many_goldilocks([G20, H20], c20)),
@@ -383,31 +594,301 @@ def slice_e(dev, smi, rng) -> list:
             G20, H20, Transcript(b"profile"), NV)),
     ]
     for label, n, fn in calls:
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # the window's first kernel goes unrecorded: let it be this one
-            torch.zeros(1, device=dev).add_(1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        rows = sorted(prof.key_averages(),
-                      key=lambda r: -r.self_device_time_total)
-        busy_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
-        top = "; ".join(f"{r.key[:40]} x{r.count // n} "
-                        f"{r.self_device_time_total / 1e3 / n:.4f} ms"
-                        for r in rows[:4])
+        busy_ms, wall_ms, top = device_profile(fn, n, dev, 4)
         phase("mle profile", f"{label}: device busy {busy_ms:.4f} ms of "
               f"{wall_ms:.4f} ms wall (profiled), idle share "
               f"{1 - busy_ms / wall_ms:.3f}; {top}  ({smi})")
 
-    return [{"name": name, "route": "cuda", "source": MLE_SOURCE,
-             "replaces": MLE_KERNELS[name], "launches": launches[name],
-             "max_abs_err": max_err[name], "ms": times[name][0],
-             "plain_ms": times[name][1]} for name in MLE_KERNELS]
+    return [record(name, MLE_SOURCE, MLE_KERNELS[name], launches[name],
+                   max_err[name], *times[name]) for name in MLE_KERNELS]
+
+
+def slice_b(dev, smi, rng, gl) -> list:
+    """Phases 14-18: the power-of-two ring API, ``get_power_ring(...)
+    .mxu_ctx()``.  ``gl`` holds Slice A's deg-2^16 operands (``a``,
+    ``b``, ``ch``), the fused engine ``eng``, its ``results`` on them
+    and the schoolbook rows ``orc``.  Returns the kernels' JSON
+    records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import (BABYBEAR as FB, GOLDILOCKS as F,
+                                       MxuBBFusedNTT, get_power_ring,
+                                       to_numpy_u32, to_numpy_u64)
+    from stark_rings_tpu_torch.native.host import negacyclic_mul_schoolbook_q
+    from stark_rings_tpu_torch.ops import _build, fold as K, fold_bb as KB
+
+    t0 = time.perf_counter()
+    bb_ring = get_power_ring("babybear", BB_LOG, device=dev)
+    bb = bb_ring.mxu_ctx()
+    bb_plain = bb_ring.mxu_ctx(pallas=False)
+    bb_stacked = MxuBBFusedNTT(bb_ring.D, stack_forward=True, device=dev)
+    bb_signed = MxuBBFusedNTT(bb_ring.D, unsigned=False, device=dev)
+    ga, gb, gch = gl["a"], gl["b"], gl["ch"]
+    GB, GN = ga.shape
+    gk = get_power_ring("goldilocks", GN.bit_length() - 1,
+                        device=dev).mxu_ctx()
+    big_ring = get_power_ring("goldilocks", GL_BIG_LOG, device=dev)
+    gk_big = big_ring.mxu_ctx()
+    phase("power tables", f"babybear deg {bb_ring.D} ({type(bb).__name__}, "
+          f"{type(bb_plain).__name__}, stacked, signed) and goldilocks deg "
+          f"{GN} and {big_ring.D} ({type(gk).__name__}) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 14. kernel parity at the power rings' shapes -----------------------
+    max_err = {}
+    t0 = time.perf_counter()
+    bbV = kernel_parity(bb, BB_B, f"babybear unsigned B={BB_B}", KB, "bb_",
+                        rng, max_err)
+    kernel_parity(bb_signed, BB_B_SIGNED, f"babybear signed B={BB_B_SIGNED}",
+                  KB, "bb_", rng, max_err)
+
+    def whole_array_parity(e, Bx):
+        """K1 untransposed and K3 as mxu_ctx() runs them, on buckets from
+        the real GEMM, at the bucket bound, zero and full-range int32."""
+        R = e.mat1.R
+        V1 = e._dot(e.mat1, e._to_internal(F.rand((Bx, e.N), rng, dev)),
+                    e.c, "w1")
+        V2 = e._dot(e.mat2, F.rand((e.mat2.C, Bx, e.N1), rng, dev), e.c,
+                    "w2")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cases = {"GEMM": (V1, V2)}
+        for what, fill in (("bound", (1 << 27) - 1), ("zero", 0)):
+            cases[what] = (torch.full_like(V1, fill),
+                           torch.full_like(V2, fill))
+        cases["int32"] = tuple(
+            torch.randint(-2**31, 2**31, V.shape, generator=gen,
+                          dtype=torch.int32, device=dev) for V in (V1, V2))
+        for what, (Vt, Ve) in cases.items():
+            args = (Vt, e.c["tw"], R)
+            kw = {"transpose_out": False, "signed": False}
+            check(max_err, "fold_tw[transpose_out=False]",
+                  K.fold_tw(*args, **kw), K.fold_tw_ref(*args, **kw),
+                  f"R={R} B={Bx} {what}")
+            check(max_err, "fold_end[whole-array]",
+                  K.fold_end(Ve, e.mat2.R, signed=False),
+                  K.fold_end_ref(Ve, e.mat2.R, signed=False),
+                  f"R={e.mat2.R} B={Bx} {what}")
+        phase("power parity", f"K1 untransposed and K3 at R={R}, B={Bx}: "
+              f"{2 * len(cases)} cases bit-equal to the twins")
+        return V1, V2
+
+    gV1, gV2 = whole_array_parity(gk, GB)
+    whole_array_parity(gk_big, GL_BIG_B)
+    q = F.q
+    pa, pb = F.rand((GB * GN,), rng, dev), F.rand((GB * GN,), rng, dev)
+    pa[:3], pb[:3] = F.encode([q - 1, q - 1, 1], dev), F.encode(
+        [q - 1, 0, q - 1], dev)
+    for what, x, y in ((f"[{GB}, {GN}]", pa.view(GB, GN), pb.view(GB, GN)),
+                       (f"[{GB * GN - 3}]", pa[3:], pb[3:])):
+        check(max_err, "pointwise_mul", K.pointwise_mul(x, y),
+              K.pointwise_mul_ref(x, y), what)
+    torch.cuda.synchronize()
+    phase("power parity", f"pointwise_mul on [{GB}, {GN}] and "
+          f"[{GB * GN - 3}] bit-equal to its twin; done in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the slice's main path, launches counted ------------------------
+    a = FB.rand((BB_B, bb_ring.D), rng, dev)
+    b = FB.rand((BB_B, bb_ring.D), rng, dev)
+    a_big = F.rand((GL_BIG_B, big_ring.D), rng, dev)
+    b_big = F.rand((GL_BIG_B, big_ring.D), rng, dev)
+
+    def counts():
+        return {**K.LAUNCHES, **KB.LAUNCHES}
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "bb mul": lambda: bb.mul(a, b),
+        "bb stack_forward": lambda: bb_stacked.mul(a, b),
+        "bb square": lambda: bb.square(a),
+        "bb mul_cached": lambda: bb.mul_cached(a, bb.precompute(b)),
+        "bb mul_cached_batch1": lambda: bb.mul_cached(a, bb.precompute(b[:1])),
+        "gl mul": lambda: gk.mul(ga, gb),
+        "gl mul_cached": lambda: gk.mul_cached(ga, gk.precompute(gb)),
+        "gl mul_cached_batch1": lambda: gk.mul_cached(ga, gk.precompute(gch)),
+        "gl square": lambda: gk.square(ga),
+        "gl big mul": lambda: gk_big.mul(a_big, b_big),
+    }
+    results, per_variant = {}, {}
+    for name, fn in runs.items():
+        before = counts()
+        results[name] = fn()
+        per_variant[name] = {k: v - before[k] for k, v in counts().items()
+                             if v != before[k]}
+    # BASELINE config 2's invertibility check, through the ring API
+    na = bb_ring.crt(a)
+    one = bb_ring.ntt_mul(na, bb_ring.ntt_inv(na))
+    torch.cuda.synchronize()
+    launches = counts()
+    phase("power path", f"{len(runs)} products (babybear deg {bb_ring.D} "
+          f"B={BB_B}, goldilocks deg {GN} B={GB} and deg {big_ring.D} "
+          f"B={GL_BIG_B}) and one invertibility check in "
+          f"{time.perf_counter() - t0:.2f} s; launches {per_variant}")
+
+    t0 = time.perf_counter()
+    pre = bb_plain.precompute(b)
+    pre1 = bb_plain.precompute(b[:1])
+    want = {"bb mul": bb_plain.mul(a, b), "bb square": bb_plain.square(a),
+            "bb mul_cached": bb_plain.mul_cached(a, pre),
+            "bb mul_cached_batch1": bb_plain.mul_cached(a, pre1)}
+    want["bb stack_forward"] = want["bb mul"]
+    ntt = {"bb mul": bb_ring.coeff_mul(a, b),
+           "bb square": bb_ring.coeff_square(a),
+           "bb mul_cached_batch1": bb_ring.coeff_mul(a, b[:1].expand_as(b))}
+    ntt["bb stack_forward"] = ntt["bb mul_cached"] = ntt["bb mul"]
+    for name, w in want.items():
+        got = results[name]
+        if got.shape != (BB_B, bb_ring.D) or got.dtype != torch.int32:
+            raise AssertionError(f"{name}: got {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if ((got < 0) | (got >= FB.q)).any():
+            raise AssertionError(f"{name}: non-canonical storage")
+        if not torch.equal(got, w):
+            raise AssertionError(f"{name}: kernel path differs from the "
+                                 "plain MxuBBNTT on the card")
+        if not torch.equal(got, ntt[name]):
+            raise AssertionError(f"{name}: differs from NTTContext "
+                                 "coeff_mul on the card")
+    # the C++ schoolbook over q on canonical values
+    ca, cb = (to_numpy_u32(FB.canon(x[:ORACLE_ROWS])).astype(np.uint64)
+              for x in (a, b))
+    with ThreadPoolExecutor(max_workers=3 * ORACLE_ROWS) as pool:
+        rows = {k: np.stack(list(pool.map(
+            lambda xy: negacyclic_mul_schoolbook_q(*xy, FB.q), pairs)))
+            for k, pairs in (("ab", zip(ca, cb)), ("aa", zip(ca, ca)),
+                             ("ab1", zip(ca, [cb[0]] * ORACLE_ROWS)))}
+    for name, key in (("bb mul", "ab"), ("bb stack_forward", "ab"),
+                      ("bb mul_cached", "ab"), ("bb square", "aa"),
+                      ("bb mul_cached_batch1", "ab1")):
+        got = to_numpy_u32(FB.canon(results[name][:ORACLE_ROWS]))
+        if not np.array_equal(got.astype(np.uint64), rows[key]):
+            raise AssertionError(f"{name}: differs from the schoolbook "
+                                 "oracle")
+    zeros = int((na == 0).sum())
+    if not torch.equal(one, torch.where(na == 0, 0, FB.ones(na.shape, dev))):
+        raise AssertionError("config 2: a * a^-1 != 1 in a nonzero slot")
+    phase("power path", f"babybear: 5 variants bit-equal to MxuBBNTT and "
+          f"to NTTContext coeff_mul on the whole batch, {ORACLE_ROWS} rows "
+          f"to the C++ schoolbook over q; a * a^-1 = 1 in all "
+          f"{na.numel() - zeros} nonzero slots ({zeros} zero slots) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    for name, key, orc in (("gl mul", "mul", "ab"),
+                           ("gl mul_cached", "mul_cached", "ab"),
+                           ("gl mul_cached_batch1", "mul_cached_batch1", "ac"),
+                           ("gl square", "square", "aa")):
+        if not torch.equal(results[name], gl["results"][key]):
+            raise AssertionError(f"{name}: mxu_ctx() differs from "
+                                 "Mxu2FusedNTT")
+        if not np.array_equal(to_numpy_u64(results[name][:ORACLE_ROWS]),
+                              gl["orc"][orc]):
+            raise AssertionError(f"{name}: differs from the schoolbook "
+                                 "oracle")
+    if not torch.equal(results["gl big mul"], big_ring.coeff_mul(a_big,
+                                                                 b_big)):
+        raise AssertionError(f"goldilocks deg {big_ring.D}: mxu_ctx() mul "
+                             "differs from NTTContext coeff_mul")
+    phase("power path", f"goldilocks: deg {GN} mul, mul_cached (batch "
+          f"{GB} and 1) and square equal Mxu2FusedNTT and {ORACLE_ROWS} "
+          f"schoolbook rows; deg {big_ring.D} mul equals NTTContext "
+          f"coeff_mul ({time.perf_counter() - t0:.1f} s)")
+
+    # -- 16. launch counts --------------------------------------------------
+    phase("power launches", json.dumps(launches))
+    rec_launches = {name: launches[name.split("[")[0]]
+                    for name in POWER_KERNELS}
+    for name, n in rec_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was never launched on the power "
+                                 "rings' path")
+
+    # -- 17. timings ---------------------------------------------------------
+    V1, V2i, V1i, Va, Vb, Vc = bbV
+    R = bb.mat2.R
+    Vs = torch.cat([Va, Vb], 1)
+    u = {"signed": False}
+    timed = [  # (record, kernel, shapes, args, kwargs)
+        ("bb_fold_tw", "bb_fold_tw", shape(V1) + " transposed",
+         (V1, bb.c["tw"], R), {"transpose_out": True, **u}),
+        ("bb_fold_end2_mul", "bb_fold_end2_mul", shape(Va, Vb), (Va, Vb, R),
+         u),
+        ("bb_fold_end", "bb_fold_end", shape(V1i), (V1i, R), u),
+        ("bb_fold_end2_mul", "bb_fold_end2_mul", "stacked " + shape(Vs),
+         (Vs, None, R), u),
+        ("bb_fold_end2_mul", "bb_fold_end2_mul", "batch-1 " + shape(Va, Vc),
+         (Va, Vc, R), u),
+    ]
+    times = time_kernels(KB, timed, smi, "power time")
+    del Vs
+    pa = F.rand((gk.N2, GB, gk.N1), rng, dev)
+    pb = F.rand((gk.N2, GB, gk.N1), rng, dev)
+    times.update(time_kernels(K, [
+        ("pointwise_mul", "pointwise_mul", shape(pa, pb), (pa, pb), {}),
+        ("fold_tw[transpose_out=False]", "fold_tw",
+         shape(gV1) + " untransposed", (gV1, gk.c["tw"], gk.mat1.R),
+         {"transpose_out": False, **u}),
+        ("fold_end[whole-array]", "fold_end", shape(gV2),
+         (gV2, gk.mat2.R), u),
+    ], smi, "power time"))
+
+    def in_turns(first, second):
+        """first, second, second, first: each one's two medians (ms)."""
+        t = [time_ms(f) for f in (first, second, second, first)]
+        return (t[0], t[3]), (t[1], t[2])
+
+    plain_ms, kern_ms = in_turns(lambda: bb_plain.mul(a, b),
+                                 lambda: bb.mul(a, b))
+    phase("power time", f"babybear mul deg {bb_ring.D} B={BB_B}: "
+          f"MxuBBFusedNTT (K4) " + ", ".join(
+              f"{m:.3f} ms = {BB_B / m * 1e3:.1f} mults/s" for m in kern_ms)
+          + "; plain MxuBBNTT " + ", ".join(
+              f"{m:.3f} ms = {BB_B / m * 1e3:.1f} mults/s" for m in plain_ms)
+          + f"  ({smi})")
+    fused_ms, kern_ms = in_turns(lambda: gl["eng"].mul(ga, gb),
+                                 lambda: gk.mul(ga, gb))
+    phase("power time", f"goldilocks mul deg {GN} B={GB}: mxu_ctx() "
+          f"Mxu2KernelNTT " + ", ".join(
+              f"{m:.3f} ms = {GB / m * 1e3:.1f} mults/s" for m in kern_ms)
+          + "; Mxu2FusedNTT " + ", ".join(
+              f"{m:.3f} ms = {GB / m * 1e3:.1f} mults/s" for m in fused_ms)
+          + f"  ({smi})")
+    gemm = digit_gemms(bb, BB_B, rng)
+    phase("power time", f"babybear digit GEMMs (planes, _int_mm "
+          f"{shape(bb.c['w1'])} and offset terms) at B={BB_B}: " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in gemm.items()) + f"  ({smi})")
+    # the host cost of a launch, timed as the kernels are (device clock,
+    # groups of back-to-back launches of a 1-element kernel): through the
+    # wrapper (checks, allocation, ctypes, launch) and through
+    # _build.launch alone (ctypes, launch), which every launch-bound call
+    # pays per launch; counted apart from LAUNCHES
+    one = F.encode([1], dev)
+    out = torch.empty_like(one)
+    fn = _build.kernels().srt_pointwise_mul
+    ptrs = (one.data_ptr(), one.data_ptr(), out.data_ptr(), 1)
+    scratch = {"pointwise_mul": 0}
+    launch_us = {
+        label: time_ms(call, inner=LAUNCH_REPS) * 1e3 for label, call in (
+            ("wrapper", lambda: K.pointwise_mul(one, one)),
+            ("_build.launch", lambda: _build.launch(
+                scratch, "pointwise_mul", fn, dev, *ptrs)))}
+    phase("power time", f"host cost of one launch (pointwise_mul on 1 "
+          f"element, median of {REPS} groups of {LAUNCH_REPS}): " + ", ".join(
+              f"{k} {v:.2f} us" for k, v in launch_us.items()) + f"  ({smi})")
+
+    # -- 18. where the device time of one BabyBear mul goes -----------------
+    busy_ms, wall_ms, top = device_profile(lambda: bb.mul(a, b), 3, dev, 8)
+    phase("power profile", f"babybear mul deg {bb_ring.D} B={BB_B}: device "
+          f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled), idle "
+          f"share {1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
+
+    return [record(name, src, ref, rec_launches[name], max_err[name],
+                   *times[name])
+            for name, (src, ref) in POWER_KERNELS.items()]
 
 
 def card_info() -> str:
@@ -421,7 +902,7 @@ def card_info() -> str:
 
 
 def main() -> None:
-    if not (HERE / MLE_SOURCE).is_file() or not (HERE / SOURCE).is_file():
+    if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE)):
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")
@@ -492,85 +973,11 @@ def main() -> None:
     # -- 3. kernel parity at the main path's shapes ------------------------
     max_err = {name: 0 for name in KERNELS}
 
-    def check(name, got, want, what):
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name} {what}: {got.dtype} "
-                                 f"{tuple(got.shape)} vs {want.dtype} "
-                                 f"{tuple(want.shape)}")
-        bad = (got != want).nonzero()
-        err = 0
-        if bad.numel():
-            g = to_numpy_u64(got[tuple(bad.t())]).tolist()
-            w = to_numpy_u64(want[tuple(bad.t())]).tolist()
-            err = max(abs(x - y) for x, y in zip(g, w))
-        max_err[name] = max(max_err[name], err)
-        if err:
-            raise AssertionError(f"{name} {what}: {bad.shape[0]} elements "
-                                 f"differ from the plain twin, max |err| "
-                                 f"{err}")
-
-    def kernel_parity(e, Bx, label):
-        s = e.signed
-        R = e.mat1.R
-        x = F.rand((Bx, N), rng, dev)
-        y = F.rand((e.mat2i.C, Bx, e.N1), rng, dev)   # NTT-domain input
-        z = F.rand((e.mat1i.C, Bx, e.N2), rng, dev)
-        V1 = e._dot(e.mat1, e._to_internal(x), e.c, "w1")
-        V2i = e._dot(e.mat2i, y, e.c, "w2i")
-        V1i = e._dot(e.mat1i, z, e.c, "w1i")
-        Va, _, _ = e._fwd_buckets(x, e.c)
-        Vb, _, _ = e._fwd_buckets(F.rand((Bx, N), rng, dev), e.c)
-        Vc, _, _ = e._fwd_buckets(F.rand((1, N), rng, dev), e.c)
-        bound = (1 << 26) - 1 if s else (1 << 27) - 1
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        extreme = {
-            "bound": torch.full_like(V1, bound),
-            "-bound" if s else "zero": torch.full_like(V1, -bound if s
-                                                       else 0),
-            "int32": torch.randint(-2**31, 2**31, V1.shape, generator=gen,
-                                   dtype=torch.int32, device=dev),
-        }
-        cases = [("fold_tw", "tw T", (V1, e.c["tw"], R), {"transpose_out":
-                                                           True}),
-                 ("fold_tw", "twi T", (V2i, e.c["twi"], e.mat2i.R),
-                  {"transpose_out": True}),
-                 ("fold_tw", "tw N", (V1, e.c["tw"], R),
-                  {"transpose_out": False}),
-                 ("fold_end", "inverse level 2", (V1i, e.mat1i.R), {}),
-                 ("fold_end2_mul", "two inputs", (Va, Vb, e.mat2.R), {}),
-                 ("fold_end2_mul", f"stacked {tuple(Va.shape[:1])}x"
-                  f"{2 * Va.shape[1]}", (torch.cat([Va, Vb], 1), None,
-                                         e.mat2.R), {}),
-                 ("fold_end2_mul", f"batch-1 Vb {tuple(Vc.shape)}",
-                  (Va, Vc, e.mat2.R), {})]
-        for key, Vx in extreme.items():
-            cases += [("fold_tw", key, (Vx, e.c["tw"], R),
-                       {"transpose_out": True}),
-                      ("fold_end", key, (Vx, R), {}),
-                      ("fold_end2_mul", key, (Vx, Vx.flip(1).contiguous(),
-                                              R), {})]
-        refs = {"fold_tw": K.fold_tw_ref, "fold_end": K.fold_end_ref,
-                "fold_end2_mul": K.fold_end2_mul_ref}
-        for name, what, args, kw in cases:
-            got = getattr(K, name)(*args, signed=s, **kw)
-            want = refs[name](*args, signed=s, **kw)
-            torch.cuda.synchronize()
-            check(name, got, want, f"{label} {what}")
-        # the digit GEMM against an exact float64 product (sums < 2^53)
-        mat = e.mat1
-        d = mat.planes(e._to_internal(x).reshape(mat.C, -1))
-        big = torch.from_numpy(mat.big).to(dev).double()
-        exact = big @ d.double()
-        if not torch.equal(V1.double(), exact):
-            raise AssertionError(f"{label}: digit GEMM differs from the "
-                                 "float64 product")
-        phase("parity", f"{label}: {len(cases)} kernel cases bit-equal to "
-              f"the twins; GEMM {tuple(V1.shape)} exact")
-        return V1, V2i, V1i, Va, Vb, Vc
-
     t0 = time.perf_counter()
-    V1, V2i, V1i, Va, Vb, Vc = kernel_parity(eng, B, f"unsigned B={B}")
-    kernel_parity(eng_signed, B_SIGNED, f"signed B={B_SIGNED}")
+    V1, V2i, V1i, Va, Vb, Vc = kernel_parity(eng, B, f"unsigned B={B}", K,
+                                             "", rng, max_err)
+    kernel_parity(eng_signed, B_SIGNED, f"signed B={B_SIGNED}", K, "", rng,
+                  max_err)
     phase("parity", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. engine parity at N = 2^16, B = 80 ------------------------------
@@ -648,38 +1055,23 @@ def main() -> None:
     Vs = torch.cat([Va, Vb], 1)
     R = eng.mat2.R
 
-    def shape(*ts):
-        return " x ".join(str(list(t.shape)) for t in ts)
-
-    timed = [  # (kernel, shapes, call); the first per kernel is the record's
-        ("fold_tw", shape(V1) + " transposed",
-         lambda f: f(V1, eng.c["tw"], R, transpose_out=True, signed=False)),
-        ("fold_end2_mul", shape(Va, Vb),
-         lambda f: f(Va, Vb, R, signed=False)),
-        ("fold_end", shape(V1i), lambda f: f(V1i, R, signed=False)),
-        ("fold_end2_mul", "stacked " + shape(Vs),
-         lambda f: f(Vs, None, R, signed=False)),
-        ("fold_end2_mul", "batch-1 " + shape(Va, Vc),
-         lambda f: f(Va, Vc, R, signed=False)),
+    timed = [  # (record, kernel, shapes, args, kwargs)
+        ("fold_tw", "fold_tw", shape(V1) + " transposed",
+         (V1, eng.c["tw"], R), {"transpose_out": True, "signed": False}),
+        ("fold_end2_mul", "fold_end2_mul", shape(Va, Vb), (Va, Vb, R),
+         {"signed": False}),
+        ("fold_end", "fold_end", shape(V1i), (V1i, R), {"signed": False}),
+        ("fold_end2_mul", "fold_end2_mul", "stacked " + shape(Vs),
+         (Vs, None, R), {"signed": False}),
+        ("fold_end2_mul", "fold_end2_mul", "batch-1 " + shape(Va, Vc),
+         (Va, Vc, R), {"signed": False}),
     ]
-    twins = {"fold_tw": K.fold_tw_ref, "fold_end2_mul": K.fold_end2_mul_ref,
-             "fold_end": K.fold_end_ref}
-    times = {}
-    for name, shapes, call in timed:
-        ms = time_ms(lambda: call(getattr(K, name)), inner=10)
-        plain_ms = time_ms(lambda: call(twins[name]))
-        times.setdefault(name, (ms, plain_ms))
-        phase("time", f"{name} {shapes}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms  ({smi})")
-    gemm = {}
-    for key, mat in (("w1", eng.mat1), ("w2", eng.mat2), ("w2i", eng.mat2i),
-                     ("w1i", eng.mat1i)):
-        xc = F.rand((mat.C, B * N // mat.C), rng, dev)
-        gemm[key] = time_ms(lambda: mat.dot(xc, eng.c[key],
-                                            eng.c[key + "_corr"]))
-    s8 = eng.mat1._planes(xc, 0x80).view(torch.int8)
+    times = time_kernels(K, timed, smi)
+    gemm = digit_gemms(eng, B, rng)
+    xc = F.rand((eng.mat1i.C, B * N // eng.mat1i.C), rng, dev)
+    s8 = eng.mat1i._planes(xc, 0x80).view(torch.int8)
     mm_ms = time_ms(lambda: torch._int_mm(eng.c["w1i"], s8))
-    six = 2 * gemm["w1"] + 2 * gemm["w2"] + gemm["w2i"] + gemm["w1i"]
+    six = gemm.pop("six")
     phase("time", f"digit GEMM {shape(eng.c['w1i'], s8)} with digit planes "
           f"and offset terms: " + ", ".join(f"{k} {v:.4f} ms"
                                              for k, v in gemm.items())
@@ -692,30 +1084,16 @@ def main() -> None:
           f"ms = {B / plain_mul_ms * 1e3:.1f} mults/s  ({smi})")
 
     # -- 7. where the device time of one mul goes ---------------------------
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            eng.mul(a, b)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    rows = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / 3
-    top = "; ".join(f"{e.key[:48]} x{e.count // 3} "
-                    f"{e.self_device_time_total / 1e3 / 3:.3f} ms"
-                    for e in rows[:8])
+    busy_ms, wall_ms, top = device_profile(lambda: eng.mul(a, b), 3, dev, 8)
     phase("profile", f"mul N={N} B={B}: device busy {busy_ms:.3f} ms of "
           f"{wall_ms:.3f} ms wall (profiled), idle share "
           f"{1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
 
-    records = [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[name][0],
-         "plain_ms": times[name][1]} for name in KERNELS]
+    records = [record(name, SOURCE, KERNELS[name], launches[name],
+                      max_err[name], *times[name]) for name in KERNELS]
     records += slice_e(dev, smi, rng)
+    records += slice_b(dev, smi, rng, {
+        "eng": eng, "a": a, "b": b, "ch": ch, "results": results, "orc": orc})
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,33 +2,47 @@
 
 The JAX package ``stark_rings_tpu`` is the reference; this package
 mirrors its module layout and imports ``torch`` and numpy, never JAX.
-So far it holds the deg-2^16 Goldilocks negacyclic ring multiply and
-the Goldilocks MLE and sumcheck path:
+So far it holds the Goldilocks and BabyBear fields, the power-of-two
+negacyclic rings over them (deg 2^16 Goldilocks and deg 2^12 BabyBear
+on the main paths), and the Goldilocks MLE and sumcheck path:
 
-    fields/       Goldilocks arithmetic on int64 tensors of u64 bits
-    ops/ntt.py    find_primitive_root
+    fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
+                  Montgomery), get_field
+    ops/ntt.py    the radix-2/4 NTTContext, find_primitive_root
     ops/mxu2.py   digit tables, digit GEMM, plain Mxu2NTT
-    ops/fold.py   fold kernels K1-K3 (wrappers + plain twins) and the
-                  fused engine Mxu2FusedNTT
+    ops/mxu_bb.py BabyBear digit tables and the plain MxuBBNTT
+    ops/fold.py   fold kernels K1-K3 and the pointwise kernel (wrappers
+                  + plain twins), the fused engine Mxu2FusedNTT and the
+                  evaluation-domain engine Mxu2KernelNTT
+    ops/fold_bb.py BabyBear fold kernels K4 and MxuBBFusedNTT
     ops/_build.py builds and loads csrc/, the wrappers' launch rule
     linalg/       the field-element adapter FieldElems
     mle/          DenseMLE and helpers; the generic sumcheck prover
                   (sumcheck.py); kernels K5 evaluate / K6 fix-last
                   (fix.py) and the one-pass prover K7
                   (sumcheck_kernel.py); digit-GEMM evaluation (mxu_eval)
-    rings/        the SHAKE-256 Fiat-Shamir Transcript
+    rings/        PowerRing / get_power_ring; the SHAKE-256 Fiat-Shamir
+                  Transcript
     examples/     the sumcheck protocol (prove / verify)
     csrc/         the CUDA kernels (built by nvcc at first use)
     native/       the JAX-free loader of the C++ host oracle
 
-A field element is a ``torch.int64`` tensor holding the u64 bit pattern
-(see :mod:`.device`).
+Storage is described in :mod:`.device`.  Every entry point runs on the
+CUDA card unless the caller passes ``device="cpu"``.
 """
 
-from .device import get_device, to_numpy_u64, to_torch
-from .fields import GOLDILOCKS
-from .ops.fold import Mxu2FusedNTT
+from .device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
+                     to_torch_u32)
+from .fields import BABYBEAR, GOLDILOCKS, get_field
+from .ops.fold import Mxu2FusedNTT, Mxu2KernelNTT
+from .ops.fold_bb import MxuBBFusedNTT
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
+from .ops.mxu_bb import MxuBBNTT
+from .ops.ntt import NTTContext, get_ntt
+from .rings.power import PowerRing, get_power_ring
 
-__all__ = ["get_device", "to_torch", "to_numpy_u64", "GOLDILOCKS",
-           "Mxu2NTT", "Mxu2FusedNTT", "PrescaledMat", "from_jax_consts"]
+__all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
+           "to_numpy_u32", "GOLDILOCKS", "BABYBEAR", "get_field",
+           "Mxu2NTT", "Mxu2FusedNTT", "Mxu2KernelNTT", "MxuBBNTT",
+           "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
+           "NTTContext", "get_ntt", "PowerRing", "get_power_ring"]

@@ -1,11 +1,25 @@
-"""Device selection and the u64 storage codec.
+"""Device selection and the storage codecs.
 
-A Goldilocks element is stored as a ``torch.int64`` tensor holding the
-element's u64 bit pattern: torch's ``uint64`` lacks add, shift and
-compare, while ``int64`` add and mul wrap mod 2^64 exactly as u64 does.
-A numpy ``uint64`` array crosses over at zero cost through
-``.view(np.int64)``; the CUDA kernels read the same bytes as
-``uint64_t``.
+Every entry point of the port runs on the CUDA card unless the caller
+passes ``device="cpu"``; asking for CUDA where there is none raises,
+and nothing falls back to the CPU.
+
+Storage, per field:
+
+* **Goldilocks** (q = 2^64 - 2^32 + 1): a ``torch.int64`` tensor holding
+  each element's canonical u64 bit pattern.  torch's ``uint64`` lacks
+  add, shift and compare, while ``int64`` add and mul wrap mod 2^64
+  exactly as u64 does.  A numpy ``uint64`` array crosses over at zero
+  cost through ``.view(np.int64)`` (:func:`to_torch`,
+  :func:`to_numpy_u64`); the CUDA kernels read the same bytes as
+  ``uint64_t``.
+* **BabyBear** (q = 15 * 2^27 + 1): a ``torch.int32`` tensor holding the
+  u32 Montgomery form (R = 2^32), exactly the reference's ``uint32``
+  storage.  q < 2^31, so every stored value is a non-negative int32;
+  products are taken after widening to ``int64`` (a*b < 2^62).  A numpy
+  ``uint32`` array crosses over through ``.view(np.int32)``
+  (:func:`to_torch_u32`, :func:`to_numpy_u32`); the kernels read
+  ``uint32_t``.
 """
 
 from __future__ import annotations
@@ -13,16 +27,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["get_device", "to_torch", "to_numpy_u64"]
+__all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
+           "to_numpy_u32"]
 
 
-def get_device(device: str | torch.device = "cpu") -> torch.device:
+def get_device(device: str | torch.device = "cuda") -> torch.device:
     """``torch.device(device)``, raising if CUDA is asked for and absent."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available (torch.cuda.is_available() is False)")
+                           "available (torch.cuda.is_available() is False); "
+                           "pass device='cpu' to run on the CPU")
     return dev
+
+
+def _from_numpy(x: np.ndarray, udt, sdt, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(x, dtype=udt)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr.view(sdt)).to(get_device(device))
 
 
 def to_torch(x: np.ndarray, device: str | torch.device) -> torch.Tensor:
@@ -30,10 +53,7 @@ def to_torch(x: np.ndarray, device: str | torch.device) -> torch.Tensor:
 
     No copy on the CPU when ``x`` is already a writable contiguous uint64
     array (the tensor then shares its memory)."""
-    arr = np.ascontiguousarray(x, dtype=np.uint64)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    return torch.from_numpy(arr.view(np.int64)).to(get_device(device))
+    return _from_numpy(x, np.uint64, np.int64, device)
 
 
 def to_numpy_u64(t: torch.Tensor) -> np.ndarray:
@@ -41,3 +61,16 @@ def to_numpy_u64(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int64:
         raise TypeError(f"expected an int64 tensor, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def to_torch_u32(x: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """numpy uint32 array -> int32 tensor on ``device`` with the same bits
+    (shares memory on the CPU, as :func:`to_torch`)."""
+    return _from_numpy(x, np.uint32, np.int32, device)
+
+
+def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor (u32 bit patterns) -> numpy uint32 array on the host."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"expected an int32 tensor, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)

@@ -15,7 +15,7 @@ Each round moves its three messages to the host once (to be absorbed)
 and its challenge to the device once.
 
 Run:  python -m stark_rings_tpu_torch.examples.sumcheck [--n-vars 14]
-      [--device cuda]
+      [--device cpu]       (the CUDA card unless --device cpu)
 """
 
 from __future__ import annotations
@@ -96,7 +96,7 @@ def verify(S, msgs, g_mle, h_mle, transcript):
     return bool(claim == f.mul(gv, hv))
 
 
-def main(n_vars: int = 14, device: str = "cpu", seed: int = 7) -> None:
+def main(n_vars: int = 14, device: str = "cuda", seed: int = 7) -> None:
     rng = np.random.default_rng(seed)
     e = FieldElems(F, device)
     g = DenseMLE.rand(e, n_vars, rng)
@@ -121,7 +121,8 @@ def main(n_vars: int = 14, device: str = "cpu", seed: int = 7) -> None:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-vars", type=int, default=14)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
     main(args.n_vars, args.device, args.seed)

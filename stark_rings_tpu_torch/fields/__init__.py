@@ -1,5 +1,7 @@
-"""Prime-field layer of the PyTorch port: Goldilocks only so far."""
+"""Prime-field layer of the PyTorch port: Goldilocks and BabyBear."""
 
-from .field import GOLDILOCKS, Goldilocks
+from .field import (BABYBEAR, FIELDS, GOLDILOCKS, BabyBear, Goldilocks,
+                    get_field)
 
-__all__ = ["GOLDILOCKS", "Goldilocks"]
+__all__ = ["GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear", "FIELDS",
+           "get_field"]

@@ -1,14 +1,19 @@
-"""Goldilocks prime-field arithmetic on int64 tensors of u64 bit patterns.
+"""Prime-field arithmetic on integer tensors: Goldilocks and BabyBear.
 
-Counterpart of ``stark_rings_tpu/fields/field.py`` (``_Goldilocks`` and
-``_mul64_128``), for ``q = 2^64 - 2^32 + 1`` in canonical storage, with
-the classic 128-bit reduction (2^64 = 2^32 - 1, 2^96 = -1 mod q).
+Counterpart of ``stark_rings_tpu/fields/field.py`` (``_Goldilocks``,
+``_BabyBear`` and ``_mul64_128``); see :mod:`..device` for the storage.
 
-torch has no unsigned 64-bit arithmetic, so values live in ``int64``:
-add, sub and mul wrap mod 2^64 as u64 does, a logical right shift is
-an arithmetic shift followed by a mask, and an unsigned compare flips
-the sign bit of both sides first.  Constants above 2^63 are written as
-their int64 bit patterns (:func:`i64`).
+* **Goldilocks** ``q = 2^64 - 2^32 + 1``: canonical values held as the
+  u64 bit patterns of ``int64`` tensors, with the classic 128-bit
+  reduction (2^64 = 2^32 - 1, 2^96 = -1 mod q).  torch has no unsigned
+  64-bit arithmetic: add, sub and mul wrap mod 2^64 as u64 does, a
+  logical right shift is an arithmetic shift followed by a mask, and an
+  unsigned compare flips the sign bit of both sides first.  Constants
+  above 2^63 are written as their int64 bit patterns (:func:`i64`).
+* **BabyBear** ``q = 15 * 2^27 + 1``: Montgomery form with R = 2^32 in
+  ``int32`` tensors (every stored value is below q < 2^31), single-word
+  REDC on ``int64``.  Add and sub stay inside int32 by comparing
+  ``a - (q - b)`` with zero.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import get_device, to_numpy_u64, to_torch
+from ..device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
+                      to_torch_u32)
 
-__all__ = ["Goldilocks", "GOLDILOCKS", "i64", "shr", "u64_lt"]
+__all__ = ["Goldilocks", "GOLDILOCKS", "BabyBear", "BABYBEAR", "FIELDS",
+           "get_field", "i64", "shr", "u64_lt"]
 
 MASK32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
@@ -54,26 +61,107 @@ def _mul64_128(a: torch.Tensor, b: torch.Tensor):
     return hi, lo
 
 
-class Goldilocks:
+class _PrimeField:
+    """What both fields share: host conversions built on the per-field
+    :meth:`storage_np` and ``_scalar``, and the reductions and powers
+    built on ``add`` and ``mul``."""
+
+    name: str
+    q: int
+    bits: int
+    dtype: torch.dtype
+    limb_shape: tuple = ()
+    limbed = False
+
+    # -- host conversions ---------------------------------------------------
+    def encode(self, ints, device="cuda") -> torch.Tensor:
+        """python ints / object array -> storage tensor on ``device``."""
+        return self._codec(self.storage_np(ints), device)
+
+    def const(self, v: int, device="cuda") -> torch.Tensor:
+        """One element in storage form, as a 0-d tensor."""
+        return torch.tensor(self._scalar(v), dtype=self.dtype,
+                            device=get_device(device))
+
+    def zeros(self, shape=(), device="cuda") -> torch.Tensor:
+        return torch.zeros(tuple(shape), dtype=self.dtype,
+                           device=get_device(device))
+
+    def ones(self, shape=(), device="cuda") -> torch.Tensor:
+        return torch.full(tuple(shape), self._scalar(1), dtype=self.dtype,
+                          device=get_device(device))
+
+    # -- reductions and powers -----------------------------------------------
+    def sum(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Modular sum over ``axis`` via a halving tree of ``add``s (an odd
+        length parks its last entry and adds it at the end).  ``torch.sum``
+        wraps and is not a field sum."""
+        axis = axis % x.dim()
+        if x.shape[axis] == 0:
+            shape = x.shape[:axis] + x.shape[axis + 1:]
+            return self.zeros(shape, x.device)
+        rem = None
+        while x.shape[axis] > 1:
+            n = x.shape[axis]
+            if n % 2:
+                tail = x.narrow(axis, n - 1, 1)
+                rem = tail if rem is None else self.add(rem, tail)
+                x = x.narrow(axis, 0, n - 1)
+                n -= 1
+            x = self.add(x.narrow(axis, 0, n // 2),
+                         x.narrow(axis, n // 2, n // 2))
+        if rem is not None:
+            x = self.add(x, rem)
+        return x.squeeze(axis)
+
+    def dot(self, a, b, axis: int) -> torch.Tensor:
+        """Modular inner product over ``axis``: sum(mul(a, b))."""
+        return self.sum(self.mul(a, b), axis)
+
+    def pow_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """x**e for a static exponent (square and multiply)."""
+        if e == 0:
+            return torch.full_like(x, self._scalar(1))
+        acc = None
+        base = x
+        while e:
+            if e & 1:
+                acc = base if acc is None else self.mul(acc, base)
+            e >>= 1
+            if e:
+                base = self.mul(base, base)
+        return acc
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise inverse via Fermat (x != 0)."""
+        return self.pow_const(x, self.q - 2)
+
+
+class Goldilocks(_PrimeField):
     """q = 2^64 - 2^32 + 1, canonical values in [0, q) as int64 bits."""
 
     name = "goldilocks"
     q = 2**64 - 2**32 + 1
     bits = 64
     dtype = torch.int64
-    limb_shape: tuple = ()
-    limbed = False
 
     _Q = i64(q)          # q's int64 bit pattern (= -(2^32 - 1))
     _EPS = MASK32        # 2^64 mod q
 
     # -- host conversions ---------------------------------------------------
-    def encode(self, ints, device="cpu") -> torch.Tensor:
-        """python ints / object array -> canonical int64 storage tensor."""
+    def _scalar(self, v: int) -> int:
+        return i64(int(v) % self.q)
+
+    @staticmethod
+    def _codec(arr, device):
+        return to_torch(arr, device)
+
+    def storage_np(self, ints) -> np.ndarray:
+        """python ints / object array -> canonical numpy uint64 storage."""
         arr = np.asarray(ints, dtype=object)
         flat = np.array([int(v) % self.q for v in arr.reshape(-1)],
                         dtype=np.uint64)
-        return to_torch(flat.reshape(arr.shape), device)
+        return flat.reshape(arr.shape)
 
     def decode(self, x: torch.Tensor) -> np.ndarray:
         """storage -> numpy object array of canonical python ints."""
@@ -83,27 +171,20 @@ class Goldilocks:
         return out.reshape(host.shape)
 
     def rand(self, shape, rng: np.random.Generator,
-             device="cpu") -> torch.Tensor:
+             device="cuda") -> torch.Tensor:
         """Uniform canonical elements drawn from ``rng``."""
         return to_torch(rng.integers(0, self.q, size=shape, dtype=np.uint64),
-                        get_device(device))
+                        device)
 
-    def const(self, v: int, device="cpu") -> torch.Tensor:
-        """One canonical scalar, as a 0-d tensor."""
-        return torch.tensor(i64(int(v) % self.q), dtype=torch.int64,
-                            device=get_device(device))
-
-    def zeros(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.zeros(tuple(shape), dtype=torch.int64,
-                           device=get_device(device))
-
-    def ones(self, shape=(), device="cpu") -> torch.Tensor:
-        return torch.ones(tuple(shape), dtype=torch.int64,
-                          device=get_device(device))
-
-    def from_uint(self, x, device="cpu") -> torch.Tensor:
+    def from_uint(self, x, device="cuda") -> torch.Tensor:
         """numpy unsigned ints below q -> storage on ``device``."""
         return to_torch(np.asarray(x, dtype=np.uint64), device)
+
+    def canon(self, x):
+        return x
+
+    def from_canon(self, u):
+        return u
 
     # -- elementwise ops -----------------------------------------------------
     def add(self, a, b):
@@ -133,50 +214,104 @@ class Goldilocks:
         hi, lo = _mul64_128(a, b)
         return self._reduce128(hi, lo)
 
-    # -- reductions and powers -----------------------------------------------
-    def sum(self, x: torch.Tensor, axis: int) -> torch.Tensor:
-        """Modular sum over ``axis`` via a halving tree of ``add``s (an odd
-        length parks its last entry and adds it at the end).  ``torch.sum``
-        wraps mod 2^64 and is not a field sum."""
-        axis = axis % x.dim()
-        if x.shape[axis] == 0:
-            shape = x.shape[:axis] + x.shape[axis + 1:]
-            return self.zeros(shape, x.device)
-        rem = None
-        while x.shape[axis] > 1:
-            n = x.shape[axis]
-            if n % 2:
-                tail = x.narrow(axis, n - 1, 1)
-                rem = tail if rem is None else self.add(rem, tail)
-                x = x.narrow(axis, 0, n - 1)
-                n -= 1
-            x = self.add(x.narrow(axis, 0, n // 2),
-                         x.narrow(axis, n // 2, n // 2))
-        if rem is not None:
-            x = self.add(x, rem)
-        return x.squeeze(axis)
 
-    def dot(self, a, b, axis: int) -> torch.Tensor:
-        """Modular inner product over ``axis``: sum(mul(a, b))."""
-        return self.sum(self.mul(a, b), axis)
+class BabyBear(_PrimeField):
+    """q = 15 * 2^27 + 1 in Montgomery form (R = 2^32), int32 storage."""
 
-    def pow_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
-        """x**e for a static exponent (square and multiply)."""
-        if e == 0:
-            return torch.ones_like(x)
-        acc = None
-        base = x
-        while e:
-            if e & 1:
-                acc = base if acc is None else self.mul(acc, base)
-            e >>= 1
-            if e:
-                base = self.mul(base, base)
-        return acc
+    name = "babybear"
+    q = 15 * 2**27 + 1
+    bits = 31
+    dtype = torch.int32
 
-    def inv(self, x: torch.Tensor) -> torch.Tensor:
-        """Elementwise inverse via Fermat (x != 0)."""
-        return self.pow_const(x, self.q - 2)
+    R = 1 << 32
+    QINV = (-pow(q, -1, R)) % R      # -q^-1 mod 2^32, the REDC constant
+    _R1 = R % q                      # Montgomery form of 1
+    _R2 = R * R % q                  # REDC(u * R2) = Montgomery form of u
+
+    # -- host conversions ---------------------------------------------------
+    def _scalar(self, v: int) -> int:
+        return int(v) % self.q * self._R1 % self.q
+
+    @staticmethod
+    def _codec(arr, device):
+        return to_torch_u32(arr, device)
+
+    def storage_np(self, ints) -> np.ndarray:
+        """python ints / object array -> numpy uint32 Montgomery storage,
+        byte-equal to the reference's ``encode``."""
+        arr = np.asarray(ints, dtype=object)
+        flat = np.array([self._scalar(v) for v in arr.reshape(-1)],
+                        dtype=np.uint32)
+        return flat.reshape(arr.shape)
+
+    def decode(self, x: torch.Tensor) -> np.ndarray:
+        """storage -> numpy object array of canonical python ints."""
+        host = to_numpy_u32(self.canon(x))
+        out = np.empty(host.size, dtype=object)
+        out[:] = [int(v) for v in host.reshape(-1)]
+        return out.reshape(host.shape)
+
+    def rand(self, shape, rng: np.random.Generator,
+             device="cuda") -> torch.Tensor:
+        """Uniform elements: draws from ``rng`` in [0, q), taken as
+        storage (Montgomery form is a bijection of [0, q))."""
+        return to_torch_u32(rng.integers(0, self.q, size=shape,
+                                         dtype=np.uint32), device)
+
+    def from_uint(self, x, device="cuda") -> torch.Tensor:
+        """numpy unsigned ints (< 2^32) -> storage of x mod q."""
+        v = np.asarray(x, dtype=np.uint64) % np.uint64(self.q)
+        mont = v * np.uint64(self._R1) % np.uint64(self.q)   # < 2^62
+        return to_torch_u32(mont.astype(np.uint32), device)
+
+    # -- Montgomery arithmetic ------------------------------------------------
+    def _redc(self, u: torch.Tensor) -> torch.Tensor:
+        """REDC of u64 bit patterns (int64): (u + m q) / 2^32 with
+        m = u * (-q^-1) mod 2^32, then one conditional subtract; the
+        sum wraps mod 2^64 as the reference's u64 does.  int64 result."""
+        m = ((u & MASK32) * self.QINV) & MASK32
+        t = shr(u + m * self.q, 32)
+        return torch.where(t >= self.q, t - self.q, t)
+
+    def mont_mul(self, a, b) -> torch.Tensor:
+        """REDC(a * b) for any u32 bit patterns (int32), as int32 bits."""
+        u = (a.to(torch.int64) & MASK32) * (b.to(torch.int64) & MASK32)
+        return self._redc(u).to(torch.int32)
+
+    def mul(self, a, b):
+        return self.mont_mul(a, b)
+
+    def add(self, a, b):
+        d = a - (self.q - b)           # in (-q, q): no int32 overflow
+        return torch.where(d < 0, d + self.q, d)
+
+    def sub(self, a, b):
+        d = a - b
+        return torch.where(d < 0, d + self.q, d)
+
+    def neg(self, a):
+        return torch.where(a == 0, a, self.q - a)
+
+    def canon(self, x):
+        """Montgomery storage -> canonical values (int32)."""
+        return self._redc(x.to(torch.int64) & MASK32).to(torch.int32)
+
+    def from_canon(self, u):
+        """Canonical values (int32) -> Montgomery storage."""
+        return self._redc((u.to(torch.int64) & MASK32)
+                          * self._R2).to(torch.int32)
 
 
 GOLDILOCKS = Goldilocks()
+BABYBEAR = BabyBear()
+FIELDS = {"goldilocks": GOLDILOCKS, "babybear": BABYBEAR}
+
+
+def get_field(name: str):
+    """The field called ``name`` (the reference's ``get_field``)."""
+    if name in FIELDS:
+        return FIELDS[name]
+    if name in ("frog", "stark_prime"):
+        raise NotImplementedError(f"field {name!r} is not ported yet "
+                                  "(ROADMAP Slice C item 9)")
+    raise KeyError(f"unknown field {name!r}")

@@ -3,7 +3,8 @@ of ``stark_rings_tpu/linalg/elems.py``).
 
 Only :class:`FieldElems`, the base-field adapter that ``DenseMLE`` takes,
 is ported so far; the ring-element adapters come with the ring models.
-The adapter carries the device on which it creates tensors.
+The adapter carries the device on which it creates tensors: the CUDA
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ __all__ = ["FieldElems"]
 
 
 class FieldElems:
-    def __init__(self, field, device="cpu"):
+    def __init__(self, field, device="cuda"):
         self.f = field
         self.device = get_device(device)
         self.elem_ndim = 1 if field.limbed else 0

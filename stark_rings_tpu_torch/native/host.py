@@ -3,8 +3,10 @@
 Counterpart of ``stark_rings_tpu/native/host.py`` that imports no JAX.
 The C++ source is compiled with g++ on first use into ``build/`` at the
 root of the checkout, keyed by a hash of the source, as the reference
-loader does.  The port needs only the schoolbook negacyclic multiply:
-an O(N^2) oracle independent of every NTT and table.
+loader does.  The port needs only the schoolbook negacyclic multiplies:
+O(N^2) oracles independent of every NTT and table, for Goldilocks and
+for any prime below 2^64 (BabyBear's oracle, as the reference's
+``HostRing`` uses it).
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import tempfile
 
 import numpy as np
 
-__all__ = ["get_host_lib", "negacyclic_mul_schoolbook"]
+__all__ = ["get_host_lib", "negacyclic_mul_schoolbook",
+           "negacyclic_mul_schoolbook_q"]
 
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
 _SRC = _ROOT / "csrc" / "stark_rings_host.cpp"
@@ -54,6 +57,10 @@ def get_host_lib() -> ctypes.CDLL:
     lib.srh_negacyclic_mul_schoolbook.argtypes = [p64, p64, p64,
                                                   ctypes.c_uint64]
     lib.srh_negacyclic_mul_schoolbook.restype = None
+    lib.srh_negacyclic_mul_schoolbook_q.argtypes = [p64, p64, p64,
+                                                    ctypes.c_uint64,
+                                                    ctypes.c_uint64]
+    lib.srh_negacyclic_mul_schoolbook_q.restype = None
     _lib = lib
     return lib
 
@@ -69,4 +76,19 @@ def negacyclic_mul_schoolbook(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                          f"{b.shape}")
     c = np.empty_like(a)
     get_host_lib().srh_negacyclic_mul_schoolbook(a, b, c, a.size)
+    return c
+
+
+def negacyclic_mul_schoolbook_q(a: np.ndarray, b: np.ndarray,
+                                q: int) -> np.ndarray:
+    """a * b in F_q[X]/(X^N + 1) for one pair of [N] vectors of canonical
+    values below a prime q < 2^64, by the O(N^2) schoolbook sum; uint64
+    result.  Releases the GIL while it runs."""
+    a = np.ascontiguousarray(a, dtype=np.uint64)
+    b = np.ascontiguousarray(b, dtype=np.uint64)
+    if a.ndim != 1 or a.shape != b.shape:
+        raise ValueError(f"expected two [N] vectors, got {a.shape}, "
+                         f"{b.shape}")
+    c = np.empty_like(a)
+    get_host_lib().srh_negacyclic_mul_schoolbook_q(a, b, c, a.size, q)
     return c

@@ -104,11 +104,17 @@ def kernels() -> ctypes.CDLL:
     lib.srt_fold_end2_mul.argtypes = [p, i64, p, i64, i64, p, i64, i64,
                                       i32, p]
     lib.srt_fold_end.argtypes = [p, i64, p, i64, i64, i32, p]
+    lib.srt_pointwise_mul.argtypes = [p, p, p, i64, p]
+    lib.srt_bb_fold_tw.argtypes = lib.srt_fold_tw.argtypes
+    lib.srt_bb_fold_end2_mul.argtypes = lib.srt_fold_end2_mul.argtypes
+    lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
     lib.srt_mle_eval_tiles.argtypes = [p, p, i64, i32, p, p]
     lib.srt_mle_fix_top.argtypes = [p, p, i64, i32, p, p]
     lib.srt_sumcheck_round.argtypes = [p, p, i32, i64, p, i32, p, p]
     lib.srt_sumcheck_reduce.argtypes = [p, p, i32, i32, i64, p]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
+               lib.srt_pointwise_mul, lib.srt_bb_fold_tw,
+               lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
                lib.srt_mle_eval_tiles, lib.srt_mle_fix_top,
                lib.srt_sumcheck_round, lib.srt_sumcheck_reduce):
         fn.restype = ctypes.c_int

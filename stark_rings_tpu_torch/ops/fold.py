@@ -1,15 +1,23 @@
-"""Bucket-fold epilogues K1-K3 and the fused ring-multiply engine
-(counterpart of ``stark_rings_tpu/ops/pallas_fold.py``).
+"""Goldilocks bucket-fold epilogues K1-K3, the slot-product kernel, and
+the ring-multiply engines built on them (counterpart of
+``stark_rings_tpu/ops/pallas_fold.py``).
 
 Each kernel has a public wrapper and a plain PyTorch twin:
 
-========  ==================  ==================  ============================
-kernel    wrapper             twin                reference (pallas_fold.py)
-========  ==================  ==================  ============================
-K1        ``fold_tw``         ``fold_tw_ref``     ``fold_tw_dma``
-K2        ``fold_end2_mul``   ``fold_end2_mul_ref``  ``fold_end2_mul_dma``
-K3        ``fold_end``        ``fold_end_ref``    ``fold_end_dma``
-========  ==================  ==================  ============================
+=========  ==================  =====================  ======================
+kernel     wrapper             twin                   reference
+=========  ==================  =====================  ======================
+K1         ``fold_tw``         ``fold_tw_ref``        ``fold_tw_dma``;
+                                                      whole-array ``fold_tw``
+K2         ``fold_end2_mul``   ``fold_end2_mul_ref``  ``fold_end2_mul_dma``
+K3         ``fold_end``        ``fold_end_ref``       ``fold_end_dma``;
+                                                      whole-array ``fold_end``
+pointwise  ``pointwise_mul``   ``pointwise_mul_ref``  ``pointwise_mul``;
+                                                      K3b ``pointwise_dma``
+=========  ==================  =====================  ======================
+
+The reference's whole-array folds compute the same functions as its DMA
+folds (they differ only in how they tile VMEM), so K1 and K3 serve both.
 
 A wrapper checks its inputs and then dispatches on their device: for CPU
 tensors it returns its twin's result; for CUDA tensors it launches the
@@ -22,21 +30,25 @@ The twins follow the reference kernels' u32-pair arithmetic
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
 from .goldilocks import _mul_q, _reduce128, _sub_q, join, split
 from .mxu2 import BIAS_MOD_Q, B_BITS, Mxu2NTT
 
-__all__ = ["fold_tw", "fold_end2_mul", "fold_end", "fold_tw_ref",
-           "fold_end2_mul_ref", "fold_end_ref", "LAUNCHES",
-           "reset_launches", "Mxu2FusedNTT"]
+__all__ = ["fold_tw", "fold_end2_mul", "fold_end", "pointwise_mul",
+           "fold_tw_ref", "fold_end2_mul_ref", "fold_end_ref",
+           "pointwise_mul_ref", "LAUNCHES", "reset_launches",
+           "Mxu2FusedNTT", "Mxu2KernelNTT"]
 
 M32 = 0xFFFFFFFF
 _BIAS = 1 << 26
 _BM_LO, _BM_HI = BIAS_MOD_Q & M32, BIAS_MOD_Q >> 32
 
-LAUNCHES = {"fold_tw": 0, "fold_end2_mul": 0, "fold_end": 0}
+LAUNCHES = {"fold_tw": 0, "fold_end2_mul": 0, "fold_end": 0,
+            "pointwise_mul": 0}
 
 
 def reset_launches() -> None:
@@ -118,18 +130,38 @@ def fold_end2_mul_ref(Va, Vb, R, *, signed):
     return join(*_mul_q(alo, ahi, blo, bhi))
 
 
+def pointwise_mul_ref(a, b):
+    """Plain twin of :func:`pointwise_mul`."""
+    return join(*_mul_q(*split(a), *split(b)))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
 
-def _check_buckets(V, R, signed, name):
+class Folds(NamedTuple):
+    """One field's family of fold kernels: the C entry points
+    ``srt_<prefix>fold_*``, counted in ``counts["<prefix>fold_*"]``.
+    ``ks`` is the buckets per row group (unsigned, signed scheme) and
+    ``dtype`` the storage of the twiddles and the outputs."""
+
+    prefix: str
+    ks: tuple
+    dtype: torch.dtype
+    counts: dict
+
+
+GL_FOLDS = Folds("", (8, 9), torch.int64, LAUNCHES)
+
+
+def _check_buckets(fam, V, R, signed, name):
     if not isinstance(V, torch.Tensor) or V.dtype != torch.int32 \
             or V.dim() != 2:
         raise TypeError(f"{name}: buckets must be a 2-D int32 tensor")
     if not V.is_contiguous():
         raise ValueError(f"{name}: buckets must be contiguous")
-    K = 9 if signed else 8
+    K = fam.ks[signed]
     if R <= 0 or V.shape[0] != K * R:
         raise ValueError(f"{name}: expected {K}*R = {K * R} bucket rows "
                          f"({'signed' if signed else 'unsigned'} scheme), "
@@ -141,30 +173,87 @@ def _check_buckets(V, R, signed, name):
                          "kernel's grid")
 
 
+def _launch(fam, kind, device, *args):
+    name = fam.prefix + kind
+    _build.launch(fam.counts, name, getattr(_build.kernels(), "srt_" + name),
+                  device, *args)
+
+
+def fold_tw_with(fam, twin, V, tw, R, transpose_out, signed):
+    """The fold-times-twiddle wrapper of family ``fam`` (see
+    :func:`fold_tw`); ``twin`` answers for CPU tensors."""
+    name = fam.prefix + "fold_tw"
+    _check_buckets(fam, V, R, signed, name)
+    if tw.dtype != fam.dtype or tw.dim() != 2 or tw.shape[0] != R \
+            or not tw.is_contiguous():
+        want = str(fam.dtype).replace("torch.", "")
+        raise ValueError(f"{name}: tw must be a contiguous {want} "
+                         f"[R={R}, t] tensor, got {tw.dtype} "
+                         f"{tuple(tw.shape)}")
+    cols, t = V.shape[1], tw.shape[1]
+    if cols % t:
+        raise ValueError(f"{name}: t={t} does not divide cols={cols}")
+    if not _build.on_cuda(name, V, tw):
+        return twin(V, tw, R, transpose_out=transpose_out, signed=signed)
+    shape = (t, cols // t * R) if transpose_out else (R, cols)
+    out = torch.empty(shape, dtype=fam.dtype, device=V.device)
+    _launch(fam, "fold_tw", V.device, V.data_ptr(), cols, tw.data_ptr(), t,
+            out.data_ptr(), R, cols, int(transpose_out), int(signed))
+    return out
+
+
+def fold_end2_mul_with(fam, twin, Va, Vb, R, signed):
+    """The two-fold slot-product wrapper of family ``fam`` (see
+    :func:`fold_end2_mul`)."""
+    name = fam.prefix + "fold_end2_mul"
+    _check_buckets(fam, Va, R, signed, name)
+    if Vb is None:
+        if Va.shape[1] % 2:
+            raise ValueError(f"{name}: stacked buckets need an even number "
+                             "of columns")
+        cols = b_cols = Va.shape[1] // 2
+        tensors = (Va,)
+    else:
+        _check_buckets(fam, Vb, R, signed, name)
+        cols, b_cols = Va.shape[1], Vb.shape[1]
+        if cols % b_cols:
+            raise ValueError(f"{name}: Vb's {b_cols} columns do not divide "
+                             f"Va's {cols}")
+        tensors = (Va, Vb)
+    if not _build.on_cuda(name, *tensors):
+        return twin(Va, Vb, R, signed=signed)
+    out = torch.empty((R, cols), dtype=fam.dtype, device=Va.device)
+    if Vb is None:
+        lda = ldb = 2 * cols
+        b_ptr = Va.data_ptr() + cols * Va.element_size()
+    else:
+        lda, ldb, b_ptr = cols, b_cols, Vb.data_ptr()
+    _launch(fam, "fold_end2_mul", Va.device, Va.data_ptr(), lda, b_ptr, ldb,
+            b_cols, out.data_ptr(), R, cols, int(signed))
+    return out
+
+
+def fold_end_with(fam, twin, V, R, signed):
+    """The plain fold wrapper of family ``fam`` (see :func:`fold_end`)."""
+    name = fam.prefix + "fold_end"
+    _check_buckets(fam, V, R, signed, name)
+    if not _build.on_cuda(name, V):
+        return twin(V, R, signed=signed)
+    cols = V.shape[1]
+    out = torch.empty((R, cols), dtype=fam.dtype, device=V.device)
+    _launch(fam, "fold_end", V.device, V.data_ptr(), cols, out.data_ptr(), R,
+            cols, int(signed))
+    return out
+
+
 def fold_tw(V, tw, R, *, transpose_out=False, signed):
     """K1: fold(V) times the mid twiddle, broadcast over the batch.
 
     V int32 [K*R, B*t] (columns in (b, t) order), tw int64 [R, t] ->
     int64 [R, B*t], or with ``transpose_out`` [t, B*R] where
     ``out[j, b*R + r] = y[r, b*t + j]`` (the four-step mid transpose)."""
-    _check_buckets(V, R, signed, "fold_tw")
-    if tw.dtype != torch.int64 or tw.dim() != 2 or tw.shape[0] != R \
-            or not tw.is_contiguous():
-        raise ValueError(f"fold_tw: tw must be a contiguous int64 [R={R}, t] "
-                         f"tensor, got {tw.dtype} {tuple(tw.shape)}")
-    cols, t = V.shape[1], tw.shape[1]
-    if cols % t:
-        raise ValueError(f"fold_tw: t={t} does not divide cols={cols}")
-    if not _build.on_cuda("fold_tw", V, tw):
-        return fold_tw_ref(V, tw, R, transpose_out=transpose_out,
-                           signed=signed)
-    shape = (t, cols // t * R) if transpose_out else (R, cols)
-    out = torch.empty(shape, dtype=torch.int64, device=V.device)
-    lib = _build.kernels()
-    _build.launch(LAUNCHES, "fold_tw", lib.srt_fold_tw, V.device,
-                  V.data_ptr(), cols, tw.data_ptr(), t, out.data_ptr(), R,
-                  cols, int(transpose_out), int(signed))
-    return out
+    return fold_tw_with(GL_FOLDS, fold_tw_ref, V, tw, R, transpose_out,
+                        signed)
 
 
 def fold_end2_mul(Va, Vb, R, *, signed):
@@ -173,45 +262,35 @@ def fold_end2_mul(Va, Vb, R, *, signed):
     ``Vb=None``: Va holds both operands side by side, [K*R, 2*cols], the
     second at column offset cols.  A Vb with fewer columns than Va (a
     batch-1 cached operand, [K*R, t]) is read at column ``c mod t``."""
-    _check_buckets(Va, R, signed, "fold_end2_mul")
-    if Vb is None:
-        if Va.shape[1] % 2:
-            raise ValueError("fold_end2_mul: stacked buckets need an even "
-                             "number of columns")
-        cols = b_cols = Va.shape[1] // 2
-        tensors = (Va,)
-    else:
-        _check_buckets(Vb, R, signed, "fold_end2_mul")
-        cols, b_cols = Va.shape[1], Vb.shape[1]
-        if cols % b_cols:
-            raise ValueError(f"fold_end2_mul: Vb's {b_cols} columns do not "
-                             f"divide Va's {cols}")
-        tensors = (Va, Vb)
-    if not _build.on_cuda("fold_end2_mul", *tensors):
-        return fold_end2_mul_ref(Va, Vb, R, signed=signed)
-    out = torch.empty((R, cols), dtype=torch.int64, device=Va.device)
-    lib = _build.kernels()
-    if Vb is None:
-        lda = ldb = 2 * cols
-        b_ptr = Va.data_ptr() + cols * Va.element_size()
-    else:
-        lda, ldb, b_ptr = cols, b_cols, Vb.data_ptr()
-    _build.launch(LAUNCHES, "fold_end2_mul", lib.srt_fold_end2_mul,
-                  Va.device, Va.data_ptr(), lda, b_ptr, ldb, b_cols,
-                  out.data_ptr(), R, cols, int(signed))
-    return out
+    return fold_end2_mul_with(GL_FOLDS, fold_end2_mul_ref, Va, Vb, R, signed)
 
 
 def fold_end(V, R, *, signed):
     """K3: fold(V), int32 [K*R, cols] -> canonical int64 [R, cols]."""
-    _check_buckets(V, R, signed, "fold_end")
-    if not _build.on_cuda("fold_end", V):
-        return fold_end_ref(V, R, signed=signed)
-    cols = V.shape[1]
-    out = torch.empty((R, cols), dtype=torch.int64, device=V.device)
-    lib = _build.kernels()
-    _build.launch(LAUNCHES, "fold_end", lib.srt_fold_end, V.device,
-                  V.data_ptr(), cols, out.data_ptr(), R, cols, int(signed))
+    return fold_end_with(GL_FOLDS, fold_end_ref, V, R, signed)
+
+
+def pointwise_mul(a, b):
+    """Goldilocks slot product a * b mod q of two int64 tensors of the
+    same shape (canonical u64 bits), elementwise over the flat range."""
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor) \
+            or a.dtype != torch.int64 or b.dtype != torch.int64:
+        raise TypeError("pointwise_mul: operands must be int64 tensors")
+    if a.shape != b.shape:
+        raise ValueError(f"pointwise_mul: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("pointwise_mul: operands must be contiguous")
+    if not _build.on_cuda("pointwise_mul", a, b):
+        return pointwise_mul_ref(a, b)
+    out = torch.empty_like(a)
+    n = a.numel()
+    if (n + 255) // 256 >= 2**31:
+        raise ValueError(f"pointwise_mul: {n} elements exceed the grid")
+    if n:
+        _build.launch(LAUNCHES, "pointwise_mul",
+                      _build.kernels().srt_pointwise_mul, a.device,
+                      a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -234,22 +313,30 @@ class Mxu2FusedNTT(Mxu2NTT):
     the cached operand, so ``mul_cached`` feeds them straight into K2; a
     batch-1 operand ([K*R, t]) is broadcast over the live batch inside
     the kernel.  ``stack_forward`` runs both operands' forward level 1
-    and level-2 GEMM as one stacked batch."""
+    and level-2 GEMM as one stacked batch.
 
-    def __init__(self, N: int = 1 << 16, unsigned: bool = True,
-                 stack_forward: bool = False, device="cpu"):
-        super().__init__(N, unsigned, device)
+    The three kernel wrappers are class attributes: ``ops/fold_bb.py``
+    swaps in BabyBear's K4."""
+
+    _k_tw = staticmethod(fold_tw)
+    _k_end2 = staticmethod(fold_end2_mul)
+    _k_end = staticmethod(fold_end)
+
+    def __init__(self, N: int = 1 << 16, n1: int | None = None,
+                 unsigned: bool = True, stack_forward: bool = False,
+                 device="cuda"):
+        super().__init__(N, n1, unsigned, device)
         self.stack_forward = stack_forward
         self.signed = not unsigned
 
     def _fold_end(self, mat, V, B, t):
-        return fold_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
+        return self._k_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
 
     def _lvl_tw_t(self, mat, x, c, key, tw_key):
         """Mid level with the transpose fused into K1."""
         C, B, t = x.shape
-        y = fold_tw(self._dot(mat, x, c, key), c[tw_key], mat.R,
-                    transpose_out=True, signed=self.signed)
+        y = self._k_tw(self._dot(mat, x, c, key), c[tw_key], mat.R,
+                       transpose_out=True, signed=self.signed)
         return y.view(t, B, mat.R)
 
     def _fwd_buckets(self, x, c):
@@ -273,13 +360,13 @@ class Mxu2FusedNTT(Mxu2NTT):
         if fb.shape[1] not in (B * t, t):
             raise ValueError(f"mul_cached: cached state has {fb.shape[1]} "
                              f"columns, expected {B * t} or {t} (batch 1)")
-        prod = fold_end2_mul(Va, fb, self.mat2.R, signed=self.signed)
+        prod = self._k_end2(Va, fb, self.mat2.R, signed=self.signed)
         return self._tail(prod, B, t, c)
 
     def square(self, a, c=None):
         c = self._c(c)
         Va, B, t = self._fwd_buckets(a, c)
-        prod = fold_end2_mul(Va, Va, self.mat2.R, signed=self.signed)
+        prod = self._k_end2(Va, Va, self.mat2.R, signed=self.signed)
         return self._tail(prod, B, t, c)
 
     def mul(self, a, b, c=None):
@@ -295,9 +382,44 @@ class Mxu2FusedNTT(Mxu2NTT):
             C, B2, t = mid.shape
             B = B2 // 2
             V = self._dot(self.mat2, mid, c, "w2")
-            prod = fold_end2_mul(V, None, self.mat2.R, signed=self.signed)
+            prod = self._k_end2(V, None, self.mat2.R, signed=self.signed)
         else:
             Va, B, t = self._fwd_buckets(a, c)
             Vb, _, _ = self._fwd_buckets(b, c)
-            prod = fold_end2_mul(Va, Vb, self.mat2.R, signed=self.signed)
+            prod = self._k_end2(Va, Vb, self.mat2.R, signed=self.signed)
         return self._tail(prod, B, t, c)
+
+
+class Mxu2KernelNTT(Mxu2NTT):
+    """:class:`Mxu2NTT` with its folds in K1 (untransposed) and K3 and
+    its slot products in the pointwise kernel: the evaluation-domain
+    engine of the Goldilocks power rings.
+
+    Counterpart of the reference's ``Mxu2PallasNTT(N,
+    pointwise_pallas=True)`` with ``dma_folds=False``, the engine
+    ``PowerRing.mxu_ctx()`` returns: each level folds in its kernel (K1
+    with the mid twiddle, K3 at the end), the mid transpose is a torch
+    permute, and ``pointwise`` / ``mul`` / ``precompute`` +
+    ``mul_cached`` / ``square`` multiply evaluations [k2, B, k1] with
+    the pointwise kernel.  The cached state is evaluations, so a caller
+    can chain slot products on it (``forward_internal``, ``pointwise``,
+    ``inverse_internal``), which the fused engine's bucket state cannot
+    do.  A batch-1 cached operand is broadcast over the batch in torch
+    before the kernel."""
+
+    def __init__(self, N: int = 1 << 16, n1: int | None = None,
+                 unsigned: bool = True, device="cuda"):
+        super().__init__(N, n1, unsigned, device)
+        self.signed = not unsigned
+
+    def _fold_end(self, mat, V, B, t):
+        return fold_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
+
+    def _fold_tw(self, mat, V, tw, B, t):
+        return fold_tw(V, tw, mat.R, transpose_out=False,
+                       signed=self.signed).view(mat.R, B, t)
+
+    def pointwise(self, fa, fb):
+        if fb.shape != fa.shape:
+            fb = fb.expand(fa.shape)
+        return pointwise_mul(fa.contiguous(), fb.contiguous())

@@ -1,11 +1,13 @@
-"""Deg-2^16 Goldilocks negacyclic ring multiply as two 256x256 modular
-matmul levels with pre-scaled 8-bit digit weights (counterpart of
-``stark_rings_tpu/ops/mxu2.py``).
+"""Power-of-two negacyclic ring multiply as two modular matmul levels
+with pre-scaled 8-bit digit weights (counterpart of
+``stark_rings_tpu/ops/mxu2.py``); deg 2^16 Goldilocks (256x256) is the
+main path.
 
 :class:`Mxu2NTT` here is the plain, kernel-free whole multiply: the
 digit GEMMs go to ``torch._int_mm`` and every fold, twiddle and slot
 product is plain tensor code.  ``ops/fold.py`` subclasses it with the
-fold epilogues in hand-written CUDA kernels.
+fold epilogues in hand-written CUDA kernels, and ``ops/mxu_bb.py``
+sets its field to BabyBear.
 
 Layouts (B = batch), as in the reference:
   coeff domain   [B, N],  N = N1*N2, n = n1*N2 + n2
@@ -35,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import get_device, to_torch
+from ..device import get_device, to_torch, to_torch_u32
 from ..fields.field import GOLDILOCKS, MASK32, shr
 from .ntt import find_primitive_root
 
@@ -60,96 +62,108 @@ BIAS_MOD_Q = sum((1 << 26) << (B_BITS * k) for k in range(K_BUCKETS)) % _Q
 _WEIGHT_KEYS = ("w1", "w2", "w2i", "w1i")
 
 
-def _pow_table(base: int, n: int) -> np.ndarray:
+def _pow_table(base: int, n: int, q: int) -> np.ndarray:
     """[base^0, ..., base^(n-1)] mod q as an object array of ints."""
     out = np.empty(n, dtype=object)
     v = 1
     for i in range(n):
         out[i] = v
-        v = v * base % _Q
+        v = v * base % q
     return out
 
 
 class PrescaledMat:
-    """Constant [R, C] Goldilocks matrix with pre-scaled 8-bit digit planes.
+    """Constant [R, C] matrix over the field ``F`` with pre-scaled 8-bit
+    digit planes.
 
     ``big`` is a numpy array, byte-equal to the reference's: uint8
-    [K*R, P*C] for the unsigned scheme, int8 for the signed one.
+    [K*R, P*C] for the unsigned scheme (P data bytes of a storage word
+    times K weight bytes), int8 for the signed one (P 7-bit data digits
+    times K signed weight digits).  Plane ``l``'s weights are
+    ``M * 2^(d_bits*l) * SCALE mod q``; ``SCALE`` is 1 here and the
+    Montgomery factor 2^32 in the BabyBear subclass (``ops/mxu_bb.py``).
     """
 
+    F = _f
+    SCALE = 1
+    K_U8, P_U8 = K_BUCKETS_U8, P_PLANES_U8
+    K_S, P_S, D_S = K_BUCKETS, P_PLANES, D_BITS
+
     def __init__(self, m_ints, unsigned: bool = True):
+        q = self.F.q
         m = np.asarray(m_ints, dtype=object)
         R, C = m.shape
         self.R, self.C = R, C
         self.unsigned = unsigned
-        self.K = K_BUCKETS_U8 if unsigned else K_BUCKETS
-        self.P = P_PLANES_U8 if unsigned else P_PLANES
-        self.d_bits = D_BITS_U8 if unsigned else D_BITS
+        self.K = self.K_U8 if unsigned else self.K_S
+        self.P = self.P_U8 if unsigned else self.P_S
+        self.d_bits = D_BITS_U8 if unsigned else self.D_S
+        K, P = self.K, self.P
         if unsigned:
             # int32 accumulation bound: P*C products of <= 255*255
-            assert P_PLANES_U8 * C * 255 * 255 < 2**31
-            big = np.zeros((K_BUCKETS_U8 * R, P_PLANES_U8 * C),
-                           dtype=np.uint8)
-            for l in range(P_PLANES_U8):
-                scale = pow(2, D_BITS_U8 * l, _Q)
-                v = ((m * scale) % _Q).astype(np.uint64)
-                for k in range(K_BUCKETS_U8):
-                    big[k * R:(k + 1) * R, l * C:(l + 1) * C] = (
+            assert P * C * 255 * 255 < 2**31
+            big = np.zeros((K * R, P * C), dtype=np.uint8)
+        else:
+            # int32 accumulation bound: P*C products of |.| <= 128*127
+            assert P * C * 128 * 127 < 2**31
+            big = np.zeros((K * R, P * C), dtype=np.int8)
+        for l in range(P):
+            scale = pow(2, self.d_bits * l, q) * self.SCALE % q
+            v = ((m * scale) % q).astype(np.uint64)
+            cols = slice(l * C, (l + 1) * C)
+            if unsigned:
+                for k in range(K):
+                    big[k * R:(k + 1) * R, cols] = (
                         (v >> np.uint64(8 * k))
                         & np.uint64(0xFF)).astype(np.uint8)
-            self.big = big
-            return
-        # int32 accumulation bound: P*C products of |.| <= 128*127
-        assert P_PLANES * C * 128 * 127 < 2**31
-        big = np.zeros((K_BUCKETS * R, P_PLANES * C), dtype=np.int8)
-        for l in range(P_PLANES):
-            scale = pow(2, D_BITS * l, _Q)
-            v = ((m * scale) % _Q).astype(np.uint64)
+                continue
             carry = np.zeros((R, C), dtype=np.int16)
-            for k in range(K_BUCKETS - 1):
+            for k in range(K - 1):
                 byte = ((v >> np.uint64(8 * k))
                         & np.uint64(0xFF)).astype(np.int16) + carry
                 carry = (byte >= 128).astype(np.int16)
-                big[k * R:(k + 1) * R, l * C:(l + 1) * C] = (
-                    byte - 256 * carry).astype(np.int8)
-            # v < 2^64 so the top digit is exactly the final carry
-            big[(K_BUCKETS - 1) * R:, l * C:(l + 1) * C] = \
-                carry.astype(np.int8)
+                big[k * R:(k + 1) * R, cols] = (byte - 256 * carry).astype(
+                    np.int8)
+            # v < 2^(8(K-1)) so the top digit is exactly the final carry
+            big[(K - 1) * R:, cols] = carry.astype(np.int8)
         self.big = big
 
     # -- data digits ----------------------------------------------------------
     def _planes(self, x: torch.Tensor, xor: int = 0) -> torch.Tensor:
-        """u64 [C, cols] -> digit planes [P*C, cols], column-major
-        (stride (1, P*C)): the layout ``_int_mm`` takes on every backend
-        for its second operand.  Plane ``l`` holds bits
-        [d_bits*l, d_bits*(l+1)) of each value.
+        """Storage words [C, cols] (int64 Goldilocks, int32 BabyBear) ->
+        digit planes [P*C, cols], column-major (stride (1, P*C)): the
+        layout ``_int_mm`` takes on every backend for its second operand.
+        Plane ``l`` holds bits [d_bits*l, d_bits*(l+1)) of each value.
 
         Unsigned scheme: the 8-bit digits are the little-endian bytes of
-        the u64 words, each XORed with ``xor``: one u64 transpose, then
-        one byte gather within each row of C words."""
+        the words (P of them per word), each XORed with ``xor``: one
+        transpose, then one byte gather within each row of C words."""
         C, cols = x.shape
         if self.unsigned:
             buf = torch.empty((cols, self.P, C), dtype=torch.uint8,
                               device=x.device)
-            by = x.t().contiguous().view(torch.uint8).view(cols, C, 8)
+            by = x.t().contiguous().view(torch.uint8).view(cols, C, self.P)
             torch.bitwise_xor(by.permute(0, 2, 1), xor, out=buf)
         else:
             buf = torch.empty((cols, self.P, C), dtype=torch.int8,
                               device=x.device)
             xt = x.t()
+            # int32 storage is below 2^31: its arithmetic shift is logical
+            right = (shr if x.dtype == torch.int64
+                     else torch.bitwise_right_shift)
             for l in range(self.P):
                 sh = self.d_bits * l
-                buf[:, l, :] = (shr(xt, sh) if sh else xt) & 0x7F
+                buf[:, l, :] = (right(xt, sh) if sh else xt) & 0x7F
         return buf.view(cols, self.P * C).t()
 
     def planes(self, x: torch.Tensor) -> torch.Tensor:
-        """u64 [C, cols] -> uint8/int8 [P*C, cols] of 8/7-bit digits
+        """Storage [C, cols] -> uint8/int8 [P*C, cols] of 8/7-bit digits
         (the reference's ``planes``; column-major)."""
         return self._planes(x)
 
     def dot(self, x: torch.Tensor, w: torch.Tensor,
             w_corr: torch.Tensor | None = None) -> torch.Tensor:
-        """u64 [C, cols] -> int32 bucket planes [K*R, cols].
+        """Storage [C, cols] -> int32 bucket planes [K*R, cols].
 
         ``w`` and ``w_corr`` are this matrix's device table and, for the
         unsigned scheme, its offset correction (see
@@ -215,7 +229,9 @@ def from_jax_consts(consts: dict, device) -> dict[str, torch.Tensor]:
       returns the data digits' column sums.  It gets a second entry
       ``<key>_corr``: int32 [K*R, 1] = 128 sum_c (W - 128)[r, c]
       + 128^2 (P*C), the row-constant part of the offset identity.
-    * ``tw``/``twi``: int64 tensors holding the u64 twiddles.
+    * ``tw``/``twi``: the twiddles in the field's storage: int64 tensors
+      of u64 bits for a uint64 table (Goldilocks), int32 tensors of u32
+      Montgomery words for a uint32 table (BabyBear).
     """
     dev = get_device(device)
     out = {}
@@ -235,26 +251,43 @@ def from_jax_consts(consts: dict, device) -> dict[str, torch.Tensor]:
             raise TypeError(f"{key}: expected a uint8 or int8 digit table, "
                             f"got {big.dtype}")
     for key in ("tw", "twi"):
-        out[key] = to_torch(np.asarray(consts[key], dtype=np.uint64), dev)
+        tab = np.asarray(consts[key])
+        if tab.dtype == np.uint64:
+            out[key] = to_torch(tab, dev)
+        elif tab.dtype == np.uint32:
+            out[key] = to_torch_u32(tab, dev)
+        else:
+            raise TypeError(f"{key}: expected a uint64 or uint32 twiddle "
+                            f"table, got {tab.dtype}")
     return out
 
 
 class Mxu2NTT:
-    """Negacyclic ring multiply for N = N1*N2 (default 256*256 = 2^16).
+    """Negacyclic ring multiply for N = N1*N2 (default 256*256 = 2^16;
+    ``n1`` defaults to 2^floor(log2(N)/2)).
 
     The tables are built on the host with numpy, byte-equal to the
-    reference's :meth:`consts`, and moved to ``device`` once, here."""
+    reference's :meth:`consts`, and moved to ``device`` once, here.
+    ``F`` (the field of the twiddle and slot products) and ``MAT`` (its
+    digit-plane matrix) are the only field-specific parts:
+    ``ops/mxu_bb.py`` sets them for BabyBear."""
 
-    F = _f  # the field whose modulus the twiddle/pointwise muls use
+    F = _f
+    MAT = PrescaledMat
 
-    def __init__(self, N: int = 1 << 16, unsigned: bool = True,
-                 device="cpu"):
+    def __init__(self, N: int = 1 << 16, n1: int | None = None,
+                 unsigned: bool = True, device="cuda"):
+        self.device = get_device(device)
+        q = self.F.q
+        if N < 4 or N & (N - 1) or (q - 1) % (2 * N):
+            raise ValueError(f"N={N}: need a power of two >= 4 with 2N "
+                             f"dividing q-1 ({self.F.name})")
         self.N = N
         self.unsigned = unsigned
-        n1 = 1 << ((N.bit_length() - 1) // 2)
+        if n1 is None:
+            n1 = 1 << ((N.bit_length() - 1) // 2)
         self.N1, self.N2 = n1, N // n1
         N1, N2 = self.N1, self.N2
-        q = _Q
         g = find_primitive_root(q)
         psi = pow(g, (q - 1) // (2 * N), q)
         om = pow(psi, 2, q)
@@ -271,28 +304,29 @@ class Mxu2NTT:
         e1 = np.outer(i1, i1) % N1     # exponents of the order-N1 roots
         e2 = np.outer(i2, i2) % N2
         # W1'[k1, n1] = om1^(k1 n1) * psi^(n1 N2)   (twist absorbed)
-        W1 = _pow_table(om1, N1)[e1] * _pow_table(pow(psi, N2, q), N1) % q
+        W1 = (_pow_table(om1, N1, q)[e1]
+              * _pow_table(pow(psi, N2, q), N1, q) % q)
         # W2[k2, n2] = om2^(k2 n2)
-        W2 = _pow_table(om2, N2)[e2]
+        W2 = _pow_table(om2, N2, q)[e2]
         # inverse: W2i[n2, k2] = om2^(-k2 n2)
-        W2i = _pow_table(om2_i, N2)[e2]
+        W2i = _pow_table(om2_i, N2, q)[e2]
         # W1i[n1, k1] = om1^(-k1 n1) * psi^(-n1 N2) / N
-        W1i = (_pow_table(om1_i, N1)[e1]
-               * _pow_table(pow(psi_i, N2, q), N1)[:, None] % q
+        W1i = (_pow_table(om1_i, N1, q)[e1]
+               * _pow_table(pow(psi_i, N2, q), N1, q)[:, None] % q
                * n_inv % q)
-        self.mat1 = PrescaledMat(W1, unsigned)
-        self.mat2 = PrescaledMat(W2, unsigned)
-        self.mat2i = PrescaledMat(W2i, unsigned)
-        self.mat1i = PrescaledMat(W1i, unsigned)
+        self.mat1 = self.MAT(W1, unsigned)
+        self.mat2 = self.MAT(W2, unsigned)
+        self.mat2i = self.MAT(W2i, unsigned)
+        self.mat1i = self.MAT(W1i, unsigned)
 
-        # mid twiddle T[k1, n2] = psi^(n2) * om^(k1 n2); twi in [n2, k1]
+        # mid twiddle T[k1, n2] = psi^(n2) * om^(k1 n2); twi in [n2, k1];
+        # in storage form (Montgomery for BabyBear), as the slot products
+        # that use them take it
         ek = np.outer(i1, i2)          # k1 * n2 < N
-        self.tw = (_pow_table(psi, N2)[None, :]
-                   * _pow_table(om, N)[ek] % q).astype(np.uint64)
-        self.twi = (_pow_table(psi_i, N2)[:, None]
-                    * _pow_table(om_i, N)[ek.T] % q).astype(np.uint64)
-
-        self.device = get_device(device)
+        self.tw = self.F.storage_np(_pow_table(psi, N2, q)[None, :]
+                                    * _pow_table(om, N, q)[ek] % q)
+        self.twi = self.F.storage_np(_pow_table(psi_i, N2, q)[:, None]
+                                     * _pow_table(om_i, N, q)[ek.T] % q)
         self.c = from_jax_consts(self.consts(), self.device)
 
     # -- layout helpers ---------------------------------------------------

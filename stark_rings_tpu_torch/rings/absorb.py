@@ -69,7 +69,7 @@ class Transcript:
         h.update(struct.pack("<Q", self._counter))
         return h.digest(n)
 
-    def squeeze_field_elements(self, f, n: int, device="cpu"):
+    def squeeze_field_elements(self, f, n: int, device="cuda"):
         """n uniform canonical field elements, by rejection sampling on
         the squeezed stream, as a storage tensor [n] on ``device``."""
         nb = elem_nbytes(f)

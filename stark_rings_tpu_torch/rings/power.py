@@ -1,0 +1,175 @@
+"""Power-of-two negacyclic rings F_q[X]/(X^N + 1), deg 2^4 .. 2^20, over
+Goldilocks and BabyBear (counterpart of ``stark_rings_tpu/rings/power.py``).
+
+A :class:`PowerRing` is fully splitting: its NTT form is the N
+leaf-order evaluations of ``ops/ntt.py`` (slot field F_q, E = 1).
+Elements are storage tensors [..., N] (int64 Goldilocks, int32 BabyBear
+Montgomery) on the ring's device, which is the CUDA card unless the
+caller passes ``device="cpu"``.  ``mxu_ctx()`` is the production-rate
+multiplier: the digit-GEMM engines with their hand-written kernels.
+
+Not ported yet: ``fourstep_ctx`` (the single-chip four-step of
+``parallel/ntt.py``) and the stark_prime ring.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import get_device
+from ..fields import get_field
+from ..ops.ntt import NTTContext
+
+__all__ = ["PowerRing", "get_power_ring"]
+
+
+class PowerRing:
+    """Fully-splitting negacyclic ring: NTT form = leaf-order evaluations,
+    slot field = F_q (E = 1, N slots = D)."""
+
+    def __init__(self, field_name: str, logN: int, device="cuda"):
+        if field_name not in ("goldilocks", "babybear"):
+            raise NotImplementedError(
+                f"power rings over {field_name!r} are not ported yet: the "
+                "field is ROADMAP Slice C item 9, its MXU engine Slice F "
+                "item 15")
+        self.field = get_field(field_name)
+        self.device = get_device(device)
+        self.name = f"{field_name}_pow2_{logN}"
+        self.q = self.field.q
+        self.D = 1 << logN
+        self.N = self.D
+        self.E = 1
+        self.ctx = NTTContext(self.field, self.D, negacyclic=True,
+                              device=self.device)
+        self._mxu = {}
+
+    # -- conversions ------------------------------------------------------
+    def encode_coeffs(self, ints):
+        arr = np.asarray(ints, dtype=object)
+        if arr.shape[-1] != self.D:
+            raise ValueError(f"last axis {arr.shape[-1]} != D = {self.D}")
+        return self.field.encode(arr, self.device)
+
+    def decode(self, x):
+        return self.field.decode(x)
+
+    def rand_coeff(self, shape, rng: np.random.Generator):
+        """Uniform elements [*shape, D] drawn from the numpy Generator."""
+        return self.field.rand(tuple(shape) + (self.D,), rng, self.device)
+
+    rand_ntt = rand_coeff
+
+    def zeros(self, shape=()):
+        return self.field.zeros(tuple(shape) + (self.D,), self.device)
+
+    def from_scalar_coeff(self, v, shape=()):
+        out = np.zeros(tuple(shape) + (self.D,), dtype=object)
+        out[..., 0] = v % self.q
+        return self.encode_coeffs(out)
+
+    def from_scalar_ntt(self, v, shape=()):
+        return self.field.const(v, self.device).expand(
+            tuple(shape) + (self.D,)).contiguous()
+
+    # -- ring ops ---------------------------------------------------------
+    def add(self, a, b):
+        return self.field.add(a, b)
+
+    def sub(self, a, b):
+        return self.field.sub(a, b)
+
+    def neg(self, a):
+        return self.field.neg(a)
+
+    def crt(self, x):
+        return self.ctx.forward(x)
+
+    def icrt(self, x):
+        return self.ctx.inverse(x)
+
+    def ntt_mul(self, a, b):
+        return self.field.mul(a, b)
+
+    mul_unchecked = ntt_mul
+
+    def coeff_mul(self, a, b):
+        return self.ctx.mul(a, b)
+
+    def coeff_square(self, a):
+        """a*a with one forward transform (``mxu_ctx().square`` is the
+        production-rate variant)."""
+        return self.ctx.square(a)
+
+    def precompute(self, b):
+        """Cached-operand state (leaf-order evaluations) for
+        :meth:`coeff_mul_cached` only; the production-rate pair is
+        ``mxu_ctx().precompute`` / ``mul_cached``."""
+        return self.ctx.forward(b)
+
+    def coeff_mul_cached(self, a, fb):
+        """Multiply by a precomputed operand (one forward saved); fb from
+        a batch-1 b broadcasts over a's batch."""
+        return self.ctx.inverse(self.field.mul(self.ctx.forward(a), fb))
+
+    def mxu_ctx(self, pallas: bool = True):
+        """The digit-GEMM multiplier for this degree, built on first use
+        (the weight digitization is a one-time host cost).  Coefficients
+        in storage form in, coefficients out, bit-equal to
+        :meth:`coeff_mul`; operands are [B, D].
+
+        ``pallas=True`` (the reference's name for its kernel path):
+        BabyBear gets :class:`~..ops.fold_bb.MxuBBFusedNTT` (K4),
+        Goldilocks :class:`~..ops.fold.Mxu2KernelNTT` (K1 untransposed,
+        K3 and the pointwise kernel).  ``pallas=False``: the plain
+        :class:`~..ops.mxu_bb.MxuBBNTT` / :class:`~..ops.mxu2.Mxu2NTT`.
+        On CPU tensors the kernel wrappers run their plain twins."""
+        if pallas not in self._mxu:
+            if self.field.name == "babybear":
+                if pallas:
+                    from ..ops.fold_bb import MxuBBFusedNTT as engine
+                else:
+                    from ..ops.mxu_bb import MxuBBNTT as engine
+            elif pallas:
+                from ..ops.fold import Mxu2KernelNTT as engine
+            else:
+                from ..ops.mxu2 import Mxu2NTT as engine
+            self._mxu[pallas] = engine(self.D, device=self.device)
+        return self._mxu[pallas]
+
+    def ntt_pow(self, a, e: int):
+        """Slotwise pow on the NTT form (square and multiply)."""
+        if e < 0:
+            raise ValueError("negative exponents: invert first")
+        if e == 0:
+            return self.from_scalar_ntt(1, a.shape[:-1])
+        return self.field.pow_const(a, e)
+
+    def ntt_inv(self, a):
+        return self.field.inv(a)
+
+    def rot(self, a):
+        """Multiply by X: negacyclic shift."""
+        return torch.cat([self.field.neg(a[..., -1:]), a[..., :-1]], dim=-1)
+
+    def flatten(self, x):
+        """[..., n, D] -> [..., n*D]."""
+        return x.reshape(x.shape[:-2] + (x.shape[-2] * self.D,))
+
+    def promote(self, x):
+        """[..., n*D] -> [..., n, D]."""
+        if x.shape[-1] % self.D:
+            raise ValueError(f"last axis {x.shape[-1]} is not a multiple "
+                             f"of D = {self.D}")
+        return x.reshape(x.shape[:-1] + (x.shape[-1] // self.D, self.D))
+
+
+_POWER = {}
+
+
+def get_power_ring(field_name: str, logN: int, device="cuda") -> PowerRing:
+    key = (field_name, logN, str(get_device(device)))
+    if key not in _POWER:
+        _POWER[key] = PowerRing(field_name, logN, device)
+    return _POWER[key]

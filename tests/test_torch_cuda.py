@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain twins: the
-fold kernels K1-K3 and the fused engine against the kernel-free engine,
+fold kernels K1-K3, the BabyBear folds K4 and the Goldilocks pointwise
+kernel, and the engines built on them against the kernel-free engines;
 the MLE kernels K5 and K6, and the sumcheck prover K7.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
@@ -12,15 +13,19 @@ import numpy as np
 import pytest
 import torch
 
-from stark_rings_tpu_torch import (GOLDILOCKS, Mxu2FusedNTT, Mxu2NTT,
-                                   to_torch)
+from stark_rings_tpu_torch import (BABYBEAR, GOLDILOCKS, Mxu2FusedNTT,
+                                   Mxu2KernelNTT, Mxu2NTT, MxuBBFusedNTT,
+                                   MxuBBNTT, get_power_ring, to_torch,
+                                   to_torch_u32)
 from stark_rings_tpu_torch.examples import sumcheck as example
 from stark_rings_tpu_torch.linalg import FieldElems
 from stark_rings_tpu_torch.mle import DenseMLE
 from stark_rings_tpu_torch.mle import fix as FX
 from stark_rings_tpu_torch.mle import mxu_eval as MX
 from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+from stark_rings_tpu_torch.native.host import negacyclic_mul_schoolbook_q
 from stark_rings_tpu_torch.ops import fold as K
+from stark_rings_tpu_torch.ops import fold_bb as KB
 from stark_rings_tpu_torch.rings import Transcript
 
 pytestmark = pytest.mark.cuda
@@ -81,11 +86,121 @@ def test_fused_engine_matches_plain_on_card(dev, unsigned):
     plain = Mxu2NTT(N, unsigned=unsigned, device=dev)
     K.reset_launches()
     got = fused.mul(a, b)
-    assert K.LAUNCHES == {"fold_tw": 3, "fold_end2_mul": 1, "fold_end": 1}
+    assert K.LAUNCHES == {"fold_tw": 3, "fold_end2_mul": 1, "fold_end": 1,
+                          "pointwise_mul": 0}
     assert torch.equal(got, plain.mul(a, b))
     state = fused.precompute(b[:1])
     assert torch.equal(fused.mul_cached(a, state),
                        plain.mul_cached(a, plain.precompute(b[:1])))
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
+@pytest.mark.parametrize("R,t,B", [(32, 32, 3), (32, 64, 2), (64, 64, 5)])
+def test_bb_kernels_match_twins(dev, R, t, B, signed):
+    """K4 against its twins: bound, zero and full-range int32 buckets."""
+    rng = np.random.default_rng(R + t + B + signed)
+    K_ = 5 if signed else 4
+    V = _buckets(rng, K_ * R, B * t, signed).to(dev)
+    Vb = _buckets(rng, K_ * R, B * t, signed).to(dev)
+    tw = to_torch_u32(rng.integers(0, BABYBEAR.q, (R, t), dtype=np.uint32),
+                      dev)
+    cases = [
+        (KB.bb_fold_tw, KB.bb_fold_tw_ref, (V, tw, R),
+         {"transpose_out": True}),
+        (KB.bb_fold_tw, KB.bb_fold_tw_ref, (V, tw, R),
+         {"transpose_out": False}),
+        (KB.bb_fold_end, KB.bb_fold_end_ref, (V, R), {}),
+        (KB.bb_fold_end2_mul, KB.bb_fold_end2_mul_ref, (V, Vb, R), {}),
+        (KB.bb_fold_end2_mul, KB.bb_fold_end2_mul_ref,
+         (torch.cat([V, Vb], 1), None, R), {}),
+        (KB.bb_fold_end2_mul, KB.bb_fold_end2_mul_ref,
+         (V, Vb[:, :t].contiguous(), R), {}),
+    ]
+    for kernel, twin, args, kw in cases:
+        before = dict(KB.LAUNCHES)
+        got = kernel(*args, signed=signed, **kw)
+        torch.cuda.synchronize()
+        assert KB.LAUNCHES[kernel.__name__] == before[kernel.__name__] + 1
+        assert torch.equal(got, twin(*args, signed=signed, **kw)), \
+            (kernel.__name__, kw)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 3 * 1024 + 7])
+def test_pointwise_kernel_matches_twin(dev, n):
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, Q, n, dtype=np.uint64)
+    b = rng.integers(0, Q, n, dtype=np.uint64)
+    a[0] = b[0] = Q - 1
+    b[-1] = 0
+    a, b = to_torch(a, dev), to_torch(b, dev)
+    before = K.LAUNCHES["pointwise_mul"]
+    got = K.pointwise_mul(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pointwise_mul"] == before + 1
+    assert torch.equal(got, K.pointwise_mul_ref(a, b))
+
+
+@pytest.mark.parametrize("N", [1 << 10, 1 << 11])
+@pytest.mark.parametrize("unsigned", [True, False], ids=["u8", "s8"])
+def test_bb_fused_engine_matches_plain_on_card(dev, unsigned, N):
+    rng = np.random.default_rng(N + unsigned)
+    a = to_torch_u32(rng.integers(0, BABYBEAR.q, (4, N), dtype=np.uint32),
+                     dev)
+    b = to_torch_u32(rng.integers(0, BABYBEAR.q, (4, N), dtype=np.uint32),
+                     dev)
+    fused = MxuBBFusedNTT(N, unsigned=unsigned, device=dev)
+    stacked = MxuBBFusedNTT(N, unsigned=unsigned, stack_forward=True,
+                            device=dev)
+    plain = MxuBBNTT(N, unsigned=unsigned, device=dev)
+    KB.reset_launches()
+    got = fused.mul(a, b)
+    assert KB.LAUNCHES == {"bb_fold_tw": 3, "bb_fold_end2_mul": 1,
+                           "bb_fold_end": 1}
+    want = plain.mul(a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(stacked.mul(a, b), want)
+    assert torch.equal(fused.square(a), plain.square(a))
+    assert torch.equal(fused.mul_cached(a, fused.precompute(b)), want)
+    assert torch.equal(fused.mul_cached(a, fused.precompute(b[:1])),
+                       plain.mul_cached(a, plain.precompute(b[:1])))
+
+
+def test_kernel_engine_matches_plain_on_card(dev):
+    """Mxu2KernelNTT: K1 untransposed and K3 at every level, the slot
+    products in the pointwise kernel."""
+    N = 1 << 11
+    rng = np.random.default_rng(11)
+    a = to_torch(rng.integers(0, Q, (3, N), dtype=np.uint64), dev)
+    b = to_torch(rng.integers(0, Q, (3, N), dtype=np.uint64), dev)
+    eng = Mxu2KernelNTT(N, device=dev)
+    plain = Mxu2NTT(N, device=dev)
+    K.reset_launches()
+    got = eng.mul(a, b)
+    assert K.LAUNCHES == {"fold_tw": 3, "fold_end2_mul": 0, "fold_end": 3,
+                          "pointwise_mul": 1}
+    assert torch.equal(got, plain.mul(a, b))
+    assert torch.equal(eng.square(a), plain.square(a))
+    assert torch.equal(eng.mul_cached(a, eng.precompute(b[:1])),
+                       plain.mul_cached(a, plain.precompute(b[:1])))
+
+
+@pytest.mark.parametrize("field,logN", [("babybear", 10),
+                                        ("goldilocks", 10)])
+def test_power_ring_on_card(dev, field, logN):
+    """get_power_ring's mxu_ctx() on the card against coeff_mul (the
+    radix NTTContext) and the C++ schoolbook on one row."""
+    ring = get_power_ring(field, logN, device=dev)
+    rng = np.random.default_rng(logN)
+    a, b = ring.rand_coeff((3,), rng), ring.rand_coeff((3,), rng)
+    got = ring.mxu_ctx().mul(a, b)
+    assert torch.equal(got, ring.coeff_mul(a, b))
+    assert torch.equal(got, ring.mxu_ctx(pallas=False).mul(a, b))
+    ca, cb = (np.array(ring.decode(x[0]), dtype=np.uint64) for x in (a, b))
+    want = negacyclic_mul_schoolbook_q(ca, cb, ring.q)
+    assert np.array_equal(np.array(ring.decode(got[0]), dtype=np.uint64),
+                          want)
+    one = ring.ntt_mul(ring.crt(a), ring.ntt_inv(ring.crt(a)))
+    assert all(int(v) == 1 for v in ring.decode(one).reshape(-1))
 
 
 def test_wrappers_reject_mixed_devices(dev):

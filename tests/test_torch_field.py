@@ -151,11 +151,11 @@ def test_mul32_and_pair_carries():
 def test_encode_decode_rand_roundtrip():
     rng = np.random.default_rng(6)
     ints = [0, 1, Q - 1, Q, Q + 5, -1, 2**70]
-    enc = F.encode(ints)
+    enc = F.encode(ints, "cpu")
     assert enc.dtype == torch.int64
     assert list(F.decode(enc)) == [v % Q for v in ints]
     assert np.array_equal(to_numpy_u64(enc), np.asarray(RF.encode(ints)))
-    x = F.rand((4, 5), rng)
+    x = F.rand((4, 5), rng, "cpu")
     assert x.shape == (4, 5) and all(0 <= int(v) < Q
                                      for v in F.decode(x).ravel())
     u = to_numpy_u64(x)

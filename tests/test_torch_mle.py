@@ -89,9 +89,9 @@ def test_field_inv_pow_const_and_constants():
     for e in (0, 1, 2, 3, 7, 64, 2**32 + 5, Q - 1):
         want = np.asarray(RF.pow_const(jnp.asarray(x), e))
         assert np.array_equal(_np(F.pow_const(_t(x), e)), want), e
-    assert int(_np(F.const(-1))) == int(RF.const(-1)) == Q - 1
-    assert _ints(_np(F.ones((3,)))) == _ints(np.asarray(RF.ones((3,))))
-    assert _ints(_np(F.zeros((2,)))) == [0, 0]
+    assert int(_np(F.const(-1, "cpu"))) == int(RF.const(-1)) == Q - 1
+    assert _ints(_np(F.ones((3,), "cpu"))) == _ints(np.asarray(RF.ones((3,))))
+    assert _ints(_np(F.zeros((2,), "cpu"))) == [0, 0]
 
 
 # -- DenseMLE ----------------------------------------------------------------
@@ -99,7 +99,7 @@ def test_field_inv_pow_const_and_constants():
 
 def _pair(nv, rng):
     ev = _u64(rng, 1 << nv)
-    return (DenseMLE(FieldElems(F), nv, _t(ev)),
+    return (DenseMLE(FieldElems(F, "cpu"), nv, _t(ev)),
             RDenseMLE(RFieldElems(RF), nv, jnp.asarray(ev)))
 
 
@@ -147,7 +147,7 @@ def test_dense_mle_matches_reference(nv):
 @pytest.mark.parametrize("nv", [1, 5, 9])
 def test_dense_mle_constructors_match_reference(nv):
     rng = random.Random(nv)
-    e, re_ = FieldElems(F), RFieldElems(RF)
+    e, re_ = FieldElems(F, "cpu"), RFieldElems(RF)
     short = [rng.randrange(Q) for _ in range((1 << nv) // 2 + 1)]
     _same(DenseMLE.from_ints(e, nv, np.array(short, dtype=object)),
           RDenseMLE.from_ints(re_, nv, np.array(short, dtype=object)))
@@ -166,7 +166,7 @@ def test_dense_mle_constructors_match_reference(nv):
 
 
 def test_polynomial_helpers_match_reference():
-    nv, e, re_ = 4, FieldElems(F), RFieldElems(RF)
+    nv, e, re_ = 4, FieldElems(F, "cpu"), RFieldElems(RF)
     mles, total = P.random_mle_list(e, nv, 3, np.random.default_rng(2))
     want = RF.sum(RF.mul(RF.mul(jnp.asarray(_np(mles[0].evals)),
                                 jnp.asarray(_np(mles[1].evals))),

@@ -49,8 +49,9 @@ def engines():
                              fuse_pointwise=True,
                              stack_forward=stack_forward)
     return {"ref": ref(), "ref_stacked": ref(True),
-            "port": Mxu2FusedNTT(N),
-            "port_stacked": Mxu2FusedNTT(N, stack_forward=True),
+            "port": Mxu2FusedNTT(N, device="cpu"),
+            "port_stacked": Mxu2FusedNTT(N, stack_forward=True,
+                                         device="cpu"),
             "ctx": NTTContext(RF, N, negacyclic=True)}
 
 
@@ -102,7 +103,7 @@ def test_plain_engine_batch1_cached(data):
     """The plain engine's cached state is evaluations; a batch-1 state
     broadcasts over the live batch."""
     a, b = data
-    port = Mxu2NTT(N)
+    port = Mxu2NTT(N, device="cpu")
     got = port.mul_cached(_t(a), port.precompute(_t(b[:1])))
     want = NTTContext(RF, N, negacyclic=True).mul(
         a, jnp.broadcast_to(b[:1], a.shape))
@@ -116,7 +117,8 @@ def test_asymmetric_layout_matches_jit_mul(engine):
     rng = np.random.default_rng(8)
     a = rng.integers(0, RF.q, (2, n), dtype=np.uint64)
     b = rng.integers(0, RF.q, (2, n), dtype=np.uint64)
-    port = Mxu2NTT(n) if engine == "plain" else Mxu2FusedNTT(n)
+    port = (Mxu2NTT(n, device="cpu") if engine == "plain"
+            else Mxu2FusedNTT(n, device="cpu"))
     assert (port.N1, port.N2) == (64, 128)
     got = to_numpy_u64(port.mul(_t(a), _t(b)))
     want = np.asarray(RefMxu2NTT(n).jit_mul()(a, b))
@@ -131,5 +133,5 @@ def test_native_schoolbook_oracle(data):
     want = np.asarray(NTTContext(RF, N, negacyclic=True).mul(a, b))
     got = np.stack([negacyclic_mul_schoolbook(x, y) for x, y in zip(a, b)])
     assert np.array_equal(got, want)
-    fused = Mxu2FusedNTT(N).mul(_t(a), _t(b))
+    fused = Mxu2FusedNTT(N, device="cpu").mul(_t(a), _t(b))
     assert np.array_equal(to_numpy_u64(fused), got)

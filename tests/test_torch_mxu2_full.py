@@ -29,7 +29,7 @@ def case():
     rng = np.random.default_rng(9)
     a = rng.integers(0, RF.q, (2, N), dtype=np.uint64)
     b = rng.integers(0, RF.q, (2, N), dtype=np.uint64)
-    port = Mxu2FusedNTT(N)
+    port = Mxu2FusedNTT(N, device="cpu")
     got = to_numpy_u64(port.mul(to_torch(a, "cpu"), to_torch(b, "cpu")))
     return a, b, port, got
 
@@ -54,7 +54,7 @@ def test_full_width_plain_engine_and_square(case, ref):
     """The kernel-free Mxu2NTT path at full width, and the fused square
     against the reference's jitted square."""
     a, b, port, got = case
-    plain = Mxu2NTT(N)
+    plain = Mxu2NTT(N, device="cpu")
     assert np.array_equal(
         to_numpy_u64(plain.mul(to_torch(a, "cpu"), to_torch(b, "cpu"))), got)
     sq = to_numpy_u64(port.square(to_torch(a, "cpu")))

@@ -24,9 +24,14 @@ class Block:
 
 
 sys.meta_path.insert(0, Block())
+import numpy as np
 import stark_rings_tpu_torch
 import stark_rings_tpu_torch.ops.fold
+import stark_rings_tpu_torch.ops.fold_bb
+import stark_rings_tpu_torch.ops.mxu_bb
+import stark_rings_tpu_torch.ops.ntt
 import stark_rings_tpu_torch.ops._build
+import stark_rings_tpu_torch.rings.power
 import stark_rings_tpu_torch.native.host
 import stark_rings_tpu_torch.linalg
 import stark_rings_tpu_torch.mle
@@ -36,7 +41,11 @@ import stark_rings_tpu_torch.mle.sumcheck
 import stark_rings_tpu_torch.mle.sumcheck_kernel
 import stark_rings_tpu_torch.rings.absorb
 import stark_rings_tpu_torch.examples.sumcheck
-stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9)
+stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu")
+for field in ("babybear", "goldilocks"):
+    ring = stark_rings_tpu_torch.get_power_ring(field, 10, device="cpu")
+    x = ring.rand_coeff((1,), np.random.default_rng(0))
+    assert (ring.mxu_ctx().mul(x, x) == ring.coeff_square(x)).all()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked

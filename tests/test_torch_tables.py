@@ -28,7 +28,7 @@ def _few_threads():
 @pytest.mark.parametrize("N", [1 << 10, 1 << 13, 1 << 16])
 def test_consts_byte_equal(N, unsigned):
     """N = 2^13 is the asymmetric layout (N1 = 64, N2 = 128)."""
-    port = Mxu2NTT(N, unsigned=unsigned)
+    port = Mxu2NTT(N, unsigned=unsigned, device="cpu")
     ref = RefMxu2NTT(N, unsigned=unsigned)
     assert (port.N1, port.N2) == (ref.N1, ref.N2)
     pc, rc = port.consts(), ref.consts()
@@ -53,7 +53,7 @@ def test_from_jax_consts_roundtrip(unsigned):
     N = 1 << 10
     ref = RefMxu2NTT(N, unsigned=unsigned)
     tabs = from_jax_consts(ref.consts(), "cpu")
-    port = Mxu2FusedNTT(N, unsigned=unsigned)
+    port = Mxu2FusedNTT(N, unsigned=unsigned, device="cpu")
     assert tabs.keys() == port.c.keys()
     for key, t in port.c.items():
         assert tabs[key].dtype == t.dtype, key

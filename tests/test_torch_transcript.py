@@ -57,7 +57,7 @@ def test_transcript_matches_reference():
         ref.absorb_bytes(b"raw", bytes([step]) * 7)
         assert mine.squeeze_bytes(33) == ref.squeeze_bytes(33)
         n = 3 * step + 1
-        got = mine.squeeze_field_elements(F, n)
+        got = mine.squeeze_field_elements(F, n, "cpu")
         assert got.shape == (n,) and got.dtype == torch.int64
         assert np.array_equal(_np(got), np.asarray(
             ref.squeeze_field_elements(RF, n)))
@@ -94,13 +94,13 @@ def test_sumcheck_proof_matches_the_jax_example_at_nv14():
     assert [[int(_np(p)) for p in m] for m in msgs] == want_msgs
     assert [int(_np(r)) for r in chals] == want_chals
 
-    e = FieldElems(F)
+    e = FieldElems(F, "cpu")
     gm, hm = DenseMLE(e, nv, to_torch(g, "cpu")), \
         DenseMLE(e, nv, to_torch(h, "cpu"))
     assert example.verify(S, msgs, gm, hm, A.Transcript(b"sumcheck"))
     for i, j in ((0, 0), (nv // 2, 1), (nv - 1, 2)):
         bad = [list(m) for m in msgs]
-        bad[i][j] = F.add(bad[i][j], F.const(1))
+        bad[i][j] = F.add(bad[i][j], F.const(1, "cpu"))
         assert not example.verify(S, [tuple(m) for m in bad], gm, hm,
                                   A.Transcript(b"sumcheck")), (i, j)
     with pytest.raises(ValueError, match="2\\^13"):
@@ -109,4 +109,4 @@ def test_sumcheck_proof_matches_the_jax_example_at_nv14():
 
 
 def test_example_main_runs():
-    example.main(n_vars=9)
+    example.main(n_vars=9, device="cpu")
