@@ -20,6 +20,12 @@ BabyBear deg 2^12 at batch 4096 (BASELINE config 2) through
 2^18, batch 16) through ``Mxu2KernelNTT``: K1 untransposed, K3 and the
 slot-product kernel ``pointwise_mul``.
 
+Slice C (sumcheck fields) is the one-pass prover K7 over BabyBear
+(``sumcheck_prove_many_babybear``) and frog
+(``sumcheck_prove_many_frog``) at nv = 20, their Fiat-Shamir proofs, and
+W = 4 Goldilocks claims in one batched proof
+(``sumcheck_prove_batch_goldilocks``).
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -85,7 +91,28 @@ Phases, one line each:
      beside Mxu2FusedNTT's, the six digit GEMMs of a BabyBear mul, and
      the host cost of one kernel launch;
  18. profile: device busy time against wall time of one BabyBear mul at
-     B = 4096, and its top kernels (torch.profiler).
+     B = 4096, and its top kernels (torch.profiler);
+ 19. fields parity: K7 over BabyBear and frog against the generic msb
+     prover on the card, bit for bit, at nv = 4 and 11 (random tables)
+     and nv = 20 (zeros, q-1, random), k = 2 and 3; the random nv = 20
+     proofs hold the sumcheck relations in Python ints over canonical
+     values (round 0's p(0) + p(1) is the sum of the products, each
+     later round's p(0) + p(1) is the previous p(r), the last p(r) the
+     product of the finals); the W = 4, nv = 20, k = 2 Goldilocks batch
+     against its twin (the generic prover per claim), and three claims
+     of a W = 65,535, nv = 4 batch against theirs;
+ 20. fields path, launches counted: per field an nv = 20 Fiat-Shamir
+     proof (real transcript) verified through DenseMLE.evaluate, a
+     tampered one rejected, and K7 on the bit-reversed tables
+     reproducing it; the W = 4 batch equal to 4 single K7 proofs;
+ 21. launch counts of phase 20 (each kernel must have run; the batch is
+     nv + 1 launches);
+ 22. timings (CUDA events, median of 10 after warm-up): K7 over each
+     field at nv = 20 for k = 2 (against its twin) and k = 3, proofs/s
+     and memory floors; the batch against its twin, and against 4 single
+     proofs in turns;
+ 23. profile: device busy time against wall time of one call of each of
+     the three kernels (torch.profiler).
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
@@ -147,6 +174,18 @@ POWER_KERNELS = {  # record name -> (source, reference kernel file:line)
                                      "stark_rings_tpu/ops/pallas_fold.py:141"),
     "fold_end[whole-array]": (SOURCE,
                               "stark_rings_tpu/ops/pallas_fold.py:122"),
+}
+SC_FIELDS = ("babybear", "frog")
+SC_W = 4            # claims of the batched Goldilocks proof
+SC_W_MAX = 65535    # the most claims one launch takes ...
+SC_NV_MANY = 4      # ... at a small nv
+FIELD_KERNELS = {  # record name -> reference kernel (file:line)
+    "sumcheck_prove_many_babybear":
+        "stark_rings_tpu/mle/pallas_sumcheck.py:87",     # _BbOps
+    "sumcheck_prove_many_frog":
+        "stark_rings_tpu/mle/pallas_sumcheck.py:111",    # _FrogOps
+    "sumcheck_prove_batch_goldilocks":
+        "stark_rings_tpu/mle/pallas_sumcheck.py:428",
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
 LAUNCH_REPS = 1000
@@ -891,6 +930,223 @@ def slice_b(dev, smi, rng, gl) -> list:
             for name, (src, ref) in POWER_KERNELS.items()]
 
 
+def py_check_proof(f, tables, chal, msgs, finals, what) -> None:
+    """The sumcheck relations in Python ints over canonical values: the
+    round-0 claim p(0) + p(1) equals sum_x prod_j T_j(x), every later
+    round's p_i(0) + p_i(1) equals p_{i-1}(r_{i-1}), and the last round's
+    p(r) equals the product of the finals."""
+    import numpy as np
+
+    from stark_rings_tpu_torch import to_numpy_storage
+
+    q = f.q
+    prod = None
+    for T in tables:
+        c = to_numpy_storage(f.canon(T)).astype(object)
+        prod = c if prod is None else prod * c % q
+    claim = int(np.sum(prod)) % q
+    m = f.decode(msgs).tolist()
+    rs = f.decode(chal).tolist()
+    for i, (ys, r) in enumerate(zip(m, rs)):
+        if (ys[0] + ys[1]) % q != claim:
+            raise AssertionError(f"{what}: round {i}: p(0) + p(1) != the "
+                                 "claim in Python ints")
+        claim = py_lagrange(ys, r, q)
+    last = 1
+    for v in finals:
+        last = last * int(f.decode(v)) % q
+    if claim != last:
+        raise AssertionError(f"{what}: p_last(r) != the product of the "
+                             "finals in Python ints")
+
+
+def slice_c(dev, smi, rng) -> list:
+    """Phases 19-23: sumcheck over BabyBear and frog, and over batched
+    Goldilocks claims.  Returns the kernels' JSON records."""
+    import torch
+
+    from stark_rings_tpu_torch import GOLDILOCKS as F, get_field
+    from stark_rings_tpu_torch.examples import sumcheck as example
+    from stark_rings_tpu_torch.linalg import FieldElems
+    from stark_rings_tpu_torch.mle import DenseMLE
+    from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+    from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+    from stark_rings_tpu_torch.rings import Transcript
+
+    fields = {name: get_field(name) for name in SC_FIELDS}
+
+    def table(f, nv, kind):
+        if kind == "zeros":
+            return f.zeros((1 << nv,), dev)
+        if kind == "q-1":
+            return f.encode([f.q - 1], dev).expand(1 << nv).contiguous()
+        return f.rand((1 << nv,), rng, dev)
+
+    # -- 19. parity against the twins, and the relations in Python ints -----
+    max_err = {name: 0 for name in FIELD_KERNELS}
+    t0 = time.perf_counter()
+    cases = 0
+    for name, f in fields.items():
+        rec = f"sumcheck_prove_many_{name}"
+        for nv in (*NV_SMALL, NV):
+            chal = f.rand((nv,), rng, dev)
+            for kind in ("zeros", "q-1", "random") if nv == NV \
+                    else ("random",):
+                for k in (2, 3):
+                    tables = [table(f, nv, kind) for _ in range(k)]
+                    msgs, finals = SK.sumcheck_prove_many(tables, chal,
+                                                          field=name)
+                    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal,
+                                                                name)
+                    what = f"nv={nv} k={k} {kind}"
+                    check(max_err, rec, msgs, want_m, what)
+                    check(max_err, rec, torch.stack(finals),
+                          torch.stack(want_f), what)
+                    if kind == "random":
+                        py_check_proof(f, tables, chal, msgs, finals,
+                                       f"{rec} {what}")
+                    cases += 1
+    Wt = [F.rand((SC_W, 1 << NV), rng, dev) for _ in range(2)]
+    wc = F.rand((NV,), rng, dev)
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(Wt, wc)
+    batch_twin = SK.sumcheck_prove_batch_ref(Wt, wc)
+    rec = "sumcheck_prove_batch_goldilocks"
+    check(max_err, rec, msgs, batch_twin[0], f"W={SC_W} nv={NV} k=2")
+    check(max_err, rec, torch.stack(finals), torch.stack(batch_twin[1]),
+          f"W={SC_W} nv={NV} k=2 finals")
+    Mt = [F.rand((SC_W_MAX, 1 << SC_NV_MANY), rng, dev) for _ in range(2)]
+    mc = F.rand((SC_NV_MANY,), rng, dev)
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(Mt, mc)
+    for w in (0, SC_W_MAX // 2, SC_W_MAX - 1):
+        want_m, want_f = SK.sumcheck_prove_many_ref([T[w] for T in Mt], mc)
+        what = f"W={SC_W_MAX} nv={SC_NV_MANY} k=2 claim {w}"
+        check(max_err, rec, msgs[w], want_m, what)
+        check(max_err, rec, torch.stack([x[w] for x in finals]),
+              torch.stack(want_f), what + " finals")
+    torch.cuda.synchronize()
+    phase("fields parity", f"{cases} K7 cases over {'/'.join(SC_FIELDS)} "
+          f"(nv={NV_SMALL} random, nv={NV} zeros/q-1/random; k=2, 3) and "
+          f"the W={SC_W} Goldilocks batch bit-equal to their twins, and "
+          f"claims 0, {SC_W_MAX // 2}, {SC_W_MAX - 1} of a W={SC_W_MAX}, "
+          f"nv={SC_NV_MANY} batch to theirs; the "
+          f"random nv={NV} proofs hold the sumcheck relations in Python "
+          f"ints; {time.perf_counter() - t0:.1f} s")
+
+    # -- 20. the path, launches counted ---------------------------------------
+    torch.cuda.synchronize()
+    SK.reset_launches()
+    t0 = time.perf_counter()
+    proofs = {}
+    for name, f in fields.items():
+        e = FieldElems(f, dev)
+        g, h = DenseMLE.rand(e, NV, rng), DenseMLE.rand(e, NV, rng)
+        t1 = time.perf_counter()
+        S, msgs, chals = example.prove(g.evals, h.evals,
+                                       Transcript(b"smoke"), NV, f)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t1
+        if not example.verify(S, msgs, g, h, Transcript(b"smoke")):
+            raise AssertionError(f"{name}: the honest nv={NV} proof was "
+                                 "rejected")
+        bad = [list(m) for m in msgs]
+        bad[NV // 2][1] = f.add(bad[NV // 2][1], f.const(1, dev))
+        if example.verify(S, [tuple(m) for m in bad], g, h,
+                          Transcript(b"smoke")):
+            raise AssertionError(f"{name}: a proof with one message changed "
+                                 "by +1 was accepted")
+        chal = torch.stack(chals)
+        m7, f7 = SK.sumcheck_prove_many(
+            [bit_reverse_table(g.evals), bit_reverse_table(h.evals)], chal,
+            field=name)
+        if u64_err(m7, torch.stack([torch.stack(m) for m in msgs]), "K7") \
+                or u64_err(torch.stack(f7), torch.stack(
+                    [g.evaluate(chals), h.evaluate(chals)]), "K7 finals"):
+            raise AssertionError(f"{name}: K7 on the bit-reversed tables does "
+                                 "not reproduce the proof")
+        proofs[name] = prove_s
+    batch = SK.sumcheck_prove_batch_goldilocks(Wt, wc)
+    singles = [SK.sumcheck_prove_many_goldilocks([T[w] for T in Wt], wc)
+               for w in range(SC_W)]
+    torch.cuda.synchronize()
+    launches = dict(SK.LAUNCHES)
+    for w, (m, fs) in enumerate(singles):
+        if u64_err(batch[0][w], m, "batch") or u64_err(
+                torch.stack([x[w] for x in batch[1]]), torch.stack(fs),
+                "batch finals"):
+            raise AssertionError(f"batch claim {w} differs from its single "
+                                 "K7 proof")
+    if u64_err(batch[0], batch_twin[0], "batch twin"):
+        raise AssertionError("the batch differs from its twin")
+    phase("fields path", f"nv={NV} Fiat-Shamir proofs " + ", ".join(
+        f"{n} prove {v:.3f} s" for n, v in proofs.items())
+        + "; each verified through DenseMLE.evaluate, a tampered one "
+        f"rejected, and reproduced by K7 on the bit-reversed tables; the "
+        f"W={SC_W} batch equals {SC_W} single K7 proofs and its twin; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 21. launch counts -----------------------------------------------------
+    phase("fields launches", json.dumps(launches))
+    for name in FIELD_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the path")
+    if launches["sumcheck_prove_batch_goldilocks"] != NV + 1:
+        raise AssertionError("the batch took other than nv + 1 launches")
+
+    # -- 22. timings -------------------------------------------------------------
+    times = {}
+    timed = []
+    for name, f in fields.items():
+        for k in (2, 3):
+            tables = [f.rand((1 << NV,), rng, dev) for _ in range(k)]
+            chal = f.rand((NV,), rng, dev)
+            timed.append((f"sumcheck_prove_many_{name}", f"nv={NV} k={k}",
+                          lambda t=tables, c=chal, n=name:
+                          SK.sumcheck_prove_many(t, c, field=n),
+                          lambda t=tables, c=chal, n=name:
+                          SK.sumcheck_prove_many_ref(t, c, n),
+                          (tables, chal), k == 2))
+    timed.append(("sumcheck_prove_batch_goldilocks", f"W={SC_W} nv={NV} k=2",
+                  lambda: SK.sumcheck_prove_batch_goldilocks(Wt, wc),
+                  lambda: SK.sumcheck_prove_batch_ref(Wt, wc), (Wt, wc),
+                  True))
+    for name, label, kern, twin, inputs, with_twin in timed:
+        moved = nbytes(inputs, kern())
+        ms = time_ms(kern, inner=10)
+        plain = ""
+        if with_twin:      # the recorded case of each kernel
+            plain_ms = time_ms(twin)
+            times[name] = (ms, plain_ms, moved)
+            plain = f", plain {plain_ms:.4f} ms"
+        floor = moved / HBM_BYTES_PER_S * 1e3
+        unit = "batches" if "batch" in name else "proofs"
+        phase("fields time", f"{name} {label}: kernel {ms:.4f} ms = "
+              f"{1e3 / ms:.1f} {unit}/s{plain}, memory floor {floor:.4f} ms "
+              f"({moved} B)  ({smi})")
+
+    def four_singles():
+        for w in range(SC_W):
+            SK.sumcheck_prove_many_goldilocks([T[w] for T in Wt], wc)
+
+    t = [time_ms(fn) for fn in (four_singles, timed[-1][2], timed[-1][2],
+                                four_singles)]
+    phase("fields time", f"W={SC_W} claims at nv={NV}, k=2: one batch "
+          f"{t[1]:.4f} / {t[2]:.4f} ms = {SC_W * 1e3 / t[1]:.1f} claims/s; "
+          f"{SC_W} single K7 proofs {t[0]:.4f} / {t[3]:.4f} ms = "
+          f"{SC_W * 1e3 / t[0]:.1f} claims/s (in turns)  ({smi})")
+
+    # -- 23. where the device time goes -------------------------------------------
+    for name, label, kern, _, _, with_twin in timed:
+        if not with_twin:
+            continue
+        busy_ms, wall_ms, top = device_profile(kern, 3, dev, 2)
+        phase("fields profile", f"{name} {label}: device busy {busy_ms:.4f} "
+              f"ms of {wall_ms:.4f} ms wall (profiled), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; {top}  ({smi})")
+
+    return [record(name, MLE_SOURCE, ref, launches[name], max_err[name],
+                   *times[name]) for name, ref in FIELD_KERNELS.items()]
+
+
 def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1094,6 +1350,7 @@ def main() -> None:
     records += slice_e(dev, smi, rng)
     records += slice_b(dev, smi, rng, {
         "eng": eng, "a": a, "b": b, "ch": ch, "results": results, "orc": orc})
+    records += slice_c(dev, smi, rng)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,14 @@
 
 The JAX package ``stark_rings_tpu`` is the reference; this package
 mirrors its module layout and imports ``torch`` and numpy, never JAX.
-So far it holds the Goldilocks and BabyBear fields, the power-of-two
-negacyclic rings over them (deg 2^16 Goldilocks and deg 2^12 BabyBear
-on the main paths), and the Goldilocks MLE and sumcheck path:
+So far it holds the Goldilocks, BabyBear and frog fields, the
+power-of-two negacyclic rings over the first two (deg 2^16 Goldilocks
+and deg 2^12 BabyBear on the main paths), the Goldilocks MLE and
+sumcheck path, and sumcheck over BabyBear and frog and over batched
+claims:
 
     fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
-                  Montgomery), get_field
+                  Montgomery), frog (int64 u64 Montgomery), get_field
     ops/ntt.py    the radix-2/4 NTTContext, find_primitive_root
     ops/mxu2.py   digit tables, digit GEMM, plain Mxu2NTT
     ops/mxu_bb.py BabyBear digit tables and the plain MxuBBNTT
@@ -19,8 +21,9 @@ on the main paths), and the Goldilocks MLE and sumcheck path:
     linalg/       the field-element adapter FieldElems
     mle/          DenseMLE and helpers; the generic sumcheck prover
                   (sumcheck.py); kernels K5 evaluate / K6 fix-last
-                  (fix.py) and the one-pass prover K7
-                  (sumcheck_kernel.py); digit-GEMM evaluation (mxu_eval)
+                  (fix.py) and the one-pass prover K7 over all three
+                  fields, one claim or a batch (sumcheck_kernel.py);
+                  digit-GEMM evaluation (mxu_eval)
     rings/        PowerRing / get_power_ring; the SHAKE-256 Fiat-Shamir
                   Transcript
     examples/     the sumcheck protocol (prove / verify)
@@ -31,9 +34,9 @@ Storage is described in :mod:`.device`.  Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
 """
 
-from .device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
-                     to_torch_u32)
-from .fields import BABYBEAR, GOLDILOCKS, get_field
+from .device import (from_jax_storage, get_device, to_numpy_storage,
+                     to_numpy_u32, to_numpy_u64, to_torch, to_torch_u32)
+from .fields import BABYBEAR, FROG, GOLDILOCKS, get_field
 from .ops.fold import Mxu2FusedNTT, Mxu2KernelNTT
 from .ops.fold_bb import MxuBBFusedNTT
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
@@ -42,7 +45,8 @@ from .ops.ntt import NTTContext, get_ntt
 from .rings.power import PowerRing, get_power_ring
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
-           "to_numpy_u32", "GOLDILOCKS", "BABYBEAR", "get_field",
+           "to_numpy_u32", "from_jax_storage", "to_numpy_storage",
+           "GOLDILOCKS", "BABYBEAR", "FROG", "get_field",
            "Mxu2NTT", "Mxu2FusedNTT", "Mxu2KernelNTT", "MxuBBNTT",
            "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
            "NTTContext", "get_ntt", "PowerRing", "get_power_ring"]

@@ -3,7 +3,8 @@
 //
 // Device counterpart of the u32 helpers of
 // stark_rings_tpu/ops/pallas_fold_bb.py (_bb_mont_mul and the REDC at the
-// end of _bb_fold_rows).  Every step wraps exactly as the reference's u32
+// end of _bb_fold_rows) and of _BbOps (stark_rings_tpu/mle/
+// pallas_sumcheck.py: add, sub and the Montgomery product).  Every step wraps exactly as the reference's u32
 // arithmetic does, so inputs outside [0, q) give the reference's bits too;
 // canonical inputs give canonical outputs.
 #pragma once
@@ -30,6 +31,17 @@ __device__ __forceinline__ uint32_t redc64(uint64_t x) {
 // Montgomery product a * b * 2^-32 mod q.
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
     return redc64(static_cast<uint64_t>(a) * b);
+}
+
+// Canonical inputs: q < 2^31, so the u32 sum does not wrap.
+__device__ __forceinline__ uint32_t add(uint32_t a, uint32_t b) {
+    const uint32_t s = a + b;
+    return s >= Q ? s - Q : s;
+}
+
+__device__ __forceinline__ uint32_t sub(uint32_t a, uint32_t b) {
+    const uint32_t d = a - b;
+    return a < b ? d + Q : d;
 }
 
 }  // namespace bb

@@ -1,11 +1,13 @@
-// Goldilocks MLE kernels for Hopper (sm_90a): full evaluation (K5),
-// fix-last-variables (K6) and the one-pass k-ary product sumcheck
-// prover (K7).  Plain C entry points, loaded with ctypes by
-// stark_rings_tpu_torch/ops/_build.py; wrappers and plain twins are in
-// stark_rings_tpu_torch/mle/fix.py and mle/sumcheck_kernel.py.
+// MLE kernels for Hopper (sm_90a): full evaluation (K5) and
+// fix-last-variables (K6) of Goldilocks tables, and the one-pass k-ary
+// product sumcheck prover (K7) over Goldilocks, BabyBear or frog, for
+// one claim or a batch of claims.  Plain C entry points, loaded with
+// ctypes by stark_rings_tpu_torch/ops/_build.py; wrappers and plain twins
+// are in stark_rings_tpu_torch/mle/fix.py and mle/sumcheck_kernel.py.
 //
-// A table is u64 [2^nv] in canonical storage, little-endian index:
-// variable j is bit j of the index.  Binding variable j to r maps each
+// A table is [2^nv] words of its field's storage (u64 canonical
+// Goldilocks, u32 Montgomery BabyBear, u64 Montgomery frog), with a
+// little-endian index: variable j is bit j of the index.  Binding variable j to r maps each
 // pair (l, u) of entries that differ only in bit j to l + r*(u - l).
 //
 // The TPU kernels (stark_rings_tpu/mle/pallas_fix.py and
@@ -20,14 +22,19 @@
 //      and combines its 2^s strided inputs (coalesced across the warp)
 //      in registers, s <= 5 variables per launch.
 //   K7 launches once per round; its half-size tables live in device
-//      memory (L2-resident at nv = 20) and are folded in place.
+//      memory (L2-resident at nv = 20) and are folded in place.  A batch
+//      of claims is a second grid axis, so a proof of any number of
+//      claims is nv + 1 launches.
 // All three are bound by memory traffic and launch latency, not by the
-// modular arithmetic: one lerp (one 64x64->128 multiply) per entry read.
+// modular arithmetic: one lerp (one 64x64->128 multiply; three for
+// frog's Montgomery product) per entry read.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "babybear.cuh"
+#include "frog.cuh"
 #include "goldilocks.cuh"
 
 namespace {
@@ -113,118 +120,238 @@ void launch_fix(const uint64_t* in, uint64_t* out, int64_t M,
 }
 
 // ---------------------------------------------------------------------------
-// K7: k-ary product sumcheck, msb order.  Replaces
+// K7: k-ary product sumcheck, msb order, over Goldilocks, BabyBear or frog,
+// for one claim or a batch of claims that share the challenges.  Replaces
 // sumcheck_prove_many_pallas (pallas_sumcheck.py, _make_kernel with
-// _GlOps).
+// _GlOps, _BbOps or _FrogOps) and sumcheck_prove_batch_goldilocks_pallas,
+// which loops over the claims with one kernel each: here blockIdx.y is
+// the claim, so one launch per round serves every claim.
 // ---------------------------------------------------------------------------
 
 constexpr int SC_THREADS = 256;
 constexpr int SC_MAX_BLOCKS = 1024;
 constexpr int SC_MAX_K = 8;
+constexpr int SC_MAX_CLAIMS = 65535;     // gridDim.y
 
-// Blocks of a round on 2*half entries per table; the reduce kernel
-// recomputes it to find each round's partials.
+// The field ops of K7 on the field's storage form (as the reference's
+// ops classes): its word type and add, sub and mul.  0 is the storage
+// of 0 in every field.
+struct GlOps {
+    using word = uint64_t;
+    static __device__ __forceinline__ word add(word a, word b) {
+        return gl::add(a, b);
+    }
+    static __device__ __forceinline__ word sub(word a, word b) {
+        return gl::sub(a, b);
+    }
+    static __device__ __forceinline__ word mul(word a, word b) {
+        return gl::mul(a, b);
+    }
+};
+
+struct BbOps {
+    using word = uint32_t;
+    static __device__ __forceinline__ word add(word a, word b) {
+        return bb::add(a, b);
+    }
+    static __device__ __forceinline__ word sub(word a, word b) {
+        return bb::sub(a, b);
+    }
+    static __device__ __forceinline__ word mul(word a, word b) {
+        return bb::mont_mul(a, b);
+    }
+};
+
+struct FrogOps {
+    using word = uint64_t;
+    static __device__ __forceinline__ word add(word a, word b) {
+        return frog::add(a, b);
+    }
+    static __device__ __forceinline__ word sub(word a, word b) {
+        return frog::sub(a, b);
+    }
+    static __device__ __forceinline__ word mul(word a, word b) {
+        return frog::mont_mul(a, b);
+    }
+};
+
+// Blocks of a round on 2*half entries per table.
 __host__ __device__ inline int sc_blocks(int64_t half) {
     const int64_t b = (half + SC_THREADS - 1) / SC_THREADS;
     return b < SC_MAX_BLOCKS ? static_cast<int>(b) : SC_MAX_BLOCKS;
 }
 
-__device__ __forceinline__ uint64_t warp_sum(uint64_t v) {
+// Partial rows of rounds 0 .. rounds-1 of one claim whose first round
+// has half0: round i's rows follow those of rounds 0 .. i-1, and claim
+// w's follow those of claims 0 .. w-1, so no round leaves unused rows.
+__host__ __device__ inline int64_t sc_rows(int64_t half0, int rounds) {
+    int64_t n = 0;
+    for (int i = 0; i < rounds; ++i) n += sc_blocks(half0 >> i);
+    return n;
+}
+
+template <class F>
+__device__ __forceinline__ typename F::word warp_sum(typename F::word v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
-        v = gl::add(v, __shfl_down_sync(0xffffffffu, v, o));
+        v = F::add(v, __shfl_down_sync(0xffffffffu, v, o));
     return v;
 }
 
 // Modular sum over the block; the result is valid in thread 0.  Every
 // thread of the block must call it.
-__device__ uint64_t block_sum(uint64_t v, uint64_t* sh) {
-    v = warp_sum(v);
+template <class F>
+__device__ typename F::word block_sum(typename F::word v,
+                                      typename F::word* sh) {
+    using W = typename F::word;
+    v = warp_sum<F>(v);
     __syncthreads();                     // sh may still be read
     if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
     __syncthreads();
-    v = threadIdx.x < SC_THREADS / 32 ? sh[threadIdx.x] : 0;
-    return threadIdx.x < 32 ? warp_sum(v) : v;
+    v = threadIdx.x < SC_THREADS / 32 ? sh[threadIdx.x] : W(0);
+    return threadIdx.x < 32 ? warp_sum<F>(v) : v;
 }
 
+template <class W>
 struct Tables {
-    const uint64_t* in[SC_MAX_K];
-    uint64_t* out[SC_MAX_K];
+    const W* in[SC_MAX_K];
+    W* out[SC_MAX_K];
 };
 
 // One round on tables of 2*half entries: the message sums
 // p(t) = sum_x prod_j (T_j[x] + t*(T_j[x+half] - T_j[x])), t = 0..K, as
 // per-block partials, and the fold T_j[x] + r*(T_j[x+half] - T_j[x])
 // into out[j][x] (which may be in[j]: entry x is read and written only
-// by its own thread).
-template <int K>
+// by its own thread).  Claim w = blockIdx.y reads in[j] + w*in_claim,
+// writes out[j] + w*out_claim, and block b its partials in row
+// w*claim_rows + row0 + b.
+template <class F, int K>
 __global__ void __launch_bounds__(SC_THREADS)
-sumcheck_round_kernel(Tables tb, int64_t half,
-                      const uint64_t* __restrict__ chal, int round,
-                      uint64_t* __restrict__ partials) {
-    __shared__ uint64_t sh[SC_THREADS / 32];
-    const uint64_t r = chal[round];
-    uint64_t acc[K + 1];
+sumcheck_round_kernel(Tables<typename F::word> tb, int64_t in_claim,
+                      int64_t out_claim, int64_t half,
+                      const typename F::word* __restrict__ chal, int round,
+                      int64_t row0, int64_t claim_rows,
+                      typename F::word* __restrict__ partials) {
+    using W = typename F::word;
+    __shared__ W sh[SC_THREADS / 32];
+    const int64_t w = blockIdx.y;
+    const W r = chal[round];
+    W acc[K + 1];
 #pragma unroll
     for (int t = 0; t <= K; ++t) acc[t] = 0;
     const int64_t stride = static_cast<int64_t>(gridDim.x) * SC_THREADS;
     for (int64_t x = static_cast<int64_t>(blockIdx.x) * SC_THREADS
                      + threadIdx.x; x < half; x += stride) {
-        uint64_t lo[K], d[K], cur[K];
+        W lo[K], d[K], cur[K];
 #pragma unroll
         for (int j = 0; j < K; ++j) {
-            lo[j] = tb.in[j][x];
-            d[j] = gl::sub(tb.in[j][x + half], lo[j]);
+            const W* in = tb.in[j] + w * in_claim;
+            lo[j] = in[x];
+            d[j] = F::sub(in[x + half], lo[j]);
             cur[j] = lo[j];
         }
 #pragma unroll
         for (int t = 0; t <= K; ++t) {
             if (t) {
 #pragma unroll
-                for (int j = 0; j < K; ++j) cur[j] = gl::add(cur[j], d[j]);
+                for (int j = 0; j < K; ++j) cur[j] = F::add(cur[j], d[j]);
             }
-            uint64_t p = cur[0];
+            W p = cur[0];
 #pragma unroll
-            for (int j = 1; j < K; ++j) p = gl::mul(p, cur[j]);
-            acc[t] = gl::add(acc[t], p);
+            for (int j = 1; j < K; ++j) p = F::mul(p, cur[j]);
+            acc[t] = F::add(acc[t], p);
         }
 #pragma unroll
         for (int j = 0; j < K; ++j)
-            tb.out[j][x] = gl::add(lo[j], gl::mul(r, d[j]));
+            tb.out[j][w * out_claim + x] = F::add(lo[j], F::mul(r, d[j]));
     }
-    uint64_t* row = partials
-        + (static_cast<int64_t>(round) * SC_MAX_BLOCKS + blockIdx.x) * (K + 1);
+    W* row = partials + (w * claim_rows + row0 + blockIdx.x) * (K + 1);
 #pragma unroll
     for (int t = 0; t <= K; ++t) {
-        const uint64_t s = block_sum(acc[t], sh);
+        const W s = block_sum<F>(acc[t], sh);
         if (threadIdx.x == 0) row[t] = s;
     }
 }
 
-// msgs[round, t] = sum of that round's per-block partials; one block per
-// round.
+// msgs[w, round, t] = sum of that claim's and round's per-block partials;
+// one block per (round, claim).
+template <class F>
 __global__ void __launch_bounds__(SC_THREADS)
-sumcheck_reduce_kernel(const uint64_t* __restrict__ partials,
-                       uint64_t* __restrict__ msgs, int k1, int64_t half0) {
-    __shared__ uint64_t sh[SC_THREADS / 32];
+sumcheck_reduce_kernel(const typename F::word* __restrict__ partials,
+                       typename F::word* __restrict__ msgs, int k1,
+                       int rounds, int64_t half0) {
+    using W = typename F::word;
+    __shared__ W sh[SC_THREADS / 32];
     const int round = blockIdx.x;
+    const int64_t w = blockIdx.y;
+    const int64_t cr = w * rounds + round;
     const int nb = sc_blocks(half0 >> round);
-    const uint64_t* rows = partials
-        + static_cast<int64_t>(round) * SC_MAX_BLOCKS * k1;
+    const W* rows = partials
+        + (w * sc_rows(half0, rounds) + sc_rows(half0, round)) * k1;
     for (int t = 0; t < k1; ++t) {
-        uint64_t a = 0;
+        W a = 0;
         for (int b = threadIdx.x; b < nb; b += SC_THREADS)
-            a = gl::add(a, rows[b * k1 + t]);
-        a = block_sum(a, sh);
-        if (threadIdx.x == 0) msgs[round * k1 + t] = a;
+            a = F::add(a, rows[b * k1 + t]);
+        a = block_sum<F>(a, sh);
+        if (threadIdx.x == 0) msgs[cr * k1 + t] = a;
     }
 }
 
-template <int K>
-void launch_round(const Tables& tb, int64_t half, const uint64_t* chal,
-                  int round, uint64_t* partials, cudaStream_t s) {
-    sumcheck_round_kernel<K><<<sc_blocks(half), SC_THREADS, 0, s>>>(
-        tb, half, chal, round, partials);
+template <class F, int K>
+void launch_round(const Tables<typename F::word>& tb, dim3 grid,
+                  int64_t in_claim, int64_t out_claim, int64_t half,
+                  const void* chal, int round, int64_t row0,
+                  int64_t claim_rows, void* partials, cudaStream_t s) {
+    using W = typename F::word;
+    sumcheck_round_kernel<F, K><<<grid, SC_THREADS, 0, s>>>(
+        tb, in_claim, out_claim, half, static_cast<const W*>(chal), round,
+        row0, claim_rows, static_cast<W*>(partials));
+}
+
+template <class F>
+int sumcheck_round(const void* ins, const void* outs, int k, int claims,
+                   int64_t in_claim, int64_t out_claim, int64_t half,
+                   const void* chal, int round, int rounds, void* partials,
+                   cudaStream_t s) {
+    if (k < 1 || k > SC_MAX_K || half < 1 || claims < 1
+            || claims > SC_MAX_CLAIMS || round < 0 || round >= rounds
+            || round > 62 || half > (INT64_MAX >> round))
+        return static_cast<int>(cudaErrorInvalidValue);
+    using W = typename F::word;
+    Tables<W> tb{};
+    for (int j = 0; j < k; ++j) {
+        tb.in[j] = static_cast<const W* const*>(ins)[j];
+        tb.out[j] = static_cast<W* const*>(outs)[j];
+    }
+    const int64_t half0 = half << round;
+    const int64_t row0 = sc_rows(half0, round);
+    const int64_t claim_rows = sc_rows(half0, rounds);
+    const dim3 grid(sc_blocks(half), claims);
+    switch (k) {
+#define SC_ROUND(KK)                                                       \
+        case KK:                                                           \
+            launch_round<F, KK>(tb, grid, in_claim, out_claim, half, chal, \
+                                round, row0, claim_rows, partials, s);     \
+            break;
+        SC_ROUND(1) SC_ROUND(2) SC_ROUND(3) SC_ROUND(4)
+        SC_ROUND(5) SC_ROUND(6) SC_ROUND(7) SC_ROUND(8)
+#undef SC_ROUND
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class F>
+int sumcheck_reduce(const void* partials, void* msgs, int k1, int rounds,
+                    int claims, int64_t half0, cudaStream_t s) {
+    if (k1 < 2 || k1 > SC_MAX_K + 1 || rounds < 1 || claims < 1
+            || claims > SC_MAX_CLAIMS || half0 < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    using W = typename F::word;
+    sumcheck_reduce_kernel<F><<<dim3(rounds, claims), SC_THREADS, 0, s>>>(
+        static_cast<const W*>(partials), static_cast<W*>(msgs), k1, rounds,
+        half0);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -265,44 +392,41 @@ extern "C" int srt_mle_fix_top(const void* in, void* out, int64_t M, int s,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K7 round: `ins` / `outs` are host arrays of k device pointers (the
-// tables read this round and the half-size tables written); partials is
-// u64 [rounds, 1024, k+1].
-extern "C" int srt_sumcheck_round(const void* ins, const void* outs, int k,
-                                  int64_t half, const void* chal, int round,
-                                  void* partials, void* stream) {
-    if (k < 1 || k > SC_MAX_K || half < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    Tables tb{};
-    for (int j = 0; j < k; ++j) {
-        tb.in[j] = static_cast<const uint64_t* const*>(ins)[j];
-        tb.out[j] = static_cast<uint64_t* const*>(outs)[j];
-    }
-    const auto* cp = static_cast<const uint64_t*>(chal);
-    auto* pp = static_cast<uint64_t*>(partials);
-    auto st = static_cast<cudaStream_t>(stream);
-    switch (k) {
-        case 1: launch_round<1>(tb, half, cp, round, pp, st); break;
-        case 2: launch_round<2>(tb, half, cp, round, pp, st); break;
-        case 3: launch_round<3>(tb, half, cp, round, pp, st); break;
-        case 4: launch_round<4>(tb, half, cp, round, pp, st); break;
-        case 5: launch_round<5>(tb, half, cp, round, pp, st); break;
-        case 6: launch_round<6>(tb, half, cp, round, pp, st); break;
-        case 7: launch_round<7>(tb, half, cp, round, pp, st); break;
-        default: launch_round<8>(tb, half, cp, round, pp, st); break;
-    }
-    return static_cast<int>(cudaGetLastError());
+// K7 partials of `claims` claims whose first round has half0 (2^(nv-1)):
+// the rows of k+1 words the caller allocates for srt_sumcheck_round_*.
+extern "C" int64_t srt_sumcheck_partial_rows(int64_t half0, int rounds,
+                                             int claims) {
+    return claims * sc_rows(half0, rounds);
 }
 
-// K7 messages: msgs u64 [rounds, k1] from the partials of rounds whose
-// halves are half0, half0/2, ...
-extern "C" int srt_sumcheck_reduce(const void* partials, void* msgs, int k1,
-                                   int rounds, int64_t half0, void* stream) {
-    if (k1 < 2 || k1 > SC_MAX_K + 1 || rounds < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    sumcheck_reduce_kernel<<<rounds, SC_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint64_t*>(partials), static_cast<uint64_t*>(msgs),
-        k1, half0);
-    return static_cast<int>(cudaGetLastError());
-}
+// K7 entry points, one pair per field:
+//   srt_sumcheck_round_<field>: one round for `claims` claims.  `ins` /
+//     `outs` are host arrays of k device pointers, the tables read this
+//     round and the half-size tables written, claim w's at w*in_claim /
+//     w*out_claim words further; partials holds
+//     srt_sumcheck_partial_rows(half << round, rounds, claims) rows of
+//     k+1 words of the field.
+//   srt_sumcheck_reduce_<field>: msgs [claims, rounds, k1] words from the
+//     partials of rounds whose halves are half0, half0/2, ...
+#define SC_ENTRIES(NAME, OPS)                                                \
+    extern "C" int srt_sumcheck_round_##NAME(                                \
+            const void* ins, const void* outs, int k, int claims,            \
+            int64_t in_claim, int64_t out_claim, int64_t half,               \
+            const void* chal, int round, int rounds, void* partials,         \
+            void* stream) {                                                  \
+        return sumcheck_round<OPS>(ins, outs, k, claims, in_claim,           \
+                                   out_claim, half, chal, round, rounds,     \
+                                   partials,                                 \
+                                   static_cast<cudaStream_t>(stream));       \
+    }                                                                        \
+    extern "C" int srt_sumcheck_reduce_##NAME(                               \
+            const void* partials, void* msgs, int k1, int rounds,            \
+            int claims, int64_t half0, void* stream) {                       \
+        return sumcheck_reduce<OPS>(partials, msgs, k1, rounds, claims,      \
+                                    half0,                                   \
+                                    static_cast<cudaStream_t>(stream));      \
+    }
+SC_ENTRIES(goldilocks, GlOps)
+SC_ENTRIES(babybear, BbOps)
+SC_ENTRIES(frog, FrogOps)
+#undef SC_ENTRIES

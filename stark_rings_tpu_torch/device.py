@@ -20,6 +20,13 @@ Storage, per field:
   ``uint32`` array crosses over through ``.view(np.int32)``
   (:func:`to_torch_u32`, :func:`to_numpy_u32`); the kernels read
   ``uint32_t``.
+* **frog** (q = 15912092521325583641): a ``torch.int64`` tensor holding
+  the u64 Montgomery form (R = 2^64), the reference's ``uint64`` storage;
+  it crosses over as Goldilocks does.
+
+:func:`from_jax_storage` maps the reference's numpy storage of any of
+the three fields to the port's storage tensor, and
+:func:`to_numpy_storage` maps it back.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
-           "to_numpy_u32"]
+           "to_numpy_u32", "from_jax_storage", "to_numpy_storage"]
 
 
 def get_device(device: str | torch.device = "cuda") -> torch.device:
@@ -74,3 +81,20 @@ def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected an int32 tensor, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def from_jax_storage(field, arr, device="cuda") -> torch.Tensor:
+    """The reference's numpy storage of ``field`` (``uint64`` for
+    Goldilocks and frog, ``uint32`` for BabyBear) -> the port's storage
+    tensor on ``device``, the same bits."""
+    if field.dtype == torch.int32:
+        return to_torch_u32(arr, device)
+    if field.dtype == torch.int64 and not field.limbed:
+        return to_torch(arr, device)
+    raise TypeError(f"no storage codec for field {field.name!r}")
+
+
+def to_numpy_storage(t: torch.Tensor) -> np.ndarray:
+    """A storage tensor -> the reference's numpy storage (u64 words for
+    int64 tensors, u32 words for int32 ones)."""
+    return to_numpy_u32(t) if t.dtype == torch.int32 else to_numpy_u64(t)

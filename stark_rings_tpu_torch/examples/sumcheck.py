@@ -1,21 +1,25 @@
 #!/usr/bin/env python
-"""The multilinear sumcheck protocol over Goldilocks, driven through the
-port's surface (counterpart of ``examples/sumcheck.py``).
+"""The multilinear sumcheck protocol over Goldilocks, BabyBear or frog,
+driven through the port's surface (counterpart of
+``examples/sumcheck.py``, which runs it over Goldilocks).
 
 Claim: S = sum_{x in {0,1}^n} g(x) * h(x) for multilinear g, h.  Each
 round the prover sends the degree-2 univariate p_i(t) = sum_{x'} g(t, x')
 h(t, x') as its values at t = 0, 1, 2, computed on the halved tables
 (``mle.sumcheck``, variable 0 first); the SHAKE-256 transcript returns
 the challenge r_i, and both sides reduce the claim to p_i(r_i).  The
-verifier's final check evaluates g and h at the challenge point through
-``evaluate_goldilocks``: kernel K5 when the tables are on the card, its
-plain twin (the value ``DenseMLE.evaluate`` gives) on the CPU.
+verifier's final check evaluates g and h at the challenge point: over
+Goldilocks through ``evaluate_goldilocks`` (kernel K5 when the tables
+are on the card, its plain twin, the value ``DenseMLE.evaluate`` gives,
+on the CPU), over the other fields through ``DenseMLE.evaluate`` (the
+reference has no evaluation kernel for them).
 
 Each round moves its three messages to the host once (to be absorbed)
 and its challenge to the device once.
 
 Run:  python -m stark_rings_tpu_torch.examples.sumcheck [--n-vars 14]
-      [--device cpu]       (the CUDA card unless --device cpu)
+      [--field goldilocks|babybear|frog] [--device cpu]
+      (the CUDA card unless --device cpu)
 """
 
 from __future__ import annotations
@@ -25,8 +29,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..device import to_numpy_u64
-from ..fields import GOLDILOCKS as F
+from ..fields import GOLDILOCKS, get_field
 from ..linalg import FieldElems
 from ..mle import DenseMLE
 from ..mle.fix import evaluate_goldilocks
@@ -51,16 +54,15 @@ def _interp_at(f, p0, p1, p2, r):
 
 def _absorb_round(transcript, f, msg):
     """Absorb one round's (p0, p1, p2) after one copy to the host."""
-    host = to_numpy_u64(torch.stack(msg))
+    host = torch.stack(msg).cpu()
     for lbl, p in zip(_LABELS, host):
         transcript.absorb(lbl, f, p)
 
 
-def prove(g_evals, h_evals, transcript, n_vars):
-    """Run the prover over n_vars rounds; returns (claimed sum S, round
-    messages [(p0, p1, p2)], challenges), all 0-d tensors on the
-    tables' device."""
-    f = F
+def prove(g_evals, h_evals, transcript, n_vars, f=GOLDILOCKS):
+    """Run the prover over n_vars rounds on storage tables of the field
+    ``f``; returns (claimed sum S, round messages [(p0, p1, p2)],
+    challenges), all 0-d tensors on the tables' device."""
     if g_evals.shape != (1 << n_vars,) or h_evals.shape != g_evals.shape:
         raise ValueError(f"prove: tables must have 2^{n_vars} entries")
     S = f.sum(f.mul(g_evals, h_evals), axis=0)
@@ -79,8 +81,8 @@ def prove(g_evals, h_evals, transcript, n_vars):
 
 def verify(S, msgs, g_mle, h_mle, transcript):
     """Replay the transcript; True iff every round and the final MLE
-    evaluation check pass."""
-    f = F
+    evaluation check pass (over the MLEs' field)."""
+    f = g_mle.e.f
     transcript.absorb(b"sum", f, S)
     claim = S
     rs = []
@@ -91,19 +93,24 @@ def verify(S, msgs, g_mle, h_mle, transcript):
         (r,) = transcript.squeeze_field_elements(f, 1, S.device)
         rs.append(r)
         claim = _interp_at(f, p0, p1, p2, r)
-    gv = evaluate_goldilocks(g_mle.evals, rs)
-    hv = evaluate_goldilocks(h_mle.evals, rs)
+    if f is GOLDILOCKS:
+        gv = evaluate_goldilocks(g_mle.evals, rs)
+        hv = evaluate_goldilocks(h_mle.evals, rs)
+    else:
+        gv, hv = g_mle.evaluate(rs), h_mle.evaluate(rs)
     return bool(claim == f.mul(gv, hv))
 
 
-def main(n_vars: int = 14, device: str = "cuda", seed: int = 7) -> None:
+def main(n_vars: int = 14, device: str = "cuda", seed: int = 7,
+         field: str = "goldilocks") -> None:
+    F = get_field(field)
     rng = np.random.default_rng(seed)
     e = FieldElems(F, device)
     g = DenseMLE.rand(e, n_vars, rng)
     h = DenseMLE.rand(e, n_vars, rng)
 
     S, msgs, chals = prove(g.evals, h.evals, Transcript(b"sumcheck"),
-                           n_vars)
+                           n_vars, F)
     ok = verify(S, msgs, g, h, Transcript(b"sumcheck"))
     assert ok, "honest proof rejected"
 
@@ -114,7 +121,7 @@ def main(n_vars: int = 14, device: str = "cuda", seed: int = 7) -> None:
     assert not verify(S, [tuple(m) for m in bad], g, h,
                       Transcript(b"sumcheck")), "tampered proof accepted"
 
-    print(f"sumcheck over {n_vars} vars on {e.device}: "
+    print(f"sumcheck over {n_vars} {field} vars on {e.device}: "
           f"S = {int(F.decode(S))}, verified = {ok}, tamper rejected")
 
 
@@ -124,5 +131,7 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--field", default="goldilocks",
+                    choices=["goldilocks", "babybear", "frog"])
     args = ap.parse_args()
-    main(args.n_vars, args.device, args.seed)
+    main(args.n_vars, args.device, args.seed, args.field)

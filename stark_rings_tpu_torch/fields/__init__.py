@@ -1,7 +1,8 @@
-"""Prime-field layer of the PyTorch port: Goldilocks and BabyBear."""
+"""Prime-field layer of the PyTorch port: Goldilocks, BabyBear and
+frog."""
 
-from .field import (BABYBEAR, FIELDS, GOLDILOCKS, BabyBear, Goldilocks,
-                    get_field)
+from .field import (BABYBEAR, FIELDS, FROG, GOLDILOCKS, BabyBear, Frog,
+                    Goldilocks, get_field)
 
-__all__ = ["GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear", "FIELDS",
-           "get_field"]
+__all__ = ["GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear", "FROG",
+           "Frog", "FIELDS", "get_field"]

@@ -1,7 +1,9 @@
-"""Prime-field arithmetic on integer tensors: Goldilocks and BabyBear.
+"""Prime-field arithmetic on integer tensors: Goldilocks, BabyBear and
+frog.
 
 Counterpart of ``stark_rings_tpu/fields/field.py`` (``_Goldilocks``,
-``_BabyBear`` and ``_mul64_128``); see :mod:`..device` for the storage.
+``_BabyBear``, ``_Frog`` and ``_mul64_128``); see :mod:`..device` for
+the storage.
 
 * **Goldilocks** ``q = 2^64 - 2^32 + 1``: canonical values held as the
   u64 bit patterns of ``int64`` tensors, with the classic 128-bit
@@ -14,6 +16,11 @@ Counterpart of ``stark_rings_tpu/fields/field.py`` (``_Goldilocks``,
   ``int32`` tensors (every stored value is below q < 2^31), single-word
   REDC on ``int64``.  Add and sub stay inside int32 by comparing
   ``a - (q - b)`` with zero.
+* **frog** ``q = 15912092521325583641`` (a generic 64-bit prime above
+  2^63): Montgomery form with R = 2^64 in ``int64`` tensors holding the
+  u64 bit patterns, as Goldilocks; the REDC takes the high words of
+  a*b and m*q and the carry of their low words, exactly as the
+  reference's ``_mont_mul_raw``.
 """
 
 from __future__ import annotations
@@ -24,8 +31,8 @@ import torch
 from ..device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
                       to_torch_u32)
 
-__all__ = ["Goldilocks", "GOLDILOCKS", "BabyBear", "BABYBEAR", "FIELDS",
-           "get_field", "i64", "shr", "u64_lt"]
+__all__ = ["Goldilocks", "GOLDILOCKS", "BabyBear", "BABYBEAR", "Frog",
+           "FROG", "FIELDS", "get_field", "i64", "shr", "u64_lt"]
 
 MASK32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
@@ -137,54 +144,32 @@ class _PrimeField:
         return self.pow_const(x, self.q - 2)
 
 
-class Goldilocks(_PrimeField):
-    """q = 2^64 - 2^32 + 1, canonical values in [0, q) as int64 bits."""
+class _U64Field(_PrimeField):
+    """What Goldilocks and frog share: u64 bit patterns in ``int64``
+    storage, and add, sub and neg mod a q above 2^63 with unsigned
+    compares (a sum that wraps past 2^64 also reduces by q)."""
 
-    name = "goldilocks"
-    q = 2**64 - 2**32 + 1
     bits = 64
     dtype = torch.int64
-
-    _Q = i64(q)          # q's int64 bit pattern (= -(2^32 - 1))
-    _EPS = MASK32        # 2^64 mod q
-
-    # -- host conversions ---------------------------------------------------
-    def _scalar(self, v: int) -> int:
-        return i64(int(v) % self.q)
+    _Q: int              # q's int64 bit pattern
 
     @staticmethod
     def _codec(arr, device):
         return to_torch(arr, device)
 
-    def storage_np(self, ints) -> np.ndarray:
-        """python ints / object array -> canonical numpy uint64 storage."""
-        arr = np.asarray(ints, dtype=object)
-        flat = np.array([int(v) % self.q for v in arr.reshape(-1)],
-                        dtype=np.uint64)
-        return flat.reshape(arr.shape)
-
     def decode(self, x: torch.Tensor) -> np.ndarray:
         """storage -> numpy object array of canonical python ints."""
-        host = to_numpy_u64(x)
+        host = to_numpy_u64(self.canon(x))
         out = np.empty(host.size, dtype=object)
         out[:] = [int(v) for v in host.reshape(-1)]
         return out.reshape(host.shape)
 
     def rand(self, shape, rng: np.random.Generator,
              device="cuda") -> torch.Tensor:
-        """Uniform canonical elements drawn from ``rng``."""
+        """Uniform elements: draws from ``rng`` in [0, q), taken as
+        storage (canonical, or Montgomery form, a bijection of [0, q))."""
         return to_torch(rng.integers(0, self.q, size=shape, dtype=np.uint64),
                         device)
-
-    def from_uint(self, x, device="cuda") -> torch.Tensor:
-        """numpy unsigned ints below q -> storage on ``device``."""
-        return to_torch(np.asarray(x, dtype=np.uint64), device)
-
-    def canon(self, x):
-        return x
-
-    def from_canon(self, u):
-        return u
 
     # -- elementwise ops -----------------------------------------------------
     def add(self, a, b):
@@ -199,6 +184,38 @@ class Goldilocks(_PrimeField):
     def neg(self, a):
         return torch.where(a == 0, a, self._Q - a)
 
+
+class Goldilocks(_U64Field):
+    """q = 2^64 - 2^32 + 1, canonical values in [0, q) as int64 bits."""
+
+    name = "goldilocks"
+    q = 2**64 - 2**32 + 1
+
+    _Q = i64(q)          # q's int64 bit pattern (= -(2^32 - 1))
+    _EPS = MASK32        # 2^64 mod q
+
+    # -- host conversions ---------------------------------------------------
+    def _scalar(self, v: int) -> int:
+        return i64(int(v) % self.q)
+
+    def storage_np(self, ints) -> np.ndarray:
+        """python ints / object array -> canonical numpy uint64 storage."""
+        arr = np.asarray(ints, dtype=object)
+        flat = np.array([int(v) % self.q for v in arr.reshape(-1)],
+                        dtype=np.uint64)
+        return flat.reshape(arr.shape)
+
+    def from_uint(self, x, device="cuda") -> torch.Tensor:
+        """numpy unsigned ints below q -> storage on ``device``."""
+        return to_torch(np.asarray(x, dtype=np.uint64), device)
+
+    def canon(self, x):
+        return x
+
+    def from_canon(self, u):
+        return u
+
+    # -- multiplication ------------------------------------------------------
     def _reduce128(self, hi, lo):
         """(hi*2^64 + lo) mod q via 2^64 = 2^32 - 1, 2^96 = -1."""
         hi_hi = shr(hi, 32)
@@ -302,16 +319,75 @@ class BabyBear(_PrimeField):
                           * self._R2).to(torch.int32)
 
 
+class Frog(_U64Field):
+    """q = 15912092521325583641 in Montgomery form (R = 2^64), int64
+    storage of the u64 words."""
+
+    name = "frog"
+    q = 15912092521325583641
+
+    R = 1 << 64
+    _Q = i64(q)
+    _QP = i64(-pow(q, -1, R))        # -q^-1 mod 2^64, the REDC constant
+    _R1 = R % q                      # Montgomery form of 1
+    _R2 = i64(R * R % q)             # REDC(u * R2) = Montgomery form of u
+
+    # -- host conversions ---------------------------------------------------
+    def _scalar(self, v: int) -> int:
+        return i64(int(v) % self.q * self._R1 % self.q)
+
+    def storage_np(self, ints) -> np.ndarray:
+        """python ints / object array -> numpy uint64 Montgomery storage,
+        byte-equal to the reference's ``encode``."""
+        arr = np.asarray(ints, dtype=object)
+        flat = np.array([self._scalar(v) for v in arr.reshape(-1)],
+                        dtype=np.int64)
+        return flat.view(np.uint64).reshape(arr.shape)
+
+    def from_uint(self, x, device="cuda") -> torch.Tensor:
+        """numpy unsigned ints (any u64) -> storage of x mod q."""
+        return self._mont_mul_raw(to_torch(np.asarray(x, dtype=np.uint64),
+                                           device), self._R2)
+
+    # -- Montgomery arithmetic ------------------------------------------------
+    def _mont_mul_raw(self, a, b):
+        """a*b*2^-64 mod q: REDC of the 128-bit product.  With m = lo *
+        (-q^-1) mod 2^64, lo + lo(m*q) is 0 mod 2^64 and carries exactly
+        when lo != 0; the high words hi + hi(m*q) + carry are reduced by
+        q once if they wrapped past 2^64 or reached q (the reference's
+        ``_mont_mul_raw``, bit for bit on any u64 inputs)."""
+        hi, lo = _mul64_128(a, b)
+        m = lo * self._QP                # wraps mod 2^64 as u64 does
+        mq_hi, _ = _mul64_128(m, self._Q)
+        t = hi + mq_hi
+        wrapped = u64_lt(t, hi)
+        t2 = t + (lo != 0).to(torch.int64)
+        wrapped = wrapped | u64_lt(t2, t)
+        return torch.where(wrapped | ~u64_lt(t2, self._Q), t2 - self._Q, t2)
+
+    def mul(self, a, b):
+        return self._mont_mul_raw(a, b)
+
+    def canon(self, x):
+        """Montgomery storage -> canonical values."""
+        return self._mont_mul_raw(x, 1)
+
+    def from_canon(self, u):
+        """Canonical values -> Montgomery storage."""
+        return self._mont_mul_raw(u, self._R2)
+
+
 GOLDILOCKS = Goldilocks()
 BABYBEAR = BabyBear()
-FIELDS = {"goldilocks": GOLDILOCKS, "babybear": BABYBEAR}
+FROG = Frog()
+FIELDS = {"goldilocks": GOLDILOCKS, "babybear": BABYBEAR, "frog": FROG}
 
 
 def get_field(name: str):
     """The field called ``name`` (the reference's ``get_field``)."""
     if name in FIELDS:
         return FIELDS[name]
-    if name in ("frog", "stark_prime"):
+    if name == "stark_prime":
         raise NotImplementedError(f"field {name!r} is not ported yet "
                                   "(ROADMAP Slice C item 9)")
     raise KeyError(f"unknown field {name!r}")

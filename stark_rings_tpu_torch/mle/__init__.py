@@ -1,8 +1,9 @@
 """Multilinear extension layer of the PyTorch port (counterpart of
-``stark_rings_tpu/mle``): dense MLEs over Goldilocks, the HyperPlonk
-helpers, the generic sumcheck prover (``sumcheck``), kernels K5 and K6
-(``fix``), the one-pass prover K7 (``sumcheck_kernel``) and the digit-GEMM
-evaluation (``mxu_eval``)."""
+``stark_rings_tpu/mle``): dense MLEs over any scalar field, the
+HyperPlonk helpers, the generic sumcheck prover (``sumcheck``), kernels
+K5 and K6 for Goldilocks (``fix``), the one-pass prover K7 over
+Goldilocks, BabyBear and frog, and its Goldilocks batch of claims
+(``sumcheck_kernel``), and the digit-GEMM evaluation (``mxu_eval``)."""
 
 from .dense import DenseMLE
 from .polynomials import (
@@ -16,6 +17,14 @@ from .polynomials import (
     random_permutation,
     random_permutation_mles,
     random_zero_mle_list,
+)
+from .sumcheck import (
+    bit_reverse_table,
+    sumcheck_prove_many_with_challenges,
+)
+from .sumcheck_kernel import (
+    sumcheck_prove_batch_goldilocks,
+    sumcheck_prove_many,
 )
 from .util import (
     bit_decompose,
@@ -35,4 +44,6 @@ __all__ = [
     "merge_polynomials",
     "bit_decompose", "project", "get_index", "get_batched_nv",
     "gen_eval_point_bits", "swap_bits",
+    "sumcheck_prove_many_with_challenges", "bit_reverse_table",
+    "sumcheck_prove_many", "sumcheck_prove_batch_goldilocks",
 ]

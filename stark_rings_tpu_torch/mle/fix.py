@@ -42,19 +42,24 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def as_points(points, device) -> torch.Tensor:
-    """Field elements -> a contiguous int64 tensor [n] on ``device``."""
+def as_points(points, device, dtype=torch.int64) -> torch.Tensor:
+    """Field elements -> a contiguous 1-D tensor [n] of ``dtype`` (the
+    field's storage dtype: int64, or int32 for BabyBear) on ``device``.
+    Python ints are taken as storage words."""
     if isinstance(points, torch.Tensor):
-        if points.dtype != torch.int64 or points.dim() != 1:
-            raise ValueError(f"points must be a 1-D int64 tensor, got "
+        if points.dtype != dtype or points.dim() != 1:
+            raise ValueError(f"points must be a 1-D {dtype} tensor, got "
                              f"{points.dtype} {tuple(points.shape)}")
         return points.to(device).contiguous()
-    vals = [r.reshape(()).to(device, torch.int64)
+    # a python int's word, read as the signed integer of the same bits
+    word = i64 if dtype == torch.int64 else (
+        lambda v: (int(v) + 2**31) % 2**32 - 2**31)
+    vals = [r.reshape(()).to(device, dtype)
             if isinstance(r, torch.Tensor)
-            else torch.tensor(i64(int(r)), dtype=torch.int64, device=device)
+            else torch.tensor(word(int(r)), dtype=dtype, device=device)
             for r in points]
     if not vals:
-        return torch.empty(0, dtype=torch.int64, device=device)
+        return torch.empty(0, dtype=dtype, device=device)
     return torch.stack(vals)
 
 

@@ -1,25 +1,40 @@
 """One-pass k-ary product sumcheck prover, kernel K7 (counterpart of
-``stark_rings_tpu/mle/pallas_sumcheck.py``, the Goldilocks field).
+``stark_rings_tpu/mle/pallas_sumcheck.py``), over Goldilocks, BabyBear
+and frog, for one claim or a batch of claims.
 
-``sumcheck_prove_many(tables, challenges)`` proves S = sum_x prod_j
-T_j(x) in msb order (challenge i binds variable nv-1-i) for challenges
-given up front, and returns ``(msgs [nv, k+1], finals)`` exactly as
-``sumcheck_prove_many_with_challenges(F, tables, challenges,
+``sumcheck_prove_many(tables, challenges, field)`` proves S = sum_x
+prod_j T_j(x) in msb order (challenge i binds variable nv-1-i) for
+challenges given up front, and returns ``(msgs [nv, k+1], finals)``
+exactly as ``sumcheck_prove_many_with_challenges(f, tables, challenges,
 order="msb")`` does: per round p(0..k), and the k fully bound values.
 That generic prover is the twin, ``sumcheck_prove_many_ref``.
 
-On CUDA tensors the wrapper launches one ``csrc/mle.cu`` round kernel
-per round (messages as per-block partials, and the fold with that
-round's challenge into half-size tables in device memory) and one
-kernel that reduces every round's partials to the messages: nv + 1
-launches, no host synchronisation, for every nv >= 1.  The reference
-hands small tables to the generic prover (nv < 12, and the last 10
-rounds: its kernel works on rows of 128 lanes); here every round stays
-in the round kernel, the small ones as one block each.
-Every launch adds one to ``LAUNCHES``.  CPU tensors get the twin.
+``sumcheck_prove_batch_goldilocks(tables, challenges)`` proves W
+Goldilocks claims that share one challenge vector, as the reference's
+``sumcheck_prove_batch_goldilocks_pallas``: ``tables`` are k [W, 2^nv]
+tensors, and it returns ``(msgs [W, nv, k+1], finals: k tensors [W])``.
+Its twin, ``sumcheck_prove_batch_ref``, runs the generic prover once per
+claim.
 
-Only Goldilocks is ported: the reference's BabyBear and frog variants
-(``_BbOps``, ``_FrogOps``) wait for those fields.
+Tables and challenges are the field's storage, as in the reference:
+int64 for Goldilocks (canonical) and frog (Montgomery, R = 2^64), int32
+for BabyBear (Montgomery, R = 2^32).  The kernel's add, sub and mul are
+the field's own on that storage, so nothing is converted.
+
+On CUDA tensors the wrappers launch one ``csrc/mle.cu`` round kernel per
+round (messages as per-block partials, and the fold with that round's
+challenge into half-size tables in device memory) and one kernel that
+reduces every round's partials to the messages: nv + 1 launches, no
+host synchronisation, for every nv >= 1 and any number of claims (the
+claims are the kernels' second grid axis).  The reference hands small
+tables to the generic prover (nv < 12, and the last 10 rounds: its
+kernel works on rows of 128 lanes) and batches by calling its kernel
+once per claim; here every round of every claim stays in the round
+kernel.  Each field has its own pair of C entry points,
+``srt_sumcheck_round_<field>`` and ``srt_sumcheck_reduce_<field>``.
+Every launch adds one to ``LAUNCHES["sumcheck_prove_many_<field>"]``
+or ``LAUNCHES["sumcheck_prove_batch_goldilocks"]``.  CPU tensors get the
+twins.
 """
 
 from __future__ import annotations
@@ -28,20 +43,25 @@ import ctypes
 
 import torch
 
-from ..fields.field import GOLDILOCKS as F
+from ..fields.field import FIELDS
 from ..ops import _build
 from .fix import as_points
 from .sumcheck import sumcheck_prove_many_with_challenges
 
 __all__ = ["sumcheck_prove_many", "sumcheck_prove_many_goldilocks",
-           "sumcheck_prove_goldilocks", "sumcheck_prove_many_ref",
-           "LAUNCHES", "reset_launches"]
+           "sumcheck_prove_goldilocks", "sumcheck_prove_batch_goldilocks",
+           "sumcheck_prove_many_ref", "sumcheck_prove_batch_ref",
+           "SUMCHECK_FIELDS", "LAUNCHES", "reset_launches"]
 
-LAUNCHES = {"sumcheck_prove_many_goldilocks": 0}
+#: the fields K7 runs over
+SUMCHECK_FIELDS = ("goldilocks", "babybear", "frog")
 
-_NAME = "sumcheck_prove_many_goldilocks"
+_BATCH = "sumcheck_prove_batch_goldilocks"
+LAUNCHES = {**{f"sumcheck_prove_many_{field}": 0
+               for field in SUMCHECK_FIELDS}, _BATCH: 0}
+
 _MAX_K = 8              # tables per product in the kernel (registers)
-_MAX_BLOCKS = 1024      # partials per round (csrc/mle.cu SC_MAX_BLOCKS)
+_MAX_CLAIMS = 65535     # claims per launch (the grid's second axis)
 
 
 def reset_launches() -> None:
@@ -49,63 +69,98 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def sumcheck_prove_many_ref(tables, challenges):
+def _field(field: str):
+    if field not in SUMCHECK_FIELDS:
+        raise ValueError(f"no sumcheck kernel for field {field!r}: K7 runs "
+                         f"over {sorted(SUMCHECK_FIELDS)} (the 8-limb "
+                         "stark_prime waits for ROADMAP Slice C item 9)")
+    return FIELDS[field]
+
+
+def sumcheck_prove_many_ref(tables, challenges, field: str = "goldilocks"):
     """Plain twin of :func:`sumcheck_prove_many`: the generic msb
     prover."""
-    return sumcheck_prove_many_with_challenges(F, tables, challenges,
-                                               order="msb")
+    return sumcheck_prove_many_with_challenges(FIELDS[field], tables,
+                                               challenges, order="msb")
+
+
+def sumcheck_prove_batch_ref(tables, challenges):
+    """Plain twin of :func:`sumcheck_prove_batch_goldilocks`: the generic
+    msb prover once per claim."""
+    proofs = [sumcheck_prove_many_ref([T[w] for T in tables], challenges)
+              for w in range(tables[0].shape[0])]
+    return (torch.stack([m for m, _ in proofs]),
+            [torch.stack([fs[j] for _, fs in proofs])
+             for j in range(len(tables))])
+
+
+def _prepare(name, f, tables, challenges, lead):
+    """Check k tables of ``f``'s storage, each of shape ``lead + (2^nv,)``
+    for nv = len(challenges); returns the challenges as a storage tensor
+    on the tables' device and whether that device is the card."""
+    nv = len(challenges)
+    if not tables:
+        raise ValueError(f"{name}: no tables")
+    want = (*lead, 1 << nv)
+    for T in tables:
+        if not isinstance(T, torch.Tensor) or T.dtype != f.dtype \
+                or tuple(T.shape) != want:
+            raise ValueError(f"{name}: every table must be {f.dtype} "
+                             f"{list(want)} for {nv} challenges")
+    chal = as_points(challenges, tables[0].device, f.dtype)
+    card = _build.on_cuda(name, *tables, chal)
+    if card:
+        if nv < 1:
+            raise ValueError(f"{name}: the kernel needs at least one "
+                             "challenge")
+        if len(tables) > _MAX_K:
+            raise ValueError(f"{name}: the kernel takes at most {_MAX_K} "
+                             f"tables, got {len(tables)}")
+        if not all(T.is_contiguous() for T in tables):
+            raise ValueError(f"{name}: tables must be contiguous")
+    return chal, card
+
+
+def _prove_on_card(name, f, tables, chal, W):
+    """nv + 1 launches for W claims over field ``f``, counted in
+    ``LAUNCHES[name]``: tables are k contiguous tensors of W rows of 2^nv
+    words.  Returns (msgs [W, nv, k+1], finals [W, k])."""
+    k, nv = len(tables), chal.shape[0]
+    half = 1 << (nv - 1)
+    dev = tables[0].device
+    lib = _build.kernels()
+    rows = lib.srt_sumcheck_partial_rows(half, nv, W)
+    scratch = torch.empty((W, k, half), dtype=f.dtype, device=dev)
+    partials = torch.empty((rows, k + 1), dtype=f.dtype, device=dev)
+    msgs = torch.empty((W, nv, k + 1), dtype=f.dtype, device=dev)
+    ptrs = ctypes.c_void_p * k
+    ins = ptrs(*[T.data_ptr() for T in tables])
+    outs = ptrs(*[s.data_ptr() for s in scratch[0]])
+    in_claim, out_claim = 2 * half, k * half   # words from claim to claim
+    round_fn = getattr(lib, f"srt_sumcheck_round_{f.name}")
+    reduce_fn = getattr(lib, f"srt_sumcheck_reduce_{f.name}")
+    for i in range(nv):
+        _build.launch(LAUNCHES, name, round_fn, dev, ins, outs, k, W,
+                      in_claim, out_claim, half >> i, chal.data_ptr(), i, nv,
+                      partials.data_ptr())
+        ins, in_claim = outs, out_claim    # later rounds fold in place
+    _build.launch(LAUNCHES, name, reduce_fn, dev, partials.data_ptr(),
+                  msgs.data_ptr(), k + 1, nv, W, half)
+    return msgs, scratch[:, :, 0]
 
 
 def sumcheck_prove_many(tables, challenges, field: str = "goldilocks"):
-    """k-ary product sumcheck prover, msb order: ``tables`` k int64
-    [2^nv] storage tensors, ``challenges`` nv field elements (a 1-D
-    int64 tensor, or scalars).  Returns (msgs int64 [nv, k+1], finals: k
+    """k-ary product sumcheck prover, msb order: ``tables`` k [2^nv]
+    storage tensors of ``field``, ``challenges`` nv field elements (a
+    1-D storage tensor, or scalars).  Returns (msgs [nv, k+1], finals: k
     0-d tensors)."""
-    if field in ("babybear", "frog"):
-        raise NotImplementedError(
-            f"sumcheck_prove_many: the {field} field is not ported yet "
-            "(ROADMAP Slice C item 9)")
-    if field != "goldilocks":
-        raise ValueError(f"sumcheck_prove_many: no sumcheck kernel for "
-                         f"field {field!r}")
-    k, nv = len(tables), len(challenges)
-    n = 1 << nv
-    if k < 1:
-        raise ValueError("sumcheck_prove_many: no tables")
-    for T in tables:
-        if not isinstance(T, torch.Tensor) or T.dtype != torch.int64 \
-                or tuple(T.shape) != (n,):
-            raise ValueError(f"sumcheck_prove_many: every table must be "
-                             f"int64 [{n}] for {nv} challenges")
-    chal = as_points(challenges, tables[0].device)
-    if not _build.on_cuda(_NAME, *tables, chal):
-        return sumcheck_prove_many_ref(tables, chal)
-    if nv < 1:
-        raise ValueError("sumcheck_prove_many: the kernel needs at least "
-                         "one challenge")
-    if k > _MAX_K:
-        raise ValueError(f"sumcheck_prove_many: the kernel takes at most "
-                         f"{_MAX_K} tables, got {k}")
-    if not all(T.is_contiguous() for T in tables):
-        raise ValueError("sumcheck_prove_many: tables must be contiguous")
-    dev = tables[0].device
-    half = n // 2
-    scratch = torch.empty((k, half), dtype=torch.int64, device=dev)
-    partials = torch.empty((nv, _MAX_BLOCKS, k + 1), dtype=torch.int64,
-                           device=dev)
-    msgs = torch.empty((nv, k + 1), dtype=torch.int64, device=dev)
-    ptrs = ctypes.c_void_p * k
-    ins = ptrs(*[T.data_ptr() for T in tables])
-    outs = ptrs(*[s.data_ptr() for s in scratch])
-    lib = _build.kernels()
-    for i in range(nv):
-        _build.launch(LAUNCHES, _NAME, lib.srt_sumcheck_round, dev, ins,
-                      outs, k, half >> i, chal.data_ptr(), i,
-                      partials.data_ptr())
-        ins = outs                       # later rounds fold in place
-    _build.launch(LAUNCHES, _NAME, lib.srt_sumcheck_reduce, dev,
-                  partials.data_ptr(), msgs.data_ptr(), k + 1, nv, half)
-    return msgs, list(scratch[:, 0])
+    f = _field(field)
+    name = f"sumcheck_prove_many_{field}"
+    chal, card = _prepare(name, f, tables, challenges, ())
+    if not card:
+        return sumcheck_prove_many_ref(tables, chal, field)
+    msgs, finals = _prove_on_card(name, f, tables, chal, 1)
+    return msgs[0], list(finals[0])
 
 
 def sumcheck_prove_many_goldilocks(tables, challenges):
@@ -117,3 +172,21 @@ def sumcheck_prove_goldilocks(G, H, challenges):
     h_final)."""
     msgs, finals = sumcheck_prove_many_goldilocks([G, H], challenges)
     return msgs, finals[0], finals[1]
+
+
+def sumcheck_prove_batch_goldilocks(tables, challenges):
+    """W Goldilocks claims sharing one challenge vector, as the
+    reference's ``sumcheck_prove_batch_goldilocks_pallas``: ``tables`` k
+    int64 [W, 2^nv] tensors.  Returns (msgs [W, nv, k+1], finals: k
+    tensors [W]); claim w's proof is that of ``sumcheck_prove_many`` on
+    the tables' row w."""
+    W = tables[0].shape[0] if tables and tables[0].dim() == 2 else 0
+    if not 1 <= W <= _MAX_CLAIMS:
+        raise ValueError(f"{_BATCH}: tables must be [W, 2^nv] with 1 <= W "
+                         f"<= {_MAX_CLAIMS}")
+    f = FIELDS["goldilocks"]
+    chal, card = _prepare(_BATCH, f, tables, challenges, (W,))
+    if not card:
+        return sumcheck_prove_batch_ref(tables, chal)
+    msgs, finals = _prove_on_card(_BATCH, f, tables, chal, W)
+    return msgs, list(finals.unbind(1))

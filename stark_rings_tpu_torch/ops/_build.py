@@ -110,13 +110,19 @@ def kernels() -> ctypes.CDLL:
     lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
     lib.srt_mle_eval_tiles.argtypes = [p, p, i64, i32, p, p]
     lib.srt_mle_fix_top.argtypes = [p, p, i64, i32, p, p]
-    lib.srt_sumcheck_round.argtypes = [p, p, i32, i64, p, i32, p, p]
-    lib.srt_sumcheck_reduce.argtypes = [p, p, i32, i32, i64, p]
+    lib.srt_sumcheck_partial_rows.argtypes = [i64, i32, i32]
+    lib.srt_sumcheck_partial_rows.restype = i64
+    sumcheck = []
+    for field in ("goldilocks", "babybear", "frog"):
+        rnd = getattr(lib, f"srt_sumcheck_round_{field}")
+        red = getattr(lib, f"srt_sumcheck_reduce_{field}")
+        rnd.argtypes = [p, p, i32, i32, i64, i64, i64, p, i32, i32, p, p]
+        red.argtypes = [p, p, i32, i32, i32, i64, p]
+        sumcheck += [rnd, red]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
-               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top,
-               lib.srt_sumcheck_round, lib.srt_sumcheck_reduce):
+               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top, *sumcheck):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,13 @@
 """Fiat-Shamir transcript over canonical field bytes (counterpart of
-``stark_rings_tpu/rings/absorb.py``, with the Goldilocks case of
+``stark_rings_tpu/rings/absorb.py``, with the scalar-field cases of
 ``stark_rings_tpu/utils/serialize.py`` ``elem_nbytes`` and
 ``elements_to_bytes``).
 
 A field element serializes as its canonical integer, little-endian, in
-ceil(bits / 8) bytes: 8 bytes for Goldilocks.  The transcript is a
+ceil(bits / 8) bytes: 8 bytes for Goldilocks and frog, 4 for BabyBear.
+The Montgomery fields (BabyBear, frog) are converted to canonical values
+first: their storage words are not the values, and writing them would
+squeeze other challenges.  The transcript is a
 SHAKE-256 sponge on the host; what it absorbs comes off device tensors
 (one device-to-host copy per absorb), and the field elements it squeezes
 go to the device asked for.  For the same absorbs it squeezes the same
@@ -19,7 +22,7 @@ import struct
 import numpy as np
 import torch
 
-from ..device import to_numpy_u64
+from ..device import from_jax_storage, to_numpy_storage
 
 __all__ = ["elem_nbytes", "elements_to_bytes", "to_absorb", "Transcript"]
 
@@ -29,14 +32,15 @@ def elem_nbytes(f) -> int:
 
 
 def elements_to_bytes(f, x) -> bytes:
-    """Every element of ``x`` (a storage tensor, or numpy uint64 values),
-    row-major, canonical little-endian, no header."""
-    if f.name != "goldilocks":
+    """Every element of ``x`` (a storage tensor, or the reference's numpy
+    storage), row-major, canonical little-endian, no header."""
+    if f.limbed:
         raise NotImplementedError(f"serialization of {f.name} elements is "
                                   "not ported yet")
-    host = to_numpy_u64(x) if isinstance(x, torch.Tensor) \
-        else np.asarray(x, dtype=np.uint64)
-    return host.astype("<u8").tobytes()
+    if not isinstance(x, torch.Tensor):
+        x = from_jax_storage(f, x, "cpu")
+    host = to_numpy_storage(f.canon(x))
+    return host.astype(f"<u{elem_nbytes(f)}").tobytes()
 
 
 def to_absorb(f, x) -> bytes:
@@ -60,7 +64,8 @@ class Transcript:
         self._absorb_framed(label, data)
 
     def absorb(self, label: bytes, f, x):
-        """Absorb a storage tensor's (or uint64 array's) canonical bytes."""
+        """Absorb a storage tensor's (or numpy storage's) canonical
+        bytes."""
         self._absorb_framed(label, to_absorb(f, x))
 
     def squeeze_bytes(self, n: int) -> bytes:

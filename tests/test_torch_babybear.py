@@ -76,7 +76,7 @@ def test_encode_decode_and_constants_match_reference():
     assert ((x >= 0) & (x < Q)).all()
     assert get_field("babybear") is F
     with pytest.raises(NotImplementedError, match="Slice C item 9"):
-        get_field("frog")
+        get_field("stark_prime")
 
 
 def test_elementwise_ops_match_reference():

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, against their plain twins: the
 fold kernels K1-K3, the BabyBear folds K4 and the Goldilocks pointwise
 kernel, and the engines built on them against the kernel-free engines;
-the MLE kernels K5 and K6, and the sumcheck prover K7.  Marked ``cuda``:
+the MLE kernels K5 and K6, and the sumcheck prover K7 over Goldilocks,
+BabyBear and frog, for one claim and for a batch.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -15,8 +16,8 @@ import torch
 
 from stark_rings_tpu_torch import (BABYBEAR, GOLDILOCKS, Mxu2FusedNTT,
                                    Mxu2KernelNTT, Mxu2NTT, MxuBBFusedNTT,
-                                   MxuBBNTT, get_power_ring, to_torch,
-                                   to_torch_u32)
+                                   MxuBBNTT, from_jax_storage, get_field,
+                                   get_power_ring, to_torch, to_torch_u32)
 from stark_rings_tpu_torch.examples import sumcheck as example
 from stark_rings_tpu_torch.linalg import FieldElems
 from stark_rings_tpu_torch.mle import DenseMLE
@@ -24,6 +25,7 @@ from stark_rings_tpu_torch.mle import fix as FX
 from stark_rings_tpu_torch.mle import mxu_eval as MX
 from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
 from stark_rings_tpu_torch.native.host import negacyclic_mul_schoolbook_q
+from stark_rings_tpu_torch.ops import _build
 from stark_rings_tpu_torch.ops import fold as K
 from stark_rings_tpu_torch.ops import fold_bb as KB
 from stark_rings_tpu_torch.rings import Transcript
@@ -313,3 +315,179 @@ def test_example_proof_on_card(dev, nv):
     assert torch.equal(m7, torch.stack([torch.stack(m) for m in msgs]))
     assert torch.equal(f7[0], FX.evaluate_goldilocks(g.evals, chals))
     assert torch.equal(f7[1], FX.evaluate_goldilocks(h.evals, chals))
+
+
+# -- K7 over BabyBear and frog, and batched claims ---------------------------
+
+
+def _field_tables(f, rng, shape, kind, dev):
+    """Storage of ``f``: zeros, the storage of q-1, or uniform words."""
+    if kind == "zeros":
+        return f.zeros(shape, dev)
+    if kind == "q-1":
+        return f.encode(np.full(shape, f.q - 1, dtype=object), dev)
+    return f.rand(shape, rng, dev)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv", [1, 4, 11, 14])
+@pytest.mark.parametrize("field", ["babybear", "frog"])
+def test_sumcheck_kernel_fields_match_generic(dev, field, nv, k, kind):
+    """K7 over BabyBear (int32 Montgomery storage) and frog (int64
+    Montgomery storage) against the generic msb prover on the card."""
+    f = get_field(field)
+    rng = np.random.default_rng(nv * 10 + k)
+    tables = [_field_tables(f, rng, (1 << nv,), kind, dev)
+              for _ in range(k)]
+    chal = f.rand((nv,), rng, dev)
+    name = f"sumcheck_prove_many_{field}"
+    before = SK.LAUNCHES[name]
+    msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + nv + 1
+    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
+    assert msgs.dtype == f.dtype and torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+def test_sumcheck_batch_matches_single_proofs(dev, W):
+    """W Goldilocks claims on the kernels' second grid axis: nv + 1
+    launches, and claim w's proof equals a single K7 proof on row w and
+    the twin."""
+    f = get_field("goldilocks")
+    nv = 11
+    rng = np.random.default_rng(W)
+    for k in (2, 3):
+        tables = [f.rand((W, 1 << nv), rng, dev) for _ in range(k)]
+        chal = f.rand((nv,), rng, dev)
+        before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
+        msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] \
+            == before + nv + 1
+        assert msgs.shape == (W, nv, k + 1)
+        assert [tuple(x.shape) for x in finals] == [(W,)] * k
+        for w in range(W):
+            m, fs = SK.sumcheck_prove_many([T[w] for T in tables], chal)
+            assert torch.equal(msgs[w], m), (k, w)
+            assert all(torch.equal(x[w], y) for x, y in zip(finals, fs))
+        want_m, want_f = SK.sumcheck_prove_batch_ref(tables, chal)
+        assert torch.equal(msgs, want_m)
+        assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("nv", [1, 4, 20])
+def test_sumcheck_partials_hold_only_the_blocks_used(dev, nv):
+    """The partials of a proof hold one row per block of each round (no
+    round pads to the most blocks), W times for W claims."""
+    lib = _build.kernels()
+    half = 1 << (nv - 1)
+    per_claim = sum(min(1024, -(-(half >> i) // 256)) for i in range(nv))
+    for W in (1, 4, 65535):
+        assert lib.srt_sumcheck_partial_rows(half, nv, W) == W * per_claim
+
+
+def test_sumcheck_batch_many_claims(dev):
+    """The most claims one launch takes (65,535 on the grid's second
+    axis) at nv = 4: nv + 1 launches, and sampled claims equal their
+    single K7 proofs."""
+    f = get_field("goldilocks")
+    W, nv = 65535, 4
+    rng = np.random.default_rng(W)
+    tables = [f.rand((W, 1 << nv), rng, dev) for _ in range(2)]
+    chal = f.rand((nv,), rng, dev)
+    before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] == before + nv + 1
+    for w in (0, 1, 4097, W // 2, W - 1):
+        m, fs = SK.sumcheck_prove_many([T[w] for T in tables], chal)
+        assert torch.equal(msgs[w], m), w
+        assert all(torch.equal(x[w], y) for x, y in zip(finals, fs))
+    with pytest.raises(ValueError, match="65535"):
+        SK.sumcheck_prove_batch_goldilocks(
+            [f.zeros((W + 1, 2), dev)] * 2, chal[:1])
+
+
+def _claims(f, tables, r):
+    """K7 over field ``f`` on the W rows of [W, 2^nv] tables as W claims,
+    through the kernels' claim axis (the public batch is Goldilocks
+    only)."""
+    W = tables[0].shape[0]
+    msgs, finals = SK._prove_on_card(f"sumcheck_prove_many_{f.name}", f,
+                                     tables, r, W)
+    return msgs, list(finals.unbind(1))
+
+
+@pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
+def test_kernel_field_ops_match_torch_ops(dev, field):
+    """The device headers' add, sub and mul against the field's torch ops,
+    through K7 on 2^11 one-variable claims: with tables (a0, a1) and
+    (b0, b1), p(0) = a0*b0, p(t) multiplies a0 + t*(a1 - a0) by b0 +
+    t*(b1 - b0) (k = 2), and the final is a0 + r*(a1 - a0).  Inputs are
+    full-range storage words and the words 0, 1, 2, q-2, q-1 and the
+    storage of 0, 1 and q-1, each edge paired with every other."""
+    f = get_field(field)
+    rng = np.random.default_rng(len(field))
+    W = 2048
+    edge = [0, 1, 2, f.q - 2, f.q - 1]
+    edge = np.concatenate([
+        np.array(edge, dtype=np.uint64 if f.dtype == torch.int64
+                 else np.uint32),
+        f.storage_np([0, 1, f.q - 1])])
+    E = len(edge)
+    a0 = f.rand((W,), rng, dev)
+    b0 = f.rand((W,), rng, dev)
+    ed = from_jax_storage(f, edge, dev)
+    a0[:E * E], b0[:E * E] = ed.repeat_interleave(E), ed.repeat(E)
+    a1, b1 = f.rand((W,), rng, dev), f.rand((W,), rng, dev)
+    a1[E * E:2 * E * E], b1[E * E:2 * E * E] = ed.repeat(E), \
+        ed.repeat_interleave(E)
+    r = f.rand((1,), rng, dev)
+    r[0] = ed[3]                          # the word q-2
+    A, Bt = torch.stack([a0, a1], 1), torch.stack([b0, b1], 1)
+    da, db = f.sub(a1, a0), f.sub(b1, b0)
+    fold = f.add(a0, f.mul(r, da))
+
+    msgs, finals = _claims(f, [A], r)
+    torch.cuda.synchronize()
+    assert torch.equal(msgs[:, 0, 0], a0)
+    assert torch.equal(msgs[:, 0, 1], f.add(a0, da))
+    assert torch.equal(finals[0], fold)
+
+    msgs, finals = _claims(f, [A, Bt], r)
+    torch.cuda.synchronize()
+    cur_a, cur_b = a0, b0
+    for t in range(3):
+        assert torch.equal(msgs[:, 0, t], f.mul(cur_a, cur_b)), t
+        cur_a, cur_b = f.add(cur_a, da), f.add(cur_b, db)
+    assert torch.equal(finals[0], fold)
+    assert torch.equal(finals[1], f.add(b0, f.mul(r, db)))
+
+
+@pytest.mark.parametrize("field", ["babybear", "frog"])
+def test_example_proof_on_card_fields(dev, field):
+    """The Fiat-Shamir proof over BabyBear and frog verifies on the card
+    (final check through DenseMLE.evaluate), a tampered one is rejected,
+    and K7 on the bit-reversed tables reproduces it."""
+    from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+
+    f, nv = get_field(field), 12
+    rng = np.random.default_rng(nv)
+    e = FieldElems(f, dev)
+    g, h = DenseMLE.rand(e, nv, rng), DenseMLE.rand(e, nv, rng)
+    S, msgs, chals = example.prove(g.evals, h.evals, Transcript(b"t"), nv,
+                                   f)
+    assert example.verify(S, msgs, g, h, Transcript(b"t"))
+    bad = [list(m) for m in msgs]
+    bad[3][0] = f.add(bad[3][0], f.const(1, dev))
+    assert not example.verify(S, [tuple(m) for m in bad], g, h,
+                              Transcript(b"t"))
+    m7, f7 = SK.sumcheck_prove_many(
+        [bit_reverse_table(g.evals), bit_reverse_table(h.evals)],
+        torch.stack(chals), field=field)
+    assert torch.equal(m7, torch.stack([torch.stack(m) for m in msgs]))
+    assert torch.equal(f7[0], g.evaluate(chals))
+    assert torch.equal(f7[1], h.evaluate(chals))

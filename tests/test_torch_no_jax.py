@@ -41,7 +41,16 @@ import stark_rings_tpu_torch.mle.sumcheck
 import stark_rings_tpu_torch.mle.sumcheck_kernel
 import stark_rings_tpu_torch.rings.absorb
 import stark_rings_tpu_torch.examples.sumcheck
-stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu")
+for field in ("goldilocks", "babybear", "frog"):
+    stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu",
+                                                 field=field)
+    f = stark_rings_tpu_torch.get_field(field)
+    T = f.rand((2, 1 << 5), np.random.default_rng(0), "cpu")
+    SK = stark_rings_tpu_torch.mle.sumcheck_kernel
+    msgs, _ = SK.sumcheck_prove_many([T[1], T[1]], T[0, :5], field=field)
+    if field == "goldilocks":
+        batch, _ = SK.sumcheck_prove_batch_goldilocks([T, T], T[0, :5])
+        assert (batch[1] == msgs).all()
 for field in ("babybear", "goldilocks"):
     ring = stark_rings_tpu_torch.get_power_ring(field, 10, device="cpu")
     x = ring.rand_coeff((1,), np.random.default_rng(0))
