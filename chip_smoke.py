@@ -26,6 +26,11 @@ Slice C (sumcheck fields) is the one-pass prover K7 over BabyBear
 W = 4 Goldilocks claims in one batched proof
 (``sumcheck_prove_batch_goldilocks``).
 
+The NTT engines are the radix-2 ``GoldilocksKernelNTT`` (the tile and
+pass kernels ``ntt_tile`` and ``ntt_stage``) at deg 2^16, batch 80, on
+Slice A's operands, ``MatmulNTT`` at deg 2^14, batch 80, on ``MxuModMat``
+and on the fused mod-mat kernel ``mxu_mod_mat``, and ``pointwise_chain``.
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -112,21 +117,51 @@ Phases, one line each:
      and memory floors; the batch against its twin, and against 4 single
      proofs in turns;
  23. profile: device busy time against wall time of one call of each of
-     the three kernels (torch.profiler).
+     the three kernels (torch.profiler);
+ 24. engine parity: ntt_stage (both directions, with and without 1/N) and
+     ntt_tile (forward, inverse, mul_eval) at N = 2^16, B = 80, the
+     one-launch mul at N = 2^10, pointwise_chain (depth 16 and 0, a
+     ragged length) and the pointwise kernel against their twins;
+     mxu_mod_mat on MatmulNTT's four level matrices (an MxuModMatFused
+     built on each) at M = 10,240 and a ragged 10,277 against
+     MxuModMat.apply, at M = 1,024 against its twin (data columns
+     2^64 - 1, q - 1, 0, 1 included);
+ 25. engine path, launches counted: the radix forward, inverse, mul and
+     mul_composite at N = 2^16, B = 80, bit-equal to NTTContext, mul to
+     Mxu2FusedNTT.mul and the schoolbook rows; the radix mul at N = 2^10
+     and 2^14 to NTTContext; MatmulNTT.mul at N = 2^14, B = 80 on
+     MxuModMat, and with its levels swapped for the fused kernel's, to
+     the radix mul and NTTContext;
+     the depth-16 chain on [80, 2^16] to its twin;
+ 26. launch counts of phase 25 (each kernel must have run);
+ 27. timings (CUDA events, median of 10 after warm-up): the card's
+     Goldilocks modmul peak (gl::mul's instructions in the SASS against
+     the SMs' issue rate), which bounds every Goldilocks kernel of this
+     slice, and the depth-256 chain's sustained rate beside it; each
+     kernel against its twin and its bound;
+     mxu_mod_mat beside MxuModMat.apply and the stacked _int_mm alone; the
+     radix mul and Mxu2FusedNTT.mul in turns, NTTContext.mul; MatmulNTT
+     (both level kinds) and the radix mul at N = 2^14;
+ 28. profile: device busy time against wall time of one radix mul.
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
-and its bound (the bytes it must move over the card's memory rate;
-integer ALU work has no published peak, so bytes bound every kernel
-here).  The last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA card the script fails before printing any result.
+and its bound (the larger of the bytes it must move over the card's
+memory rate and its operations over their rate: the int8 tensor rate
+for the mod-mat kernel's digit products, and for the Goldilocks
+modmuls of this slice's kernels the card's issue rate over one
+modmul's instructions, read off the compiled code in the same run).
+The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
+card the script fails before printing any result.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -188,7 +223,27 @@ FIELD_KERNELS = {  # record name -> reference kernel (file:line)
         "stark_rings_tpu/mle/pallas_sumcheck.py:428",
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, NVIDIA's data sheet
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor rate, the same
+ISSUE_PER_SM_CLOCK = 128    # thread instructions an SM issues per clock:
+                            # 4 schedulers, one warp instruction each
+                            # (NVIDIA's Hopper architecture white paper)
 LAUNCH_REPS = 1000
+NTT_SIZES = (1 << 10, 1 << 14)   # parity points of the radix engine
+MM_N = 1 << 14      # MatmulNTT's one size (128 x 128)
+MM_TWIN_COLS = 1024  # columns at which the mod-mat twin is held
+CHAIN_DEPTH = 16    # pointwise_chain's default depth in the reference
+CHAIN_DEEP = 256    # the depth whose rate is the sustained modmul rate
+NTT_SOURCE = "stark_rings_tpu_torch/csrc/ntt.cu"
+MXU_SOURCE = "stark_rings_tpu_torch/csrc/mxu.cu"
+ENGINE_KERNELS = {  # record name -> (source, reference kernel file:line)
+    "pointwise_chain": (SOURCE, "stark_rings_tpu/ops/pallas_fold.py:526"),
+    "ntt_stage": (NTT_SOURCE, "stark_rings_tpu/ops/pallas_goldilocks.py:457"),
+    "ntt_tile": (NTT_SOURCE, "stark_rings_tpu/ops/pallas_goldilocks.py:457"),
+    "pointwise_mul[GoldilocksKernelNTT.pointwise]": (
+        SOURCE, "stark_rings_tpu/ops/pallas_goldilocks.py:553"),
+    "mxu_mod_mat": (MXU_SOURCE, "stark_rings_tpu/ops/pallas_mxu.py:186"),
+}
+MM_LEVELS = ("col_mat", "row_mat", "col_mat_inv", "row_mat_inv")
 
 
 def phase(name, msg):
@@ -208,14 +263,18 @@ def nbytes(*xs) -> int:
     return total
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, moved):
+def record(name, source, replaces, launches, err, ms, plain_ms, moved,
+           ops_ms=0.0):
     """One kernel's entry of the JSON line.  ``moved``: the bytes the
     call must move (each input read once, each output written once);
-    its time at the card's memory rate is the bound."""
+    ``ops_ms``: its operations at the card's rate for their type.  The
+    bound is the larger of that and the bytes at the memory rate."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "library_ms": None}
 
 
@@ -238,6 +297,12 @@ def time_ms(fn, inner=1):
         stop.synchronize()
         samples.append(start.elapsed_time(stop) / inner)
     return statistics.median(samples)
+
+
+def in_turns(first, second):
+    """first, second, second, first: each one's two medians (ms)."""
+    t = [time_ms(f) for f in (first, second, second, first)]
+    return (t[0], t[3]), (t[1], t[2])
 
 
 def shape(*ts) -> str:
@@ -875,11 +940,6 @@ def slice_b(dev, smi, rng, gl) -> list:
          (gV2, gk.mat2.R), u),
     ], smi, "power time"))
 
-    def in_turns(first, second):
-        """first, second, second, first: each one's two medians (ms)."""
-        t = [time_ms(f) for f in (first, second, second, first)]
-        return (t[0], t[3]), (t[1], t[2])
-
     plain_ms, kern_ms = in_turns(lambda: bb_plain.mul(a, b),
                                  lambda: bb.mul(a, b))
     phase("power time", f"babybear mul deg {bb_ring.D} B={BB_B}: "
@@ -1147,6 +1207,334 @@ def slice_c(dev, smi, rng) -> list:
                    *times[name]) for name, ref in FIELD_KERNELS.items()]
 
 
+def slice_ntt(dev, smi, rng, gl) -> list:
+    """Phases 24-28: the Goldilocks NTT engines, the radix engine
+    ``GoldilocksKernelNTT`` at N = 2^16, B = 80 on Slice A's operands,
+    ``MatmulNTT`` at N = 2^14 on ``MxuModMat`` and on the fused mod-mat
+    kernel, and ``pointwise_chain``.  ``gl`` holds Slice A's operands,
+    its fused engine ``eng``, the engine's ``results`` and the
+    schoolbook rows ``orc``.  Returns the kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import GOLDILOCKS as F, NTTContext, to_numpy_u64
+    from stark_rings_tpu_torch.fields.field import u64_lt
+    from stark_rings_tpu_torch.ops import fold as K
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.ops import mxu_fused as MF
+    from stark_rings_tpu_torch.ops.mxu import DIGITS, MatmulNTT, data_digits
+
+    a, b = gl["a"], gl["b"]
+    Bx, Nx = a.shape
+    q = F.q
+    t0 = time.perf_counter()
+    radix = G.GoldilocksKernelNTT(Nx, device=dev)
+    ctx = NTTContext(F, Nx, device=dev)
+    small = {n: (G.GoldilocksKernelNTT(n, device=dev),
+                 NTTContext(F, n, device=dev)) for n in NTT_SIZES}
+    mm = MatmulNTT(MM_N, device=dev)
+    # the fused kernel on each of MatmulNTT's four level matrices, and a
+    # MatmulNTT whose levels are those
+    levels = {k: (getattr(mm, k), MF.MxuModMatFused(getattr(mm, k).matrix(),
+                                                    device=dev))
+              for k in MM_LEVELS}
+    mm_fused = copy.copy(mm)
+    for k, (_, fused) in levels.items():
+        setattr(mm_fused, k, fused)
+    phase("engine tables", f"GoldilocksKernelNTT (N={Nx}, "
+          f"{'/'.join(map(str, NTT_SIZES))}; {radix.passes} device-memory "
+          f"passes at N={Nx}) and MatmulNTT (N={MM_N}, MxuModMat and fused "
+          f"levels) built in {time.perf_counter() - t0:.1f} s")
+
+    # -- 24. kernel parity at the engines' shapes --------------------------
+    max_err = {}
+    t0 = time.perf_counter()
+    cases = 0
+    wf, wi, ninv = radix.tables()
+    for s in range(radix.passes):
+        for inverse, scale in ((False, None), (True, None), (True, ninv)):
+            w = wi if inverse else wf
+            check(max_err, "ntt_stage",
+                  G.ntt_stage(a, w, s, inverse=inverse, ninv=scale),
+                  G.ntt_stage_ref(a, w, s, inverse=inverse, ninv=scale),
+                  f"N={Nx} B={Bx} s={s} inverse={inverse} "
+                  f"scaled={scale is not None}")
+            cases += 1
+    for mode in ("forward", "inverse", "mul_eval"):
+        args = (a, wf, wi, ninv, radix.log_tile, mode, b)
+        check(max_err, "ntt_tile", G.ntt_tile(*args), G.ntt_tile_ref(*args),
+              f"N={Nx} B={Bx} {mode}")
+        cases += 1
+    e10, _ = small[NTT_SIZES[0]]
+    x10 = F.rand((Bx, e10.N), rng, dev)
+    y10 = F.rand((Bx, e10.N), rng, dev)
+    w10 = e10.tables()
+    args = (x10, *w10, e10.log_tile, "mul", y10)
+    check(max_err, "ntt_tile", G.ntt_tile(*args), G.ntt_tile_ref(*args),
+          f"N={e10.N} B={Bx} mul")
+    cases += 1
+    n = Bx * Nx
+    pa = F.rand((n,), rng, dev)
+    pa[:2] = F.encode([q - 1, 0], dev)
+    for depth, x, y in ((CHAIN_DEPTH, pa.view(Bx, Nx), b), (0, pa[:n - 3],
+                                                            b.view(-1)[3:]),
+                        (CHAIN_DEPTH, pa[:n - 3], b.view(-1)[3:])):
+        check(max_err, "pointwise_chain", K.pointwise_chain(x, y, depth),
+              K.pointwise_chain_ref(x, y, depth),
+              f"depth {depth} {tuple(x.shape)}")
+        cases += 1
+    check(max_err, "pointwise_mul[GoldilocksKernelNTT.pointwise]",
+          radix.pointwise(a, b), K.pointwise_mul_ref(a, b), f"[{Bx}, {Nx}]")
+    cases += 1
+    cols = Bx * mm.N2
+    xs = {M: F.rand((mm.N1, M), rng, dev) for M in (cols, cols + 37)}
+    edge = F.encode([q - 1, 0, 1], dev)
+    for x in xs.values():
+        x[:, :3] = edge
+        x[:, 3] = -1                    # the word 2^64 - 1
+    for key, (plain, fused) in levels.items():
+        for M, x in xs.items():
+            check(max_err, "mxu_mod_mat", fused.apply(x), plain.apply(x),
+                  f"{key} M={M} against MxuModMat")
+            cases += 1
+        xt = xs[cols][:, :MM_TWIN_COLS].contiguous()
+        check(max_err, "mxu_mod_mat", fused.apply(xt),
+              MF.mxu_mod_mat_ref(xt, fused.w),
+              f"{key} M={MM_TWIN_COLS} against the twin")
+        cases += 1
+    torch.cuda.synchronize()
+    phase("engine parity", f"{cases} cases of ntt_stage, ntt_tile, "
+          f"pointwise_chain, the pointwise kernel and mxu_mod_mat bit-equal "
+          f"to their twins (and mxu_mod_mat to MxuModMat on the four level "
+          f"matrices at M={cols} and {cols + 37}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 25. the slice's main path, launches counted -----------------------
+    mods = (K, G, MF)
+
+    def counts():
+        return {**K.LAUNCHES, **G.LAUNCHES, **MF.LAUNCHES}
+
+    a14, b14 = (F.rand((Bx, MM_N), rng, dev) for _ in range(2))
+    x10b = F.rand((Bx, e10.N), rng, dev)
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "radix forward": lambda: radix.forward(a),
+        "radix inverse": lambda: radix.inverse(a),
+        "radix mul": lambda: radix.mul(a, b),
+        "radix mul_composite": lambda: radix.mul_composite(a, b),
+        f"radix mul N={NTT_SIZES[0]}": lambda: e10.mul(x10, x10b),
+        f"radix mul N={MM_N}": lambda: small[MM_N][0].mul(a14, b14),
+        "MatmulNTT mul": lambda: mm.mul(a14, b14),
+        "MatmulNTT mul (fused levels)": lambda: mm_fused.mul(a14, b14),
+        "chain": lambda: K.pointwise_chain(a, b, CHAIN_DEPTH),
+    }
+    results, per_variant = {}, {}
+    for name, fn in runs.items():
+        before = counts()
+        results[name] = fn()
+        per_variant[name] = {k: v - before[k] for k, v in counts().items()
+                             if v != before[k]}
+    torch.cuda.synchronize()
+    launches = counts()
+    phase("engine path", f"{len(runs)} calls in "
+          f"{time.perf_counter() - t0:.2f} s; launches {per_variant}")
+
+    t0 = time.perf_counter()
+    want = {"radix forward": ctx.forward(a), "radix inverse": ctx.inverse(a),
+            "radix mul": ctx.mul(a, b)}
+    want["radix mul_composite"] = want["radix mul"]
+    want[f"radix mul N={NTT_SIZES[0]}"] = small[NTT_SIZES[0]][1].mul(x10,
+                                                                     x10b)
+    want14 = small[MM_N][1].mul(a14, b14)
+    for name in (f"radix mul N={MM_N}", "MatmulNTT mul",
+                 "MatmulNTT mul (fused levels)"):
+        want[name] = want14
+    want["chain"] = K.pointwise_chain_ref(a, b, CHAIN_DEPTH)
+    qmax = F.encode([q - 1], dev)
+    for name, got in results.items():
+        if got.shape != want[name].shape or got.dtype != torch.int64:
+            raise AssertionError(f"{name}: got {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if u64_lt(qmax, got).any():
+            raise AssertionError(f"{name}: non-canonical output")
+        if not torch.equal(got, want[name]):
+            raise AssertionError(f"{name}: differs from its plain reference "
+                                 "(NTTContext, or the chain's twin)")
+    if not torch.equal(results["radix mul"], gl["results"]["mul"]):
+        raise AssertionError("radix mul differs from Mxu2FusedNTT.mul")
+    if not torch.equal(results[f"radix mul N={MM_N}"],
+                       results["MatmulNTT mul"]):
+        raise AssertionError("MatmulNTT.mul differs from the radix mul")
+    if not np.array_equal(to_numpy_u64(results["radix mul"][:ORACLE_ROWS]),
+                          gl["orc"]["ab"]):
+        raise AssertionError("radix mul differs from the schoolbook oracle")
+    phase("engine path", f"radix forward / inverse / mul / mul_composite at "
+          f"N={Nx}, B={Bx} bit-equal to NTTContext, mul to Mxu2FusedNTT.mul "
+          f"and {ORACLE_ROWS} schoolbook rows; mul at N={NTT_SIZES[0]} and "
+          f"{MM_N} to NTTContext; MatmulNTT.mul (MxuModMat and fused "
+          f"levels) at N={MM_N}, B={Bx} to the radix mul and NTTContext; "
+          f"the depth-{CHAIN_DEPTH} chain to its twin "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 26. launch counts ---------------------------------------------------
+    phase("engine launches", json.dumps(launches))
+    rec_launches = {name: launches[name.split("[")[0]]
+                    for name in ENGINE_KERNELS}
+    for name, cnt in rec_launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"{name} was never launched on the engines' "
+                                 "path")
+
+    # -- 27. timings ---------------------------------------------------------
+    times, ops_ms = {}, {}
+    rate, per, mix, sms, mhz = modmul_peak(dev)
+    phase("engine time", f"modmul peak {rate:.4e} Goldilocks modmuls/s: "
+          f"gl::mul is {per} SASS instructions ({json.dumps(mix)}), "
+          f"{sms} SMs x {ISSUE_PER_SM_CLOCK} per clock x {mhz:.0f} MHz  "
+          f"({smi})")
+    deep_ms = time_ms(lambda: K.pointwise_chain(a, b, CHAIN_DEEP))
+    chain_rate = CHAIN_DEEP * n / (deep_ms * 1e-3)
+    phase("engine time", f"pointwise_chain depth {CHAIN_DEEP} on [{Bx}, "
+          f"{Nx}]: {deep_ms:.4f} ms = {chain_rate:.4e} Goldilocks "
+          f"modmuls/s (dependent chains, one per thread), "
+          f"{chain_rate / rate:.0%} of the peak  ({smi})")
+
+    def timed(key, kern, twin, inputs, modmuls, label):
+        moved = nbytes(inputs, kern())
+        ms = time_ms(kern, inner=10)
+        plain_ms = time_ms(twin)
+        times[key] = (ms, plain_ms, moved)
+        ops_ms[key] = modmuls / rate * 1e3
+        floor = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms[key])
+        phase("engine time", f"{key} {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; {moved} B, {modmuls} modmuls, bound "
+              f"{floor:.4f} ms ({floor / ms:.0%} of it)  ({smi})")
+
+    timed("pointwise_chain", lambda: K.pointwise_chain(a, b, CHAIN_DEPTH),
+          lambda: K.pointwise_chain_ref(a, b, CHAIN_DEPTH), (a, b),
+          CHAIN_DEPTH * n, f"depth {CHAIN_DEPTH} [{Bx}, {Nx}]")
+    # stage s reads twiddles [2^s, 2^(s+1)): one word at s = 0; the tile,
+    # stages passes.. logN - 1, reads [2^passes, N) of both tables
+    timed("ntt_stage", lambda: G.ntt_stage(a, wf, 0),
+          lambda: G.ntt_stage_ref(a, wf, 0, inverse=False), (a, wf[1:2]),
+          n // 2, f"forward s=0 [{Bx}, {Nx}]")
+    targs = (a, wf, wi, ninv, radix.log_tile, "mul_eval", b)
+    lo = 1 << radix.passes
+    timed("ntt_tile", lambda: G.ntt_tile(*targs),
+          lambda: G.ntt_tile_ref(*targs), (a, b, wf[lo:], wi[lo:]),
+          Bx * (radix.log_tile * Nx + Nx), f"mul_eval [{Bx}, {Nx}]")
+    timed("pointwise_mul[GoldilocksKernelNTT.pointwise]",
+          lambda: radix.pointwise(a, b), lambda: K.pointwise_mul_ref(a, b),
+          (a, b), n, f"[{Bx}, {Nx}]")
+    plain, fused = levels["col_mat"]
+    x = xs[cols]
+    moved = nbytes(x, fused.apply(x)) + fused.planes.size
+    macs = DIGITS * DIGITS * fused.R * fused.C * cols
+    ms = time_ms(lambda: fused.apply(x), inner=10)
+    plain_ms = time_ms(lambda: MF.mxu_mod_mat_ref(x, fused.w))
+    times["mxu_mod_mat"] = (ms, plain_ms, moved)
+    ops_ms["mxu_mod_mat"] = 2 * macs / INT8_OPS_PER_S * 1e3
+    w_big = torch.from_numpy(fused.big).to(dev)
+    xcat = data_digits(x).reshape(DIGITS * fused.C, cols)
+    xcat_t = xcat.t().contiguous().t()
+    # the product alone: a yardstick, not the same function (no digits,
+    # no fold), so no library time in the record
+    int_mm_ms = time_ms(lambda: torch._int_mm(w_big, xcat_t))
+    mm_level_ms = time_ms(lambda: plain.apply(x))
+    floor = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms["mxu_mod_mat"])
+    phase("engine time", f"mxu_mod_mat [{fused.R}, {fused.C}] x [{fused.C}, "
+          f"{cols}]: kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, "
+          f"MxuModMat.apply (_int_mm + torch fold) {mm_level_ms:.4f} ms, "
+          f"_int_mm {shape(w_big, xcat_t)} alone "
+          f"{int_mm_ms:.4f} ms; {moved} B, {macs} int8 MACs, "
+          f"bound {floor:.4f} ms ({floor / ms:.0%} of it)  ({smi})")
+
+    mxu_ms, rad_ms = in_turns(lambda: gl["eng"].mul(a, b),
+                              lambda: radix.mul(a, b))
+    ctx_ms = time_ms(lambda: ctx.mul(a, b))
+    mm_ms = {"MatmulNTT": time_ms(lambda: mm.mul(a14, b14)),
+             "MatmulNTT fused levels": time_ms(lambda: mm_fused.mul(a14,
+                                                                    b14)),
+             "radix": time_ms(lambda: small[MM_N][0].mul(a14, b14))}
+    mul_moved = nbytes(a, b, a, wf[1:], wi[1:])   # entry 0 is never read
+    mul_mm = Bx * (3 * (Nx // 2) * radix.logN + 2 * Nx)
+    def rates(ms):
+        return ", ".join(f"{m:.4f} ms = {Bx / m * 1e3:.1f} mults/s"
+                         for m in ms)
+
+    bound = max(mul_moved / HBM_BYTES_PER_S * 1e3, mul_mm / rate * 1e3)
+    phase("engine time", f"mul N={Nx} B={Bx}: GoldilocksKernelNTT "
+          f"{rates(rad_ms)}; Mxu2FusedNTT {rates(mxu_ms)} (in turns); "
+          f"NTTContext {ctx_ms:.4f} ms; {mul_moved} B, {mul_mm} modmuls, "
+          f"bound {bound:.4f} ms  ({smi})")
+    phase("engine time", f"mul N={MM_N} B={Bx}: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in mm_ms.items()) + f"  ({smi})")
+
+    # -- 28. where the device time of one radix mul goes --------------------
+    busy_ms, wall_ms, top = device_profile(lambda: radix.mul(a, b), 3, dev, 4)
+    phase("engine profile", f"radix mul N={Nx} B={Bx}: device busy "
+          f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall (profiled), idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
+
+    return [record(name, src, ref, rec_launches[name], max_err[name],
+                   *times[name], ops_ms=ops_ms[name])
+            for name, (src, ref) in ENGINE_KERNELS.items()]
+
+
+def modmul_peak(dev) -> tuple:
+    """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
+    issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
+    nvidia-smi reports) over one ``gl::mul``'s instructions, read off the
+    built library's SASS.  ``pointwise_chain_kernel``'s loop runs one
+    ``gl::mul`` a trip; its body, less the backward branch, the compare
+    that sets the branch's predicate and the uniform-datapath counter
+    (opcodes U*), is the modmul.  Returns (modmuls/s, instructions per
+    modmul, their opcode counts, SMs, MHz)."""
+    import torch
+
+    from stark_rings_tpu_torch.ops import _build
+
+    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    fn = re.search(r"Function : \S*pointwise_chain_kernel\S*(.*?)"
+                   r"(?=Function :|\Z)", sass, re.S)
+    if fn is None:
+        raise RuntimeError("no pointwise_chain_kernel in the library's SASS")
+    ins = [(int(at, 16), op.strip()) for at, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn.group(1))]
+    loops = []
+    for at, op in ins:
+        br = re.fullmatch(r"(?:@!?(P\d)\s+)?BRA\s+(0x[0-9a-f]+)", op)
+        if br and int(br.group(2), 16) < at:
+            loops.append((int(br.group(2), 16), at, br.group(1)))
+    if len(loops) != 1 or loops[0][2] is None:
+        raise RuntimeError(f"pointwise_chain_kernel: expected one "
+                           f"conditional loop in its SASS, found {loops}")
+    start, end, pred = loops[0]
+    mix = {}
+    for at, op in ins:
+        if not start <= at < end:
+            continue
+        words = re.sub(r"^@!?U?P\w+\s+", "", op).split()  # drop a guard
+        code = words[0]
+        if code.startswith("U") or (code.startswith("ISETP")
+                                    and words[1] == pred + ","):
+            continue
+        mix[code.split(".")[0]] = mix.get(code.split(".")[0], 0) + 1
+    per = sum(mix.values())
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", str(dev.index or 0)], capture_output=True,
+        text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * ISSUE_PER_SM_CLOCK * mhz * 1e6 / per, per, mix, sms, mhz
+
+
 def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1158,7 +1546,8 @@ def card_info() -> str:
 
 
 def main() -> None:
-    if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE)):
+    if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE,
+                                               NTT_SOURCE, MXU_SOURCE)):
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")
@@ -1348,9 +1737,11 @@ def main() -> None:
     records = [record(name, SOURCE, KERNELS[name], launches[name],
                       max_err[name], *times[name]) for name in KERNELS]
     records += slice_e(dev, smi, rng)
-    records += slice_b(dev, smi, rng, {
-        "eng": eng, "a": a, "b": b, "ch": ch, "results": results, "orc": orc})
+    gl = {"eng": eng, "a": a, "b": b, "ch": ch, "results": results,
+          "orc": orc}
+    records += slice_b(dev, smi, rng, gl)
     records += slice_c(dev, smi, rng)
+    records += slice_ntt(dev, smi, rng, gl)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,18 +5,23 @@ mirrors its module layout and imports ``torch`` and numpy, never JAX.
 So far it holds the Goldilocks, BabyBear and frog fields, the
 power-of-two negacyclic rings over the first two (deg 2^16 Goldilocks
 and deg 2^12 BabyBear on the main paths), the Goldilocks MLE and
-sumcheck path, and sumcheck over BabyBear and frog and over batched
-claims:
+sumcheck path, sumcheck over BabyBear and frog and over batched
+claims, and the single-device Goldilocks NTT engines (radix-2 and the
+deg-2^14 digit-product four-step):
 
     fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
                   Montgomery), frog (int64 u64 Montgomery), get_field
     ops/ntt.py    the radix-2/4 NTTContext, find_primitive_root
     ops/mxu2.py   digit tables, digit GEMM, plain Mxu2NTT
     ops/mxu_bb.py BabyBear digit tables and the plain MxuBBNTT
-    ops/fold.py   fold kernels K1-K3 and the pointwise kernel (wrappers
-                  + plain twins), the fused engine Mxu2FusedNTT and the
-                  evaluation-domain engine Mxu2KernelNTT
+    ops/fold.py   fold kernels K1-K3, the pointwise and chain kernels
+                  (wrappers + plain twins), the fused engine Mxu2FusedNTT
+                  and the evaluation-domain engine Mxu2KernelNTT
     ops/fold_bb.py BabyBear fold kernels K4 and MxuBBFusedNTT
+    ops/goldilocks_ntt.py the radix-2 engine GoldilocksKernelNTT on the
+                  NTT tile and pass kernels
+    ops/mxu.py    7-bit digit MxuModMat and the deg-2^14 MatmulNTT
+    ops/mxu_fused.py the fused mod-mat kernel, MxuModMatFused
     ops/_build.py builds and loads csrc/, the wrappers' launch rule
     linalg/       the field-element adapter FieldElems
     mle/          DenseMLE and helpers; the generic sumcheck prover
@@ -39,6 +44,9 @@ from .device import (from_jax_storage, get_device, to_numpy_storage,
 from .fields import BABYBEAR, FROG, GOLDILOCKS, get_field
 from .ops.fold import Mxu2FusedNTT, Mxu2KernelNTT
 from .ops.fold_bb import MxuBBFusedNTT
+from .ops.goldilocks_ntt import GoldilocksKernelNTT
+from .ops.mxu import MatmulNTT, MxuModMat
+from .ops.mxu_fused import MxuModMatFused
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
 from .ops.mxu_bb import MxuBBNTT
 from .ops.ntt import NTTContext, get_ntt
@@ -49,4 +57,5 @@ __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
            "GOLDILOCKS", "BABYBEAR", "FROG", "get_field",
            "Mxu2NTT", "Mxu2FusedNTT", "Mxu2KernelNTT", "MxuBBNTT",
            "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
+           "GoldilocksKernelNTT", "MatmulNTT", "MxuModMat", "MxuModMatFused",
            "NTTContext", "get_ntt", "PowerRing", "get_power_ring"]

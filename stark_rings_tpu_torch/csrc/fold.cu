@@ -142,6 +142,28 @@ pointwise_mul_kernel(const uint64_t* __restrict__ a,
     if (i < n) out[i] = gl::mul(a[i], b[i]);
 }
 
+// x <- x * b mod q, `depth` times, starting from x = a, over a flat range.
+// Replaces pointwise_chain (pallas_fold.py:526, pallas_call at :545), which
+// runs the same dependent chain on u32 pairs in VMEM.  The chain stays in
+// registers: a and b are read once and x written once, so at depth 16 on
+// [80, 2^16] (126 MB moved, 84M modmuls) it is bound by its modmuls'
+// instructions, and at large depth it measures the rate of dependent
+// Goldilocks modmuls the card sustains.  The loop is not unrolled: one
+// trip is one gl::mul, so chip_smoke.py reads gl::mul's instruction count
+// off the loop body in the SASS (the card's modmul peak).
+__global__ void __launch_bounds__(THREADS)
+pointwise_chain_kernel(const uint64_t* __restrict__ a,
+                       const uint64_t* __restrict__ b,
+                       uint64_t* __restrict__ out, int64_t n, int depth) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+    if (i >= n) return;
+    uint64_t x = a[i];
+    const uint64_t y = b[i];
+#pragma unroll 1
+    for (int d = 0; d < depth; ++d) x = gl::mul(x, y);
+    out[i] = x;
+}
+
 dim3 grid_for(int64_t R, int64_t cols) {
     return dim3(static_cast<unsigned>((cols + THREADS - 1) / THREADS),
                 static_cast<unsigned>(R));
@@ -219,6 +241,16 @@ extern "C" int srt_pointwise_mul(const void* a, const void* b, void* out,
         stream)>>>(static_cast<const uint64_t*>(a),
                    static_cast<const uint64_t*>(b),
                    static_cast<uint64_t*>(out), n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int srt_pointwise_chain(const void* a, const void* b, void* out,
+                                   int64_t n, int depth, void* stream) {
+    const auto grid = static_cast<unsigned>((n + THREADS - 1) / THREADS);
+    pointwise_chain_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(
+        stream)>>>(static_cast<const uint64_t*>(a),
+                   static_cast<const uint64_t*>(b),
+                   static_cast<uint64_t*>(out), n, depth);
     return static_cast<int>(cudaGetLastError());
 }
 

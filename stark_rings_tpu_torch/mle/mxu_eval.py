@@ -21,11 +21,10 @@ with zeros, which add nothing to the product.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as TF
 
 from ..fields.field import GOLDILOCKS as _f, MASK32, shr
 from ..ops.mxu2 import (B_BITS, D_BITS, K_BUCKETS, K_BUCKETS_U8, P_PLANES,
-                        P_PLANES_U8)
+                        P_PLANES_U8, _mm)
 from .fix import as_points
 
 __all__ = ["evaluate_goldilocks_mxu", "evaluate_many_goldilocks_mxu",
@@ -118,22 +117,6 @@ def _planes_u8(x):
     """u64 [R, C] -> uint8 [P8*R, C] of 8-bit digit planes (l-major)."""
     return torch.cat([_bytes(x, l).to(torch.uint8)
                       for l in range(P_PLANES_U8)], dim=0)
-
-
-def _round8(n):
-    return -(-n // 8) * 8
-
-
-def _mm(a, b):
-    """Exact int8 [m, k] @ int8 [k, n] -> int32 [m, n] through
-    ``torch._int_mm``, zero-padded to at least 24 rows and to multiples of
-    8, with b column-major (the layout it takes on every backend)."""
-    m, kd = a.shape
-    n = b.shape[1]
-    mp, kp, np_ = max(24, _round8(m)), _round8(kd), _round8(n)
-    a = TF.pad(a, (0, kp - kd, 0, mp - m)).contiguous()
-    bt = TF.pad(b.t(), (0, kp - kd, 0, np_ - n)).contiguous()
-    return torch._int_mm(a, bt.t())[:m, :n]
 
 
 def _mm_u8(W, X):

@@ -105,6 +105,11 @@ def kernels() -> ctypes.CDLL:
                                       i32, p]
     lib.srt_fold_end.argtypes = [p, i64, p, i64, i64, i32, p]
     lib.srt_pointwise_mul.argtypes = [p, p, p, i64, p]
+    lib.srt_pointwise_chain.argtypes = [p, p, p, i64, i32, p]
+    u64 = ctypes.c_uint64
+    lib.srt_ntt_stage.argtypes = [p, p, p, u64, i32, i32, i32, i64, i32, p]
+    lib.srt_ntt_tile.argtypes = [p, p, p, p, p, u64, i32, i32, i64, i32, p]
+    lib.srt_mxu_mod_mat.argtypes = [p, p, p, i32, i32, i64, p]
     lib.srt_bb_fold_tw.argtypes = lib.srt_fold_tw.argtypes
     lib.srt_bb_fold_end2_mul.argtypes = lib.srt_fold_end2_mul.argtypes
     lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
@@ -120,7 +125,9 @@ def kernels() -> ctypes.CDLL:
         red.argtypes = [p, p, i32, i32, i32, i64, p]
         sumcheck += [rnd, red]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
-               lib.srt_pointwise_mul, lib.srt_bb_fold_tw,
+               lib.srt_pointwise_mul, lib.srt_pointwise_chain,
+               lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
+               lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
                lib.srt_mle_eval_tiles, lib.srt_mle_fix_top, *sumcheck):
         fn.restype = ctypes.c_int

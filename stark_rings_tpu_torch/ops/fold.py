@@ -4,17 +4,18 @@ the ring-multiply engines built on them (counterpart of
 
 Each kernel has a public wrapper and a plain PyTorch twin:
 
-=========  ==================  =====================  ======================
-kernel     wrapper             twin                   reference
-=========  ==================  =====================  ======================
-K1         ``fold_tw``         ``fold_tw_ref``        ``fold_tw_dma``;
-                                                      whole-array ``fold_tw``
-K2         ``fold_end2_mul``   ``fold_end2_mul_ref``  ``fold_end2_mul_dma``
-K3         ``fold_end``        ``fold_end_ref``       ``fold_end_dma``;
-                                                      whole-array ``fold_end``
-pointwise  ``pointwise_mul``   ``pointwise_mul_ref``  ``pointwise_mul``;
-                                                      K3b ``pointwise_dma``
-=========  ==================  =====================  ======================
+=========  ===================  =======================  ======================
+kernel     wrapper              twin                     reference
+=========  ===================  =======================  ======================
+K1         ``fold_tw``          ``fold_tw_ref``          ``fold_tw_dma``;
+                                                         whole-array ``fold_tw``
+K2         ``fold_end2_mul``    ``fold_end2_mul_ref``    ``fold_end2_mul_dma``
+K3         ``fold_end``         ``fold_end_ref``         ``fold_end_dma``;
+                                                         whole-array ``fold_end``
+pointwise  ``pointwise_mul``    ``pointwise_mul_ref``    ``pointwise_mul``;
+                                                         K3b ``pointwise_dma``
+chain      ``pointwise_chain``  ``pointwise_chain_ref``  ``pointwise_chain``
+=========  ===================  =======================  ======================
 
 The reference's whole-array folds compute the same functions as its DMA
 folds (they differ only in how they tile VMEM), so K1 and K3 serve both.
@@ -39,8 +40,9 @@ from .goldilocks import _mul_q, _reduce128, _sub_q, join, split
 from .mxu2 import BIAS_MOD_Q, B_BITS, Mxu2NTT
 
 __all__ = ["fold_tw", "fold_end2_mul", "fold_end", "pointwise_mul",
-           "fold_tw_ref", "fold_end2_mul_ref", "fold_end_ref",
-           "pointwise_mul_ref", "LAUNCHES", "reset_launches",
+           "pointwise_chain", "fold_tw_ref", "fold_end2_mul_ref",
+           "fold_end_ref", "pointwise_mul_ref", "pointwise_chain_ref",
+           "LAUNCHES", "reset_launches",
            "Mxu2FusedNTT", "Mxu2KernelNTT"]
 
 M32 = 0xFFFFFFFF
@@ -48,7 +50,7 @@ _BIAS = 1 << 26
 _BM_LO, _BM_HI = BIAS_MOD_Q & M32, BIAS_MOD_Q >> 32
 
 LAUNCHES = {"fold_tw": 0, "fold_end2_mul": 0, "fold_end": 0,
-            "pointwise_mul": 0}
+            "pointwise_mul": 0, "pointwise_chain": 0}
 
 
 def reset_launches() -> None:
@@ -133,6 +135,14 @@ def fold_end2_mul_ref(Va, Vb, R, *, signed):
 def pointwise_mul_ref(a, b):
     """Plain twin of :func:`pointwise_mul`."""
     return join(*_mul_q(*split(a), *split(b)))
+
+
+def pointwise_chain_ref(a, b, depth=16):
+    """Plain twin of :func:`pointwise_chain`: ``depth`` slot products."""
+    x = a
+    for _ in range(depth):
+        x = pointwise_mul_ref(x, b)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -270,27 +280,50 @@ def fold_end(V, R, *, signed):
     return fold_end_with(GL_FOLDS, fold_end_ref, V, R, signed)
 
 
+def _check_slots(name, a, b):
+    """Two contiguous int64 tensors of one shape, within the grid."""
+    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor) \
+            or a.dtype != torch.int64 or b.dtype != torch.int64:
+        raise TypeError(f"{name}: operands must be int64 tensors")
+    if a.shape != b.shape:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if (a.numel() + 255) // 256 >= 2**31:
+        raise ValueError(f"{name}: {a.numel()} elements exceed the grid")
+
+
 def pointwise_mul(a, b):
     """Goldilocks slot product a * b mod q of two int64 tensors of the
     same shape (canonical u64 bits), elementwise over the flat range."""
-    if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor) \
-            or a.dtype != torch.int64 or b.dtype != torch.int64:
-        raise TypeError("pointwise_mul: operands must be int64 tensors")
-    if a.shape != b.shape:
-        raise ValueError(f"pointwise_mul: shapes {tuple(a.shape)} and "
-                         f"{tuple(b.shape)} differ")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("pointwise_mul: operands must be contiguous")
+    _check_slots("pointwise_mul", a, b)
     if not _build.on_cuda("pointwise_mul", a, b):
         return pointwise_mul_ref(a, b)
     out = torch.empty_like(a)
-    n = a.numel()
-    if (n + 255) // 256 >= 2**31:
-        raise ValueError(f"pointwise_mul: {n} elements exceed the grid")
-    if n:
+    if a.numel():
         _build.launch(LAUNCHES, "pointwise_mul",
                       _build.kernels().srt_pointwise_mul, a.device,
-                      a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+                      a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel())
+    return out
+
+
+def pointwise_chain(a, b, depth=16):
+    """x <- x * b mod q, ``depth`` times from x = a, elementwise: a * b^depth
+    for two int64 tensors of one shape (canonical u64 bits).  The
+    reference's chunk and width only tiled VMEM and have no counterpart."""
+    _check_slots("pointwise_chain", a, b)
+    if not isinstance(depth, int) or not 0 <= depth < 2**31:
+        raise ValueError(f"pointwise_chain: depth must be an int in "
+                         f"[0, 2^31), got {depth!r}")
+    if not _build.on_cuda("pointwise_chain", a, b):
+        return pointwise_chain_ref(a, b, depth)
+    out = torch.empty_like(a)
+    if a.numel():
+        _build.launch(LAUNCHES, "pointwise_chain",
+                      _build.kernels().srt_pointwise_chain, a.device,
+                      a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                      depth)
     return out
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from ..device import get_device, to_torch, to_torch_u32
 from ..fields.field import GOLDILOCKS, MASK32, shr
@@ -70,6 +71,22 @@ def _pow_table(base: int, n: int, q: int) -> np.ndarray:
         out[i] = v
         v = v * base % q
     return out
+
+
+def _round8(n):
+    return -(-n // 8) * 8
+
+
+def _mm(a, b):
+    """Exact int8 [m, k] @ int8 [k, n] -> int32 [m, n] through
+    ``torch._int_mm``, zero-padded to at least 24 rows and to multiples of
+    8, with b column-major (the layout it takes on every backend)."""
+    m, kd = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(24, _round8(m)), _round8(kd), _round8(n)
+    a = TF.pad(a, (0, kp - kd, 0, mp - m)).contiguous()
+    bt = TF.pad(b.t(), (0, kp - kd, 0, np_ - n)).contiguous()
+    return torch._int_mm(a, bt.t())[:m, :n]
 
 
 class PrescaledMat:

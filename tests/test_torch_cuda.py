@@ -2,8 +2,9 @@
 fold kernels K1-K3, the BabyBear folds K4 and the Goldilocks pointwise
 kernel, and the engines built on them against the kernel-free engines;
 the MLE kernels K5 and K6, and the sumcheck prover K7 over Goldilocks,
-BabyBear and frog, for one claim and for a batch.  Marked ``cuda``:
-they skip where no CUDA card is present.  This file imports no JAX, so
+BabyBear and frog, for one claim and for a batch; the radix NTT kernels,
+the fused mod-mat kernel and the chain kernel, and the engines on them.
+Marked ``cuda``: they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda \
@@ -16,8 +17,9 @@ import torch
 
 from stark_rings_tpu_torch import (BABYBEAR, GOLDILOCKS, Mxu2FusedNTT,
                                    Mxu2KernelNTT, Mxu2NTT, MxuBBFusedNTT,
-                                   MxuBBNTT, from_jax_storage, get_field,
-                                   get_power_ring, to_torch, to_torch_u32)
+                                   MxuBBNTT, NTTContext, from_jax_storage,
+                                   get_field, get_power_ring, to_torch,
+                                   to_torch_u32)
 from stark_rings_tpu_torch.examples import sumcheck as example
 from stark_rings_tpu_torch.linalg import FieldElems
 from stark_rings_tpu_torch.mle import DenseMLE
@@ -89,7 +91,7 @@ def test_fused_engine_matches_plain_on_card(dev, unsigned):
     K.reset_launches()
     got = fused.mul(a, b)
     assert K.LAUNCHES == {"fold_tw": 3, "fold_end2_mul": 1, "fold_end": 1,
-                          "pointwise_mul": 0}
+                          "pointwise_mul": 0, "pointwise_chain": 0}
     assert torch.equal(got, plain.mul(a, b))
     state = fused.precompute(b[:1])
     assert torch.equal(fused.mul_cached(a, state),
@@ -179,7 +181,7 @@ def test_kernel_engine_matches_plain_on_card(dev):
     K.reset_launches()
     got = eng.mul(a, b)
     assert K.LAUNCHES == {"fold_tw": 3, "fold_end2_mul": 0, "fold_end": 3,
-                          "pointwise_mul": 1}
+                          "pointwise_mul": 1, "pointwise_chain": 0}
     assert torch.equal(got, plain.mul(a, b))
     assert torch.equal(eng.square(a), plain.square(a))
     assert torch.equal(eng.mul_cached(a, eng.precompute(b[:1])),
@@ -491,3 +493,152 @@ def test_example_proof_on_card_fields(dev, field):
     assert torch.equal(m7, torch.stack([torch.stack(m) for m in msgs]))
     assert torch.equal(f7[0], g.evaluate(chals))
     assert torch.equal(f7[1], h.evaluate(chals))
+
+
+# -- the radix NTT engine, the fused mod-mat kernel and the chain kernel -----
+
+
+@pytest.mark.parametrize("depth", [0, 1, 16])
+@pytest.mark.parametrize("n", [1, 255, 3 * 1024 + 7])
+def test_pointwise_chain_matches_twin(dev, n, depth):
+    rng = np.random.default_rng(n + depth)
+    a = rng.integers(0, Q, n, dtype=np.uint64)
+    b = rng.integers(0, Q, n, dtype=np.uint64)
+    a[0] = b[0] = Q - 1
+    b[-1] = 0
+    a, b = to_torch(a, dev), to_torch(b, dev)
+    before = K.LAUNCHES["pointwise_chain"]
+    got = K.pointwise_chain(a, b, depth)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pointwise_chain"] == before + 1
+    assert torch.equal(got, K.pointwise_chain_ref(a, b, depth))
+
+
+@pytest.mark.parametrize("logN,log_tile", [(7, 14), (10, 14), (10, 4),
+                                           (13, 14), (14, 14), (15, 14),
+                                           (16, 14), (16, 9)])
+def test_ntt_kernels_match_twins(dev, logN, log_tile, monkeypatch):
+    """Every stage pass and tile mode against its twin, and the engine
+    against NTTContext, on 3 rows."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+
+    N = 1 << logN
+    rng = np.random.default_rng(logN * 16 + log_tile)
+    x, o = (to_torch(rng.integers(0, Q, (3, N), dtype=np.uint64), dev)
+            for _ in range(2))
+    x[0, :3] = to_torch(np.array([Q - 1, 0, 1], dtype=np.uint64), dev)
+    monkeypatch.setattr(G, "LOG_TILE", log_tile)
+    e = G.GoldilocksKernelNTT(N, device=dev)
+    wf, wi, ninv = e.tables()
+    for s in (0, logN // 2, logN - 1):
+        for inverse, scale in ((False, None), (True, None), (True, ninv)):
+            w = wi if inverse else wf
+            got = G.ntt_stage(x, w, s, inverse=inverse, ninv=scale)
+            want = G.ntt_stage_ref(x, w, s, inverse=inverse, ninv=scale)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (s, inverse, scale)
+    lt = e.log_tile
+    for mode in G.MODES:
+        if mode == "mul" and (lt != logN or N > 1 << 13):
+            continue
+        got = G.ntt_tile(x, wf, wi, ninv, lt, mode, o)
+        torch.cuda.synchronize()
+        assert torch.equal(got, G.ntt_tile_ref(x, wf, wi, ninv, lt, mode,
+                                               o)), mode
+    ctx = NTTContext(GOLDILOCKS, N, device=dev)
+    G.reset_launches()
+    got = e.mul(x, o)
+    torch.cuda.synchronize()
+    passes = logN - lt
+    tiles = 1 if not passes and N <= 1 << 13 else 2
+    assert G.LAUNCHES == {"ntt_stage": 3 * passes, "ntt_tile": tiles}
+    assert torch.equal(got, ctx.mul(x, o))
+    assert torch.equal(e.mul_composite(x, o), got)
+    assert torch.equal(e.forward(x), ctx.forward(x))
+    assert torch.equal(e.inverse(x), ctx.inverse(x))
+
+
+@pytest.mark.parametrize("R,C,M", [(4, 128, 3), (5, 9, 130),
+                                   (128, 128, 1000), (128, 128, 10240 + 37)])
+def test_mxu_mod_mat_matches_twin(dev, R, C, M):
+    """The fused kernel against its twin (small M) and MxuModMat's
+    _int_mm path, with the bound inputs: digits all 127 in a weight row,
+    2^64 - 1, q - 1, 0 and 1 as data columns; a ragged M."""
+    from stark_rings_tpu_torch.ops import mxu_fused as MF
+    from stark_rings_tpu_torch.ops.mxu import MxuModMat
+
+    rng = np.random.default_rng(R * C + M)
+    m = rng.integers(0, Q, (R, C), dtype=np.uint64).astype(object)
+    m[0] = (1 << 63) - 1
+    x = rng.integers(0, Q, (C, M), dtype=np.uint64)
+    edge = np.array([2**64 - 1, Q - 1, 0, 1], dtype=np.uint64)[:M]
+    x[:, :len(edge)] = edge
+    x = to_torch(x, dev)
+    f = MF.MxuModMatFused(m, device=dev)
+    before = MF.LAUNCHES["mxu_mod_mat"]
+    got = f.apply(x)
+    torch.cuda.synchronize()
+    assert MF.LAUNCHES["mxu_mod_mat"] == before + 1
+    assert torch.equal(got, MxuModMat(m, device=dev).apply(x))
+    if M <= 1024:
+        assert torch.equal(got, MF.mxu_mod_mat_ref(x, f.w))
+
+
+def test_matmul_ntt_on_card(dev):
+    """MatmulNTT at N = 2^14 on MxuModMat and with its four levels
+    swapped for the fused kernel, against the radix engine's mul and
+    NTTContext."""
+    from stark_rings_tpu_torch.ops import mxu_fused as MF
+    from stark_rings_tpu_torch.ops.goldilocks_ntt import GoldilocksKernelNTT
+    from stark_rings_tpu_torch.ops.mxu import MatmulNTT
+
+    rng = np.random.default_rng(14)
+    a, b = (to_torch(rng.integers(0, Q, (2, 1 << 14), dtype=np.uint64), dev)
+            for _ in range(2))
+    want = NTTContext(GOLDILOCKS, 1 << 14, device=dev).mul(a, b)
+    assert torch.equal(MatmulNTT(device=dev).mul(a, b), want)
+    mn = MatmulNTT(device=dev)
+    for key in ("col_mat", "row_mat", "col_mat_inv", "row_mat_inv"):
+        setattr(mn, key, MF.MxuModMatFused(getattr(mn, key).matrix(),
+                                           device=dev))
+    MF.reset_launches()
+    assert torch.equal(mn.mul(a, b), want)
+    assert MF.LAUNCHES["mxu_mod_mat"] == 6
+    assert torch.equal(GoldilocksKernelNTT(1 << 14, device=dev).mul(a, b),
+                       want)
+
+
+def test_new_wrappers_raise_on_refused_inputs(dev, monkeypatch):
+    """A CUDA tensor the kernel does not take raises, and no twin runs."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.ops import mxu_fused as MF
+
+    def no_twin(*args, **kw):
+        raise AssertionError("a twin ran on a CUDA tensor")
+
+    for mod, name in ((K, "pointwise_chain_ref"), (G, "ntt_stage_ref"),
+                      (G, "ntt_tile_ref"), (MF, "mxu_mod_mat_ref")):
+        monkeypatch.setattr(mod, name, no_twin)
+    x = torch.zeros((2, 256), dtype=torch.int64, device=dev)
+    e = G.GoldilocksKernelNTT(256, device=dev)
+    wf, wi, ninv = e.tables()
+    f = MF.MxuModMatFused([[1, 2], [3, 4]], device=dev)
+    before = (dict(K.LAUNCHES), dict(G.LAUNCHES), dict(MF.LAUNCHES))
+    cases = [
+        (TypeError, lambda: K.pointwise_chain(x.int(), x.int())),
+        (ValueError, lambda: K.pointwise_chain(x.t(), x.t())),
+        (ValueError, lambda: K.pointwise_chain(x, x[:1])),
+        (TypeError, lambda: G.ntt_stage(x.int(), wf, 0)),
+        (ValueError, lambda: G.ntt_stage(x.t(), wf, 0)),
+        (ValueError, lambda: G.ntt_stage(x[:, :100].contiguous(), wf, 0)),
+        (ValueError, lambda: G.ntt_tile(x, wf, wi, ninv, 15, "forward")),
+        (ValueError, lambda: G.ntt_tile(x, wf[:128], wi, ninv, 8,
+                                        "forward")),
+        (TypeError, lambda: MF.mxu_mod_mat(x[:2, :5].int(), f.w)),
+        (ValueError, lambda: MF.mxu_mod_mat(x[:, :4].t(), f.w)),
+        (ValueError, lambda: MF.mxu_mod_mat(x[:1, :4].contiguous(), f.w)),
+    ]
+    for exc, call in cases:
+        with pytest.raises(exc):
+            call()
+    assert (dict(K.LAUNCHES), dict(G.LAUNCHES), dict(MF.LAUNCHES)) == before

@@ -143,7 +143,7 @@ def test_wrappers_on_cpu_use_twins_and_launch_nothing(signed):
     for got, want in _wrapper_calls(64, 128, signed):
         assert torch.equal(got, want)
     assert F.LAUNCHES == {"fold_tw": 0, "fold_end2_mul": 0, "fold_end": 0,
-                          "pointwise_mul": 0}
+                          "pointwise_mul": 0, "pointwise_chain": 0}
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():

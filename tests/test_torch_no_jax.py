@@ -28,6 +28,9 @@ import numpy as np
 import stark_rings_tpu_torch
 import stark_rings_tpu_torch.ops.fold
 import stark_rings_tpu_torch.ops.fold_bb
+import stark_rings_tpu_torch.ops.goldilocks_ntt
+import stark_rings_tpu_torch.ops.mxu
+import stark_rings_tpu_torch.ops.mxu_fused
 import stark_rings_tpu_torch.ops.mxu_bb
 import stark_rings_tpu_torch.ops.ntt
 import stark_rings_tpu_torch.ops._build
@@ -55,6 +58,18 @@ for field in ("babybear", "goldilocks"):
     ring = stark_rings_tpu_torch.get_power_ring(field, 10, device="cpu")
     x = ring.rand_coeff((1,), np.random.default_rng(0))
     assert (ring.mxu_ctx().mul(x, x) == ring.coeff_square(x)).all()
+ops = stark_rings_tpu_torch.ops
+x = stark_rings_tpu_torch.GOLDILOCKS.rand((2, 256), np.random.default_rng(0),
+                                          "cpu")
+ops.goldilocks_ntt.LOG_TILE = 4
+e = ops.goldilocks_ntt.GoldilocksKernelNTT(256, device="cpu")
+assert (e.mul(x, x) == ops.ntt.NTTContext(e.ctx.f, 256, device="cpu")
+        .mul(x, x)).all()
+m = ops.mxu_fused.MxuModMatFused([[1, 2], [3, 4]], device="cpu")
+plain = ops.mxu.MxuModMat([[1, 2], [3, 4]], device="cpu")
+assert (m.apply(x[:, :5]) == plain.apply(x[:, :5])).all()
+assert (ops.fold.pointwise_chain(x, x, 2) == ops.fold.pointwise_chain_ref(
+    x, x, 2)).all()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked
