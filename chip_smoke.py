@@ -31,6 +31,13 @@ pass kernels ``ntt_tile`` and ``ntt_stage``) at deg 2^16, batch 80, on
 Slice A's operands, ``MatmulNTT`` at deg 2^14, batch 80, on ``MxuModMat``
 and on the fused mod-mat kernel ``mxu_mod_mat``, and ``pointwise_chain``.
 
+Slice H (sharded) is the four-step NTT of ``parallel/ntt.py`` at deg
+2^20 (BASELINE config 5), batch 8: ``ShardedNTT(..., exchange="pallas")``
+on a mesh of 8 shards of the one card, whose every exchange is one
+launch of the twiddle-fused exchange kernel K8 (``twiddle_exchange_fwd``
+and ``twiddle_exchange_inv``, over Goldilocks and BabyBear), and the
+single-device ``PowerRing.fourstep_ctx()``.
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -104,8 +111,12 @@ Phases, one line each:
      values (round 0's p(0) + p(1) is the sum of the products, each
      later round's p(0) + p(1) is the previous p(r), the last p(r) the
      product of the finals); the W = 4, nv = 20, k = 2 Goldilocks batch
-     against its twin (the generic prover per claim), and three claims
-     of a W = 65,535, nv = 4 batch against theirs;
+     against its twin (the generic prover on the claims at once), and
+     three claims of a W = 65,535, nv = 4 batch against theirs; K7's
+     card limits: 9 tables at nv = 12 (the run-time-k round kernel, 13
+     launches) and nv = 0 (the empty proof, no launch) against the
+     generic prover, and a W = 65,536,
+     nv = 1 batch (two chunks of claims) against its twin;
  20. fields path, launches counted: per field an nv = 20 Fiat-Shamir
      proof (real transcript) verified through DenseMLE.evaluate, a
      tampered one rejected, and K7 on the bit-reversed tables
@@ -142,7 +153,27 @@ Phases, one line each:
      mxu_mod_mat beside MxuModMat.apply and the stacked _int_mm alone; the
      radix mul and Mxu2FusedNTT.mul in turns, NTTContext.mul; MatmulNTT
      (both level kinds) and the radix mul at N = 2^14;
- 28. profile: device busy time against wall time of one radix mul.
+ 28. profile: device busy time against wall time of one radix mul;
+ 29. sharded parity: K8 forward and inverse against their twins, bit for
+     bit, over Goldilocks and BabyBear at deg 2^20: 8 shards at B = 8 on
+     tables of zeros, of q-1 and of random words, and batchless; 1, 2
+     and 4 shards at B = 2;
+ 30. sharded path, launches counted: on 8 shards at deg 2^20, B = 8,
+     the Goldilocks forward, inverse, mul, mul_cached (batch-8 and
+     batch-1 cached operands) and square with K8, each bit-equal to the
+     "xla" route; mul also to fourstep_ctx().mul, GoldilocksKernelNTT.mul
+     and HostGoldilocks.mul (row 0), forward to fourstep_ctx().forward,
+     inverse(forward) = id; the BabyBear mul to the "xla" route,
+     fourstep_ctx().mul and HostRing.mul (row 0); local="mxu" to
+     local="vpu";
+ 31. launch counts of phase 30 (K8's four instances must each have run,
+     3 per mul, 2 per square);
+ 32. timings (CUDA events, median of 10 after warm-up): K8 against its
+     twin, its bound and the block transpose alone (one permute and
+     contiguous on the stacked shards); the sharded mul with K8 and with
+     the "xla" route; fourstep_ctx().mul and GoldilocksKernelNTT.mul in
+     turns; make_phase_fns' three phases;
+ 33. profile: device busy time against wall time of one sharded mul.
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
@@ -159,6 +190,7 @@ card the script fails before printing any result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import pathlib
 import re
@@ -214,6 +246,8 @@ SC_FIELDS = ("babybear", "frog")
 SC_W = 4            # claims of the batched Goldilocks proof
 SC_W_MAX = 65535    # the most claims one launch takes ...
 SC_NV_MANY = 4      # ... at a small nv
+SC_W_OVER = 65536   # one claim more than a launch takes (two chunks)
+SC_NV_K9 = 12       # nine tables here: beyond the kernel's eight
 FIELD_KERNELS = {  # record name -> reference kernel (file:line)
     "sumcheck_prove_many_babybear":
         "stark_rings_tpu/mle/pallas_sumcheck.py:87",     # _BbOps
@@ -244,6 +278,17 @@ ENGINE_KERNELS = {  # record name -> (source, reference kernel file:line)
     "mxu_mod_mat": (MXU_SOURCE, "stark_rings_tpu/ops/pallas_mxu.py:186"),
 }
 MM_LEVELS = ("col_mat", "row_mat", "col_mat_inv", "row_mat_inv")
+SH_N = 1 << 20      # BASELINE config 5: the deg-2^20 four-step NTT ...
+SH_P = 8            # ... on 8 shards (here of one card) ...
+SH_B = 8            # ... at the batch bench.py:828 measures
+SH_PS = (1, 2, 4)   # the other shard counts K8 is held at
+SH_B_SMALL = 2
+EXCHANGE_SOURCE = "stark_rings_tpu_torch/csrc/exchange.cu"
+EXCHANGE_KERNELS = {  # record name -> reference kernel (file:line)
+    f"twiddle_exchange_{d}_{field}":
+        f"stark_rings_tpu/parallel/pallas_exchange.py:{line}"
+    for field in ("goldilocks", "babybear")
+    for d, line in (("fwd", 241), ("inv", 268))}
 
 
 def phase(name, msg):
@@ -1083,7 +1128,49 @@ def slice_c(dev, smi, rng) -> list:
         check(max_err, rec, msgs[w], want_m, what)
         check(max_err, rec, torch.stack([x[w] for x in finals]),
               torch.stack(want_f), what + " finals")
+    # K7's card limits: k > 8 tables run the run-time-k round kernel,
+    # nv = 0 is the empty proof with no launch, and a batch over one
+    # launch's claims runs in chunks
+    rec9 = "sumcheck_prove_many_goldilocks"
+    T9 = [F.rand((1 << SC_NV_K9,), rng, dev) for _ in range(9)]
+    c9 = F.rand((SC_NV_K9,), rng, dev)
+    T0 = [F.rand((1,), rng, dev) for _ in range(2)]
+    c0 = torch.empty(0, dtype=torch.int64, device=dev)
+    for what, tables, chal, want in (
+            (f"k=9 nv={SC_NV_K9}", T9, c9, SC_NV_K9 + 1),
+            ("nv=0", T0, c0, 0)):
+        before = SK.LAUNCHES[rec9]
+        m, fs = SK.sumcheck_prove_many(tables, chal)
+        launched = SK.LAUNCHES[rec9] - before
+        wm, wf = SK.sumcheck_prove_many_ref(tables, chal)
+        check(max_err, rec9, m, wm, what)
+        check(max_err, rec9, torch.stack(fs), torch.stack(wf),
+              what + " finals")
+        if not m.is_cuda or launched != want:
+            raise AssertionError(f"K7 {what}: {launched} launches on "
+                                 f"{m.device}, not {want} on the card")
+    Ot = [F.rand((SC_W_OVER, 2), rng, dev) for _ in range(2)]
+    oc = F.rand((1,), rng, dev)
+    before = SK.LAUNCHES[rec]
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(Ot, oc)
+    over = SK.LAUNCHES[rec] - before
+    want_m, want_f = SK.sumcheck_prove_batch_ref(Ot, oc)
+    what = f"W={SC_W_OVER} nv=1 k=2"
+    check(max_err, rec, msgs, want_m, what)
+    check(max_err, rec, torch.stack(finals), torch.stack(want_f),
+          what + " finals")
+    if over != 4:
+        raise AssertionError(f"{what}: {over} launches, not 2 chunks of 2")
     torch.cuda.synchronize()
+    phase("fields parity", f"K7's card limits: k=9 at nv={SC_NV_K9} on the "
+          f"run-time-k round kernel ({SC_NV_K9 + 1} launches) and nv=0 (the "
+          f"empty proof, no launch) equal the generic prover; the "
+          f"W={SC_W_OVER}, nv=1 batch equals its twin in {over} launches "
+          f"(2 chunks)")
+    phase("fields parity", "K7 round kernels' registers a thread (ptxas, "
+          "from the built library; spill = local bytes): " + "; ".join(
+              f"{ops} {k}: {reg} regs, {spill} B spill"
+              for (ops, k), (reg, spill) in sorted(k7_registers().items())))
     phase("fields parity", f"{cases} K7 cases over {'/'.join(SC_FIELDS)} "
           f"(nv={NV_SMALL} random, nv={NV} zeros/q-1/random; k=2, 3) and "
           f"the W={SC_W} Goldilocks batch bit-equal to their twins, and "
@@ -1485,6 +1572,278 @@ def slice_ntt(dev, smi, rng, gl) -> list:
             for name, (src, ref) in ENGINE_KERNELS.items()]
 
 
+def slice_sharded(dev, smi, rng) -> list:
+    """Phases 29-33: the sharded four-step NTT at deg 2^20 on 8 shards
+    of the card, ``ShardedNTT(exchange="pallas")`` with the exchange
+    kernel K8, and ``PowerRing.fourstep_ctx()``.  Returns K8's JSON
+    records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import (BABYBEAR as FB, GOLDILOCKS as F,
+                                       GoldilocksKernelNTT, ShardedNTT,
+                                       get_power_ring, make_mesh,
+                                       to_numpy_u32, to_numpy_u64, to_torch)
+    from stark_rings_tpu_torch.native.host import HostGoldilocks, HostRing
+    from stark_rings_tpu_torch.ops import _build
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    fields = {"goldilocks": F, "babybear": FB}
+    N1 = N2 = 1 << ((SH_N.bit_length() - 1) // 2)
+    a_np = rng.integers(0, F.q, (SH_B, SH_N), dtype=np.uint64)
+    b_np = rng.integers(0, F.q, (SH_B, SH_N), dtype=np.uint64)
+    a, b = to_torch(a_np, dev), to_torch(b_np, dev)
+    abb, bbb = FB.rand((SH_B, SH_N), rng, dev), FB.rand((SH_B, SH_N), rng,
+                                                         dev)
+    # the host oracles run on threads while the card works
+    pool = ThreadPoolExecutor(max_workers=2)
+    orc = {"goldilocks": pool.submit(
+        lambda: HostGoldilocks(SH_N).mul(a_np[:1], b_np[:1])),
+        "babybear": pool.submit(lambda x=abb[:1].cpu(), y=bbb[:1].cpu():
+                                HostRing("babybear", SH_N).mul_storage(x, y))}
+    t0 = time.perf_counter()
+    mesh = make_mesh(SH_P, device=dev)
+    sp = {k: ShardedNTT(k, SH_N, SH_P, exchange="pallas") for k in fields}
+    sx = {k: ShardedNTT(k, SH_N, SH_P) for k in fields}
+    smx = ShardedNTT("goldilocks", SH_N, SH_P, exchange="pallas",
+                     local="mxu")
+    fs = {k: get_power_ring(k, SH_N.bit_length() - 1, device=dev)
+          .fourstep_ctx() for k in fields}
+    radix = GoldilocksKernelNTT(SH_N, device=dev)
+    phase("sharded tables", f"ShardedNTT deg {SH_N} P={SH_P} (goldilocks and "
+          f"babybear, pallas and xla; goldilocks local=mxu), fourstep_ctx "
+          f"and GoldilocksKernelNTT built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def table(f, shape, kind):
+        if kind == "zeros":
+            return f.zeros(shape, dev)
+        if kind == "q-1":
+            return f.encode([f.q - 1], dev).expand(shape).contiguous()
+        return f.rand(shape, rng, dev)
+
+    # -- 29. K8 against its twin ------------------------------------------
+    max_err = {name: 0 for name in EXCHANGE_KERNELS}
+    t0 = time.perf_counter()
+    cases = 0
+    for field, f in fields.items():
+        for P in (SH_P, *SH_PS):
+            R1, C = N1 // P, N2 // P
+            for inverse in (False, True):
+                d = "inv" if inverse else "fwd"
+                kern = getattr(EX, f"twiddle_exchange_{d}")
+                twin = getattr(EX, f"twiddle_exchange_{d}_ref")
+                rows, cols = (R1, N2) if inverse else (N1, C)
+                runs = [(SH_B if P == SH_P else SH_B_SMALL, k)
+                        for k in (("random", "zeros", "q-1") if P == SH_P
+                                  else ("random",))]
+                if P == SH_P:
+                    runs.append((None, "random"))           # batchless
+                for B, kind in runs:
+                    lead = () if B is None else (B,)
+                    xs = [table(f, lead + (rows, cols), kind)
+                          for _ in range(P)]
+                    tws = [table(f, (rows, cols), kind) for _ in range(P)]
+                    what = f"P={P} B={B} {kind}"
+                    for g, w in zip(kern(xs, tws, field),
+                                    twin(xs, tws, field)):
+                        check(max_err, f"twiddle_exchange_{d}_{field}", g, w,
+                              what)
+                    cases += 1
+    torch.cuda.synchronize()
+    phase("sharded parity", f"{cases} K8 cases (forward and inverse, "
+          f"goldilocks and babybear, deg {SH_N}: P={SH_P} B={SH_B} on zeros, "
+          f"q-1 and random tables and batchless; P={SH_PS} B={SH_B_SMALL}) "
+          f"bit-equal to the twins in {time.perf_counter() - t0:.1f} s")
+
+    # -- 30. the path, launches counted -----------------------------------
+    def fns(sn):
+        return (*sn.make_fns(mesh, batch_ndim=1),
+                *sn.make_cached_fns(mesh, batch_ndim=1))
+
+    def shards(sn, x):
+        return sn.shard(sn.to_matrix(x), sn.shard_specs(1)[0], mesh)
+
+    def whole(sn, xs, spec=0):
+        return sn.from_matrix(sn.gather(xs, sn.shard_specs(1)[spec], dev))
+
+    gl, bb = sp["goldilocks"], sp["babybear"]
+    fwd, inv, mul, pre, mul_cached, square = fns(gl)
+    sa, sb = shards(gl, a), shards(gl, b)
+    sab, sbb = shards(bb, abb), shards(bb, bbb)
+    sb1 = shards(gl, b[:1])
+    torch.cuda.synchronize()
+    EX.reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "gl forward": lambda: fwd(sa),
+        "gl inverse": lambda: inv(results["gl forward"]),
+        "gl mul": lambda: mul(sa, sb),
+        "gl mul_cached": lambda: mul_cached(sa, pre(sb)),
+        "gl mul_cached_batch1": lambda: mul_cached(sa, pre(sb1)),
+        "gl square": lambda: square(sa),
+        "bb mul": lambda: fns(bb)[2](sab, sbb),
+        "gl mxu mul": lambda: fns(smx)[2](sa, sb),
+    }
+    results, per_variant = {}, {}
+    for name, fn in runs.items():
+        before = dict(EX.LAUNCHES)
+        results[name] = fn()
+        per_variant[name] = {k: v - before[k] for k, v in EX.LAUNCHES.items()
+                             if v != before[k]}
+    torch.cuda.synchronize()
+    launches = dict(EX.LAUNCHES)
+    path_s = time.perf_counter() - t0
+    phase("sharded path", f"{len(runs)} calls at deg {SH_N}, P={SH_P}, "
+          f"B={SH_B} in {path_s:.2f} s; launches {per_variant}")
+
+    t0 = time.perf_counter()
+    got = {k: whole(gl, v, 1 if k == "gl forward" else 0)
+           for k, v in results.items() if not k.startswith(("bb", "gl mxu"))}
+    xf = fns(sx["goldilocks"])
+    want = {"gl forward": whole(gl, xf[0](sa), 1),
+            "gl mul": whole(gl, xf[2](sa, sb)),
+            "gl mul_cached": whole(gl, xf[4](sa, xf[3](sb))),
+            "gl mul_cached_batch1": whole(gl, xf[4](sa, xf[3](sb1))),
+            "gl square": whole(gl, xf[5](sa))}
+    want["gl inverse"] = whole(gl, xf[1](results["gl forward"]))
+    for name, w in want.items():
+        if u64_err(got[name], w, name):
+            raise AssertionError(f"{name}: pallas differs from the xla route")
+    if not torch.equal(got["gl inverse"], a):
+        raise AssertionError("inverse(forward(a)) != a")
+    if not torch.equal(got["gl forward"], fs["goldilocks"].forward(a)):
+        raise AssertionError("the sharded forward differs from fourstep_ctx's")
+    ab = fs["goldilocks"].mul(a, b)
+    others = {"fourstep_ctx().mul": ab, "GoldilocksKernelNTT.mul":
+              radix.mul(a, b)}
+    for what, w in others.items():
+        if u64_err(got["gl mul"], w, what):
+            raise AssertionError(f"sharded mul differs from {what}")
+    for name, w in (("gl mul_cached", ab), ("gl square", radix.mul(a, a)),
+                    ("gl mul_cached_batch1",
+                     radix.mul(a, b[:1].expand_as(b).contiguous())),
+                    ("gl mxu mul", ab)):
+        x = whole(gl, results[name]) if name == "gl mxu mul" else got[name]
+        if u64_err(x, w, name):
+            raise AssertionError(f"{name} differs from the radix engine's or "
+                                 "fourstep_ctx's product")
+    bbm = whole(bb, results["bb mul"])
+    if u64_err(bbm, whole(bb, fns(sx["babybear"])[2](sab, sbb)), "bb") \
+            or u64_err(bbm, fs["babybear"].mul(abb, bbb), "bb fourstep"):
+        raise AssertionError("bb mul differs from the xla route or "
+                             "fourstep_ctx")
+    host_gl = orc["goldilocks"].result()
+    host_bb = orc["babybear"].result()
+    pool.shutdown()
+    if not np.array_equal(to_numpy_u64(got["gl mul"][:1]), host_gl):
+        raise AssertionError("sharded mul differs from HostGoldilocks.mul")
+    if not np.array_equal(to_numpy_u32(FB.canon(bbm[:1])).astype(np.uint64),
+                          host_bb):
+        raise AssertionError("bb sharded mul differs from HostRing.mul")
+    phase("sharded path", f"goldilocks forward / inverse / mul / mul_cached "
+          f"(batch {SH_B} and 1) / square bit-equal to the xla route, mul to "
+          f"fourstep_ctx().mul, GoldilocksKernelNTT.mul and HostGoldilocks"
+          f".mul (row 0), forward to fourstep_ctx().forward, inverse(forward)"
+          f" = id; babybear mul to the xla route, fourstep_ctx().mul and "
+          f"HostRing.mul (row 0); local=mxu mul to local=vpu "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 31. launch counts ----------------------------------------------------
+    phase("sharded launches", json.dumps(launches))
+    for name in EXCHANGE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the path")
+    for name, n in (("gl mul", 3), ("gl mul_cached", 3), ("gl square", 2),
+                    ("bb mul", 3), ("gl mxu mul", 3)):
+        if sum(per_variant[name].values()) != n:
+            raise AssertionError(f"{name}: {per_variant[name]}, not {n} K8 "
+                                 "launches")
+
+    # -- 32. timings -----------------------------------------------------------
+    rate = modmul_peak(dev)[0]
+    times, ops_ms = {}, {}
+    R1, C = N1 // SH_P, N2 // SH_P
+    for field, f in fields.items():
+        for d, rows, cols in (("fwd", N1, C), ("inv", R1, N2)):
+            name = f"twiddle_exchange_{d}_{field}"
+            kern = getattr(EX, f"twiddle_exchange_{d}")
+            twin = getattr(EX, f"twiddle_exchange_{d}_ref")
+            xs = [f.rand((SH_B, rows, cols), rng, dev) for _ in range(SH_P)]
+            tws = [f.rand((rows, cols), rng, dev) for _ in range(SH_P)]
+            outs = kern(xs, tws, field)
+            moved = nbytes(xs, tws, outs)
+            # the kernel alone: back-to-back launches of its C entry point
+            # on the same pointers (the wrapper's checks, allocation and
+            # pointer tables cost more host time than the kernel takes)
+            args = [(ctypes.c_void_p * SH_P)(*[t.data_ptr() for t in ts])
+                    for ts in (xs, tws, outs)]
+            args += [SH_P, SH_B, N1.bit_length() - 1, N2.bit_length() - 1,
+                     SH_P.bit_length() - 1, int(d == "inv")]
+            entry = getattr(_build.kernels(), f"srt_twiddle_exchange_{field}")
+            scratch = {name: 0}
+            ms = time_ms(lambda: _build.launch(scratch, name, entry, dev,
+                                               *args), inner=10)
+            wrap_ms = time_ms(lambda: kern(xs, tws, field), inner=10)
+            plain_ms = time_ms(lambda: twin(xs, tws, field))
+            # the block transpose alone, one torch call on the stacked
+            # shards: a yardstick, not the same function (no twiddle)
+            st = torch.stack(xs)
+            if d == "fwd":     # [s, B, d, R1, C] -> [d, B, R1, s, C]
+                view = st.view(SH_P, SH_B, SH_P, R1, C).permute(2, 1, 3, 0, 4)
+            else:              # [s, B, R1, d, C] -> [d, B, s, R1, C]
+                view = st.view(SH_P, SH_B, R1, SH_P, C).permute(3, 1, 0, 2, 4)
+            tr_ms = time_ms(lambda: view.contiguous(), inner=10)
+            del st
+            # Goldilocks: one gl::mul per word at the card's modmul peak;
+            # BabyBear's Montgomery product (a wide multiply, a multiply,
+            # a multiply-high and a conditional subtract) is under a
+            # quarter of gl::mul's instructions, so its bound is the bytes
+            ops_ms[name] = (SH_B * SH_N / rate * 1e3 if field == "goldilocks"
+                            else 0.0)
+            times[name] = (ms, plain_ms, moved)
+            bound = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms[name])
+            phase("sharded time", f"{name} P={SH_P} B={SH_B} deg {SH_N}: "
+                  f"kernel {ms:.4f} ms (through the wrapper {wrap_ms:.4f} "
+                  f"ms), plain {plain_ms:.4f} ms; {moved} B, "
+                  f"bound {bound:.4f} ms ({bound / ms:.0%} of it); the block "
+                  f"transpose alone (permute + contiguous) {tr_ms:.4f} ms  "
+                  f"({smi})")
+    mul_x = fns(sx["goldilocks"])[2]
+    rates = {"pallas (K8)": time_ms(lambda: mul(sa, sb)),
+             "xla": time_ms(lambda: mul_x(sa, sb))}
+    phase("sharded time", f"sharded mul deg {SH_N} P={SH_P} B={SH_B}: "
+          + ", ".join(f"{k} {v:.3f} ms = {SH_B / v * 1e3:.2f} mults/s"
+                      for k, v in rates.items()) + f"  ({smi})")
+    fs_ms, rad_ms = in_turns(lambda: fs["goldilocks"].mul(a, b),
+                             lambda: radix.mul(a, b))
+    phase("sharded time", f"mul deg {SH_N} B={SH_B}: fourstep_ctx() "
+          + ", ".join(f"{m:.3f} ms = {SH_B / m * 1e3:.2f} mults/s"
+                      for m in fs_ms) + "; GoldilocksKernelNTT "
+          + ", ".join(f"{m:.3f} ms = {SH_B / m * 1e3:.2f} mults/s"
+                      for m in rad_ms) + f" (in turns)  ({smi})")
+    ph = gl.make_phase_fns(mesh, batch_ndim=1)
+    pre_out = ph["pre"](sa)
+    ex_out = ph["exchange"](pre_out)
+    phase_ms = {"pre": time_ms(lambda: ph["pre"](sa)),
+                "exchange": time_ms(lambda: ph["exchange"](pre_out)),
+                "rows": time_ms(lambda: ph["rows"](ex_out)),
+                "forward": time_ms(lambda: ph["forward"](sa))}
+    phase("sharded time", f"make_phase_fns deg {SH_N} P={SH_P} B={SH_B}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in phase_ms.items())
+          + f"  ({smi})")
+
+    # -- 33. where the device time of one sharded mul goes ---------------------
+    busy_ms, wall_ms, top = device_profile(lambda: mul(sa, sb), 1, dev, 6)
+    phase("sharded profile", f"sharded mul deg {SH_N} P={SH_P} B={SH_B}: "
+          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled), "
+          f"idle share {1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
+
+    return [record(name, EXCHANGE_SOURCE, ref, launches[name], max_err[name],
+                   *times[name], ops_ms=ops_ms[name])
+            for name, ref in EXCHANGE_KERNELS.items()]
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -1535,6 +1894,29 @@ def modmul_peak(dev) -> tuple:
     return sms * ISSUE_PER_SM_CLOCK * mhz * 1e6 / per, per, mix, sms, mhz
 
 
+def k7_registers() -> dict:
+    """{(field ops, K or "wide"): (registers, local bytes)} of K7's round
+    kernels, from ``cuobjdump -res-usage`` on the built library."""
+    from stark_rings_tpu_torch.ops import _build
+
+    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-res-usage",
+                          str(_build.library_path())],
+                         capture_output=True, text=True, check=True).stdout
+    regs = {}
+    for fn, reg, local in re.findall(
+            r"Function (\S*sumcheck_round_\w+):\s*REG:(\d+)\s+STACK:\d+"
+            r"\s+SHARED:\d+\s+LOCAL:(\d+)", out):
+        ops = re.search(r"(Gl|Bb|Frog)Ops", fn).group(0)
+        k = re.search(r"Li(\d+)E", fn)
+        key = (ops, f"{int(k.group(1)):02d}" if k else "wide")
+        regs[key] = (int(reg), int(local))
+    if len(regs) != 27:
+        raise RuntimeError(f"expected K7's 27 round kernels (3 fields x K = "
+                           f"1..8 and wide) in the SASS, found {len(regs)}")
+    return regs
+
+
 def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1547,7 +1929,8 @@ def card_info() -> str:
 
 def main() -> None:
     if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE,
-                                               NTT_SOURCE, MXU_SOURCE)):
+                                               NTT_SOURCE, MXU_SOURCE,
+                                               EXCHANGE_SOURCE)):
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")
@@ -1742,6 +2125,7 @@ def main() -> None:
     records += slice_b(dev, smi, rng, gl)
     records += slice_c(dev, smi, rng)
     records += slice_ntt(dev, smi, rng, gl)
+    records += slice_sharded(dev, smi, rng)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ So far it holds the Goldilocks, BabyBear and frog fields, the
 power-of-two negacyclic rings over the first two (deg 2^16 Goldilocks
 and deg 2^12 BabyBear on the main paths), the Goldilocks MLE and
 sumcheck path, sumcheck over BabyBear and frog and over batched
-claims, and the single-device Goldilocks NTT engines (radix-2 and the
-deg-2^14 digit-product four-step):
+claims, the single-device Goldilocks NTT engines (radix-2 and the
+deg-2^14 digit-product four-step), and the sharded four-step NTT with
+its exchange kernel K8 (deg 2^20 on P shards of one card):
 
     fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
                   Montgomery), frog (int64 u64 Montgomery), get_field
@@ -29,11 +30,15 @@ deg-2^14 digit-product four-step):
                   (fix.py) and the one-pass prover K7 over all three
                   fields, one claim or a batch (sumcheck_kernel.py);
                   digit-GEMM evaluation (mxu_eval)
-    rings/        PowerRing / get_power_ring; the SHAKE-256 Fiat-Shamir
-                  Transcript
+    rings/        PowerRing / get_power_ring (mxu_ctx, fourstep_ctx); the
+                  SHAKE-256 Fiat-Shamir Transcript
+    parallel/     make_mesh (P shards on one card or one per card), the
+                  sharded four-step ShardedNTT and K8, the twiddle-fused
+                  exchange (wrappers + plain twins)
     examples/     the sumcheck protocol (prove / verify)
     csrc/         the CUDA kernels (built by nvcc at first use)
-    native/       the JAX-free loader of the C++ host oracle
+    native/       the JAX-free loader of the C++ host oracles (schoolbook
+                  multiplies, HostGoldilocks / HostRing NTTs)
 
 Storage is described in :mod:`.device`.  Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
@@ -50,6 +55,7 @@ from .ops.mxu_fused import MxuModMatFused
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
 from .ops.mxu_bb import MxuBBNTT
 from .ops.ntt import NTTContext, get_ntt
+from .parallel import Mesh, ShardedNTT, make_mesh
 from .rings.power import PowerRing, get_power_ring
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
@@ -58,4 +64,5 @@ __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
            "Mxu2NTT", "Mxu2FusedNTT", "Mxu2KernelNTT", "MxuBBNTT",
            "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
            "GoldilocksKernelNTT", "MatmulNTT", "MxuModMat", "MxuModMatFused",
-           "NTTContext", "get_ntt", "PowerRing", "get_power_ring"]
+           "NTTContext", "get_ntt", "PowerRing", "get_power_ring",
+           "Mesh", "make_mesh", "ShardedNTT"]

@@ -273,6 +273,78 @@ sumcheck_round_kernel(Tables<typename F::word> tb, int64_t in_claim,
     }
 }
 
+// n * d in the field by doubling (n >= 0): storage is linear, so the
+// field's add on storage words gives the storage of the multiple.
+template <class F>
+__device__ __forceinline__ typename F::word small_multiple(
+        typename F::word d, int n) {
+    typename F::word acc = 0;
+    for (; n; n >>= 1, d = F::add(d, d))
+        if (n & 1) acc = F::add(acc, d);
+    return acc;
+}
+
+// sumcheck_round_kernel for any number k of tables (the caller's route
+// for k > SC_MAX_K), with k read at run time: the table pointers are
+// device arrays, and the k+1 message sums go SC_WIDE_T at a time, each
+// group a pass over the block's entries that keeps SC_WIDE_T sums and
+// SC_WIDE_T products in registers, whatever k is.  The fold runs after
+// the last pass, since out[j] may be in[j].
+constexpr int SC_WIDE_T = 8;
+
+template <class F>
+__global__ void __launch_bounds__(SC_THREADS)
+sumcheck_round_wide_kernel(const typename F::word* const* __restrict__ in,
+                           typename F::word* const* __restrict__ out, int k,
+                           int64_t in_claim, int64_t out_claim, int64_t half,
+                           const typename F::word* __restrict__ chal,
+                           int round, int64_t row0, int64_t claim_rows,
+                           typename F::word* __restrict__ partials) {
+    using W = typename F::word;
+    __shared__ W sh[SC_THREADS / 32];
+    const int64_t w = blockIdx.y;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * SC_THREADS;
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * SC_THREADS
+                          + threadIdx.x;
+    W* row = partials + (w * claim_rows + row0 + blockIdx.x) * (k + 1);
+    for (int t0 = 0; t0 <= k; t0 += SC_WIDE_T) {
+        W acc[SC_WIDE_T];
+#pragma unroll
+        for (int u = 0; u < SC_WIDE_T; ++u) acc[u] = 0;
+        for (int64_t x = first; x < half; x += stride) {
+            W prod[SC_WIDE_T];
+            for (int j = 0; j < k; ++j) {
+                const W* tj = in[j] + w * in_claim;
+                const W lo = tj[x];
+                const W d = F::sub(tj[x + half], lo);
+                W cur = F::add(lo, small_multiple<F>(d, t0));
+#pragma unroll
+                for (int u = 0; u < SC_WIDE_T; ++u) {
+                    if (u) cur = F::add(cur, d);
+                    prod[u] = j ? F::mul(prod[u], cur) : cur;
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < SC_WIDE_T; ++u)
+                acc[u] = F::add(acc[u], prod[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < SC_WIDE_T; ++u) {
+            const W s = block_sum<F>(acc[u], sh);
+            if (threadIdx.x == 0 && t0 + u <= k) row[t0 + u] = s;
+        }
+    }
+    const W r = chal[round];
+    for (int64_t x = first; x < half; x += stride)
+        for (int j = 0; j < k; ++j) {
+            const W* tj = in[j] + w * in_claim;
+            const W lo = tj[x];
+            out[j][w * out_claim + x] = F::add(lo,
+                                               F::mul(r, F::sub(tj[x + half],
+                                                                lo)));
+        }
+}
+
 // msgs[w, round, t] = sum of that claim's and round's per-block partials;
 // one block per (round, claim).
 template <class F>
@@ -342,9 +414,29 @@ int sumcheck_round(const void* ins, const void* outs, int k, int claims,
 }
 
 template <class F>
+int sumcheck_round_wide(const void* ins, const void* outs, int k, int claims,
+                        int64_t in_claim, int64_t out_claim, int64_t half,
+                        const void* chal, int round, int rounds,
+                        void* partials, cudaStream_t s) {
+    if (k < 1 || half < 1 || claims < 1 || claims > SC_MAX_CLAIMS
+            || round < 0 || round >= rounds || round > 62
+            || half > (INT64_MAX >> round))
+        return static_cast<int>(cudaErrorInvalidValue);
+    using W = typename F::word;
+    const int64_t half0 = half << round;
+    sumcheck_round_wide_kernel<F><<<dim3(sc_blocks(half), claims),
+                                    SC_THREADS, 0, s>>>(
+        static_cast<const W* const*>(ins), static_cast<W* const*>(outs), k,
+        in_claim, out_claim, half, static_cast<const W*>(chal), round,
+        sc_rows(half0, round), sc_rows(half0, rounds),
+        static_cast<W*>(partials));
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <class F>
 int sumcheck_reduce(const void* partials, void* msgs, int k1, int rounds,
                     int claims, int64_t half0, cudaStream_t s) {
-    if (k1 < 2 || k1 > SC_MAX_K + 1 || rounds < 1 || claims < 1
+    if (k1 < 2 || rounds < 1 || claims < 1
             || claims > SC_MAX_CLAIMS || half0 < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     using W = typename F::word;
@@ -406,6 +498,8 @@ extern "C" int64_t srt_sumcheck_partial_rows(int64_t half0, int rounds,
 //     w*out_claim words further; partials holds
 //     srt_sumcheck_partial_rows(half << round, rounds, claims) rows of
 //     k+1 words of the field.
+//   srt_sumcheck_round_wide_<field>: the same round for any k >= 1, with
+//     `ins` / `outs` device arrays of k device pointers.
 //   srt_sumcheck_reduce_<field>: msgs [claims, rounds, k1] words from the
 //     partials of rounds whose halves are half0, half0/2, ...
 #define SC_ENTRIES(NAME, OPS)                                                \
@@ -418,6 +512,16 @@ extern "C" int64_t srt_sumcheck_partial_rows(int64_t half0, int rounds,
                                    out_claim, half, chal, round, rounds,     \
                                    partials,                                 \
                                    static_cast<cudaStream_t>(stream));       \
+    }                                                                        \
+    extern "C" int srt_sumcheck_round_wide_##NAME(                           \
+            const void* ins, const void* outs, int k, int claims,            \
+            int64_t in_claim, int64_t out_claim, int64_t half,               \
+            const void* chal, int round, int rounds, void* partials,         \
+            void* stream) {                                                  \
+        return sumcheck_round_wide<OPS>(ins, outs, k, claims, in_claim,      \
+                                        out_claim, half, chal, round,        \
+                                        rounds, partials,                    \
+                                        static_cast<cudaStream_t>(stream));  \
     }                                                                        \
     extern "C" int srt_sumcheck_reduce_##NAME(                               \
             const void* partials, void* msgs, int k1, int rounds,            \

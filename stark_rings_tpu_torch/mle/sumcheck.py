@@ -113,11 +113,19 @@ def sumcheck_prove_many_with_challenges(f, tables, challenges,
                                         order: str = "lsb"):
     """k-ary product prover for known challenges: (msgs [nv, k+1],
     finals), the per-round messages p(0..k) and each table's fully bound
-    value (a list of k scalars)."""
+    value (a list of k scalars).  Axes after the first are carried
+    along: tables [2^nv, W] prove W claims at once (msgs [nv, k+1, W]).
+    With no challenge (nv = 0) the messages are an empty [0, k+1, ...]
+    tensor and the finals the tables' single entries; the reference's
+    ``jnp.stack`` of no rounds raises there."""
     msgs = []
     for r in challenges:
         round_msgs, t0s, deltas = sumcheck_round_many(f, tables,
                                                       order=order)
         tables = sumcheck_fold_many(f, r, t0s, deltas)
         msgs.append(torch.stack(round_msgs))
+    if not msgs:
+        return (tables[0].new_empty((0, len(tables) + 1)
+                                    + tuple(tables[0].shape[1:])),
+                [T[0] for T in tables])
     return torch.stack(msgs), [T[0] for T in tables]

@@ -120,16 +120,24 @@ def kernels() -> ctypes.CDLL:
     sumcheck = []
     for field in ("goldilocks", "babybear", "frog"):
         rnd = getattr(lib, f"srt_sumcheck_round_{field}")
+        wide = getattr(lib, f"srt_sumcheck_round_wide_{field}")
         red = getattr(lib, f"srt_sumcheck_reduce_{field}")
         rnd.argtypes = [p, p, i32, i32, i64, i64, i64, p, i32, i32, p, p]
+        wide.argtypes = rnd.argtypes
         red.argtypes = [p, p, i32, i32, i32, i64, p]
-        sumcheck += [rnd, red]
+        sumcheck += [rnd, wide, red]
+    exchange = []
+    for field in ("goldilocks", "babybear"):
+        fn = getattr(lib, f"srt_twiddle_exchange_{field}")
+        fn.argtypes = [p, p, p, i32, i64, i32, i32, i32, i32, p]
+        exchange.append(fn)
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_pointwise_chain,
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
                lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
-               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top, *sumcheck):
+               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top, *sumcheck,
+               *exchange):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p

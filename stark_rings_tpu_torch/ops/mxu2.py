@@ -38,11 +38,12 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ..device import get_device, to_torch, to_torch_u32
+from ..device import get_device, to_numpy_u64, to_torch, to_torch_u32
 from ..fields.field import GOLDILOCKS, MASK32, shr
 from .ntt import find_primitive_root
 
-__all__ = ["Mxu2NTT", "PrescaledMat", "from_jax_consts", "BIAS_MOD_Q"]
+__all__ = ["Mxu2NTT", "PrescaledMat", "from_jax_consts", "digit_table",
+           "BIAS_MOD_Q"]
 
 _f = GOLDILOCKS
 _Q = _f.q
@@ -89,6 +90,16 @@ def _mm(a, b):
     return torch._int_mm(a, bt.t())[:m, :n]
 
 
+def _mulmod(m: np.ndarray, c: int, q: int) -> np.ndarray:
+    """(m * c) mod q for a uint64 array m of values below q: numpy words
+    for q < 2^32, the Goldilocks field's product otherwise."""
+    if q < 1 << 32:
+        return m * np.uint64(c) % np.uint64(q)
+    if q != _Q:
+        raise ValueError(f"no 64-bit product mod {q}")
+    return to_numpy_u64(_f.mul(to_torch(m, "cpu"), _f.const(c, "cpu")))
+
+
 class PrescaledMat:
     """Constant [R, C] matrix over the field ``F`` with pre-scaled 8-bit
     digit planes.
@@ -108,7 +119,7 @@ class PrescaledMat:
 
     def __init__(self, m_ints, unsigned: bool = True):
         q = self.F.q
-        m = np.asarray(m_ints, dtype=object)
+        m = (np.asarray(m_ints, dtype=object) % q).astype(np.uint64)
         R, C = m.shape
         self.R, self.C = R, C
         self.unsigned = unsigned
@@ -126,7 +137,7 @@ class PrescaledMat:
             big = np.zeros((K * R, P * C), dtype=np.int8)
         for l in range(P):
             scale = pow(2, self.d_bits * l, q) * self.SCALE % q
-            v = ((m * scale) % q).astype(np.uint64)
+            v = _mulmod(m, scale, q)
             cols = slice(l * C, (l + 1) * C)
             if unsigned:
                 for k in range(K):
@@ -235,6 +246,27 @@ class PrescaledMat:
         return _f.sub(acc, BIAS_MOD_Q)
 
 
+def digit_table(big, device, what: str = "digit table"):
+    """One matrix's ``big`` digit planes (uint8 or int8 numpy) -> its
+    device table for :meth:`PrescaledMat.dot` and, for the unsigned
+    scheme, the offset correction (else None); see
+    :func:`from_jax_consts`."""
+    big = np.asarray(big)
+    dev = get_device(device)
+    if big.dtype == np.uint8:
+        ws = (big ^ np.uint8(0x80)).view(np.int8)
+        corr = (128 * ws.sum(axis=1, dtype=np.int64)
+                + 128 * 128 * big.shape[1]).astype(np.int32)
+        extra = np.zeros((8, big.shape[1]), dtype=np.int8)
+        extra[0] = 1
+        return (torch.from_numpy(np.concatenate([ws, extra])).to(dev),
+                torch.from_numpy(corr[:, None]).to(dev))
+    if big.dtype == np.int8:
+        return torch.from_numpy(big.copy()).to(dev), None
+    raise TypeError(f"{what}: expected a uint8 or int8 digit table, got "
+                    f"{big.dtype}")
+
+
 def from_jax_consts(consts: dict, device) -> dict[str, torch.Tensor]:
     """The reference's (or :meth:`Mxu2NTT.consts`') numpy tables ->
     the port's device tables.
@@ -253,20 +285,10 @@ def from_jax_consts(consts: dict, device) -> dict[str, torch.Tensor]:
     dev = get_device(device)
     out = {}
     for key in _WEIGHT_KEYS:
-        big = np.asarray(consts[key])
-        if big.dtype == np.uint8:
-            ws = (big ^ np.uint8(0x80)).view(np.int8)
-            corr = (128 * ws.sum(axis=1, dtype=np.int64)
-                    + 128 * 128 * big.shape[1]).astype(np.int32)
-            extra = np.zeros((8, big.shape[1]), dtype=np.int8)
-            extra[0] = 1
-            out[key] = torch.from_numpy(np.concatenate([ws, extra])).to(dev)
-            out[key + "_corr"] = torch.from_numpy(corr[:, None]).to(dev)
-        elif big.dtype == np.int8:
-            out[key] = torch.from_numpy(big.copy()).to(dev)
-        else:
-            raise TypeError(f"{key}: expected a uint8 or int8 digit table, "
-                            f"got {big.dtype}")
+        w, corr = digit_table(consts[key], dev, key)
+        out[key] = w
+        if corr is not None:
+            out[key + "_corr"] = corr
     for key in ("tw", "twi"):
         tab = np.asarray(consts[key])
         if tab.dtype == np.uint64:

@@ -8,11 +8,14 @@ Montgomery) on the ring's device, which is the CUDA card unless the
 caller passes ``device="cpu"``.  ``mxu_ctx()`` is the production-rate
 multiplier: the digit-GEMM engines with their hand-written kernels.
 
-Not ported yet: ``fourstep_ctx`` (the single-chip four-step of
-``parallel/ntt.py``) and the stark_prime ring.
+``fourstep_ctx()`` is the single-device four-step of
+``parallel/ntt.py`` on flat [..., N] tensors.  Not ported yet: the
+stark_prime ring.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -21,7 +24,16 @@ from ..device import get_device
 from ..fields import get_field
 from ..ops.ntt import NTTContext
 
-__all__ = ["PowerRing", "get_power_ring"]
+__all__ = ["PowerRing", "get_power_ring", "FourStep"]
+
+
+class FourStep(NamedTuple):
+    """``PowerRing.fourstep_ctx()``: three functions on flat [..., N]
+    storage tensors."""
+
+    forward: Callable
+    inverse: Callable
+    mul: Callable
 
 
 class PowerRing:
@@ -44,6 +56,7 @@ class PowerRing:
         self.ctx = NTTContext(self.field, self.D, negacyclic=True,
                               device=self.device)
         self._mxu = {}
+        self._fourstep = None
 
     # -- conversions ------------------------------------------------------
     def encode_coeffs(self, ints):
@@ -137,6 +150,27 @@ class PowerRing:
                 from ..ops.mxu2 import Mxu2NTT as engine
             self._mxu[pallas] = engine(self.D, device=self.device)
         return self._mxu[pallas]
+
+    def fourstep_ctx(self) -> FourStep:
+        """The single-device four-step multiplier
+        (``ShardedNTT(single_chip=True)``), built on first use:
+        (forward, inverse, mul) on flat [..., N] storage tensors.  ``mul``
+        is bit-equal to :meth:`coeff_mul`.  forward / inverse are a
+        self-consistent evaluation pair whose slot order differs from
+        :meth:`crt`'s leaf order: combine slots only from one engine,
+        compare coefficients across engines."""
+        if self._fourstep is None:
+            from ..parallel.ntt import ShardedNTT
+
+            sn = ShardedNTT(self.field.name, self.D, 1, single_chip=True,
+                            device=self.device)
+            fwd_m, inv_m, mul_m = sn.make_single_chip_fns()
+            self._fourstep = FourStep(
+                lambda x: sn.from_matrix(fwd_m(sn.to_matrix(x))),
+                lambda x: sn.from_matrix(inv_m(sn.to_matrix(x))),
+                lambda a, b: sn.from_matrix(mul_m(sn.to_matrix(a),
+                                                  sn.to_matrix(b))))
+        return self._fourstep
 
     def ntt_pow(self, a, e: int):
         """Slotwise pow on the NTT form (square and multiply)."""

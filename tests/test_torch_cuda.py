@@ -220,14 +220,19 @@ def test_wrappers_reject_mixed_devices(dev):
 
 
 def test_kernels_raise_without_variables(dev):
-    """A one-entry table has no variable to bind: on the card the
-    wrappers raise rather than answer without a launch."""
+    """A one-entry table has no variable to bind: on the card K5 raises
+    rather than answer without a launch, and K7's wrapper returns the
+    empty proof with no launch."""
     T = torch.zeros(1, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="nv >= 1"):
         FX.evaluate_goldilocks(T, [])
-    with pytest.raises(ValueError, match="at least one challenge"):
-        SK.sumcheck_prove_many([T, T], torch.empty(0, dtype=torch.int64,
-                                                   device=dev))
+    name = "sumcheck_prove_many_goldilocks"
+    before = SK.LAUNCHES[name]
+    msgs, finals = SK.sumcheck_prove_many(
+        [T, T], torch.empty(0, dtype=torch.int64, device=dev))
+    assert SK.LAUNCHES[name] == before
+    assert msgs.shape == (0, 3) and msgs.device == T.device
+    assert [x.item() for x in finals] == [0, 0]
 
 
 def _tables(rng, nv, kind):
@@ -408,9 +413,94 @@ def test_sumcheck_batch_many_claims(dev):
         m, fs = SK.sumcheck_prove_many([T[w] for T in tables], chal)
         assert torch.equal(msgs[w], m), w
         assert all(torch.equal(x[w], y) for x, y in zip(finals, fs))
-    with pytest.raises(ValueError, match="65535"):
-        SK.sumcheck_prove_batch_goldilocks(
-            [f.zeros((W + 1, 2), dev)] * 2, chal[:1])
+    with pytest.raises(ValueError, match="W >= 1"):
+        SK.sumcheck_prove_batch_goldilocks([f.zeros((0, 2), dev)] * 2,
+                                           chal[:1])
+
+
+# -- K7's card limits: the inputs the reference proves -------------------------
+
+
+@pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
+def test_sumcheck_nine_tables_on_card(dev, field):
+    """k = 9 tables at nv = 12, beyond the register kernel's 8: the
+    run-time-k round kernel, nv + 1 launches, equal to the twin."""
+    f = get_field(field)
+    rng = np.random.default_rng(9)
+    tables = [f.rand((1 << 12,), rng, dev) for _ in range(9)]
+    chal = f.rand((12,), rng, dev)
+    name = f"sumcheck_prove_many_{field}"
+    before = SK.LAUNCHES[name]
+    msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + 12 + 1
+    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
+    assert msgs.is_cuda and torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv,k,W", [(1, 9, 1), (4, 16, 3), (11, 17, 1),
+                                    (13, 24, 2)])
+@pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
+def test_sumcheck_wide_kernel_matches_twin(dev, field, nv, k, W, kind):
+    """The run-time-k round kernel at k = 9, 16, 17 and 24 (one, two and
+    four passes of 8 sums; k + 1 = 17 leaves a pass with one sum), W
+    claims on the grid's second axis, against the twin."""
+    f = get_field(field)
+    rng = np.random.default_rng(nv * 100 + k)
+    tables = [_field_tables(f, rng, (W, 1 << nv), kind, dev)
+              for _ in range(k)]
+    chal = f.rand((nv,), rng, dev)
+    name = f"sumcheck_prove_many_{field}"
+    before = SK.LAUNCHES[name]
+    msgs, finals = _claims(f, tables, chal)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + nv + 1
+    for w in range(W):
+        want_m, want_f = SK.sumcheck_prove_many_ref([T[w] for T in tables],
+                                                    chal, field)
+        assert torch.equal(msgs[w], want_m), w
+        assert all(torch.equal(x[w], y) for x, y in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("k", [1, 2, 9])
+def test_sumcheck_no_variables_on_card(dev, k):
+    """nv = 0: the empty proof, equal to the twin, for one claim and a
+    batch, with no launch."""
+    f = get_field("goldilocks")
+    rng = np.random.default_rng(k)
+    tables = [f.rand((1,), rng, dev) for _ in range(k)]
+    chal = torch.empty(0, dtype=torch.int64, device=dev)
+    before = dict(SK.LAUNCHES)
+    msgs, finals = SK.sumcheck_prove_many(tables, chal)
+    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal)
+    assert msgs.shape == (0, k + 1) and torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+    batch = [f.rand((3, 1), rng, dev) for _ in range(k)]
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(batch, chal)
+    want_m, want_f = SK.sumcheck_prove_batch_ref(batch, chal)
+    assert msgs.shape == (3, 0, k + 1) and torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+    assert SK.LAUNCHES == before
+
+
+def test_sumcheck_batch_over_one_launch(dev):
+    """W = 65,536 claims at nv = 1, one more than a launch takes: two
+    chunks of nv + 1 launches, equal to the twin on every claim."""
+    f = get_field("goldilocks")
+    W, nv = 65536, 1
+    rng = np.random.default_rng(W)
+    tables = [f.rand((W, 1 << nv), rng, dev) for _ in range(2)]
+    chal = f.rand((nv,), rng, dev)
+    before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
+    msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] \
+        == before + 2 * (nv + 1)
+    want_m, want_f = SK.sumcheck_prove_batch_ref(tables, chal)
+    assert msgs.shape == (W, nv, 3) and torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
 
 
 def _claims(f, tables, r):
@@ -642,3 +732,94 @@ def test_new_wrappers_raise_on_refused_inputs(dev, monkeypatch):
         with pytest.raises(exc):
             call()
     assert (dict(K.LAUNCHES), dict(G.LAUNCHES), dict(MF.LAUNCHES)) == before
+
+
+# -- K8, the sharded four-step's exchange, and the sharded NTT ---------------
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+@pytest.mark.parametrize("field", ["goldilocks", "babybear"])
+def test_exchange_kernel_matches_twin(dev, field, P, batch):
+    """K8 forward and inverse against their twins on P shards of one
+    card, batched and batchless, with the words 0 and q-1 among the
+    inputs."""
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    f = get_field(field)
+    N1, N2 = 32, 64
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(P)
+    edge = f.encode([0, f.q - 1], dev)
+    for inverse in (False, True):
+        rows, cols = (N1 // P, N2) if inverse else (N1, N2 // P)
+        xs = [f.rand(lead + (rows, cols), rng, dev) for _ in range(P)]
+        tws = [f.rand((rows, cols), rng, dev) for _ in range(P)]
+        xs[0].view(-1)[:2], tws[-1].view(-1)[:2] = edge, edge.flip(0)
+        kern = EX.twiddle_exchange_inv if inverse else EX.twiddle_exchange_fwd
+        twin = EX.twiddle_exchange_inv_ref if inverse \
+            else EX.twiddle_exchange_fwd_ref
+        name = f"twiddle_exchange_{'inv' if inverse else 'fwd'}_{field}"
+        before = EX.LAUNCHES[name]
+        got = kern(xs, tws, field)
+        torch.cuda.synchronize()
+        assert EX.LAUNCHES[name] == before + 1
+        want = twin(xs, tws, field)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), inverse
+
+
+def test_exchange_kernel_raises_on_refused_shards(dev, monkeypatch):
+    """Card shards K8 does not take raise, and no twin runs."""
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    def no_twin(*args, **kw):
+        raise AssertionError("a twin ran on CUDA shards")
+
+    monkeypatch.setattr(EX, "twiddle_exchange_fwd_ref", no_twin)
+    f = get_field("goldilocks")
+    x = f.zeros((8, 8), dev)
+    before = dict(EX.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        EX.twiddle_exchange_fwd([x.t(), x], [x, x], "goldilocks")
+    with pytest.raises(ValueError, match="power of two"):
+        EX.twiddle_exchange_fwd([f.zeros((12, 8), dev)] * 2,
+                                [f.zeros((12, 8), dev)] * 2, "goldilocks")
+    with pytest.raises(ValueError, match="all on the CPU or all on CUDA"):
+        EX.twiddle_exchange_fwd([x, x.cpu()], [x, x], "goldilocks")
+    assert dict(EX.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("field", ["goldilocks", "babybear"])
+def test_sharded_mul_on_card(dev, field):
+    """ShardedNTT(exchange="pallas") on 8 shards of the card: K8 runs 3
+    times per mul (2 per mul_cached and square), and every product equals
+    the "xla" route, fourstep_ctx and the radix NTTContext."""
+    from stark_rings_tpu_torch import ShardedNTT, make_mesh
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    f = get_field(field)
+    N, P = 1 << 12, 8
+    mesh = make_mesh(P, device=dev)
+    rng = np.random.default_rng(12)
+    a, b = f.rand((2, N), rng, dev), f.rand((2, N), rng, dev)
+    outs = {}
+    for exchange in ("xla", "pallas"):
+        sn = ShardedNTT(field, N, P, exchange=exchange)
+        cspec, _ = sn.shard_specs(1)
+        sa = sn.shard(sn.to_matrix(a), cspec, mesh)
+        sb = sn.shard(sn.to_matrix(b), cspec, mesh)
+        _, _, mul = sn.make_fns(mesh, batch_ndim=1)
+        pre, mul_cached, square = sn.make_cached_fns(mesh, batch_ndim=1)
+        EX.reset_launches()
+        outs[exchange] = [sn.from_matrix(sn.gather(x, cspec, dev)) for x in (
+            mul(sa, sb), mul_cached(sa, pre(sb)), square(sa))]
+        torch.cuda.synchronize()
+        n = sum(EX.LAUNCHES.values())
+        assert n == (0 if exchange == "xla" else 3 + 3 + 2), n
+    ring = get_power_ring(field, 12, device=dev)
+    want = ring.coeff_mul(a, b)
+    assert torch.equal(outs["pallas"][0], want)
+    assert torch.equal(ring.fourstep_ctx().mul(a, b), want)
+    assert torch.equal(outs["pallas"][2], ring.coeff_square(a))
+    for got, ref in zip(outs["pallas"], outs["xla"]):
+        assert torch.equal(got, ref)

@@ -36,6 +36,10 @@ import stark_rings_tpu_torch.ops.ntt
 import stark_rings_tpu_torch.ops._build
 import stark_rings_tpu_torch.rings.power
 import stark_rings_tpu_torch.native.host
+import stark_rings_tpu_torch.parallel
+import stark_rings_tpu_torch.parallel.exchange
+import stark_rings_tpu_torch.parallel.mesh
+import stark_rings_tpu_torch.parallel.ntt
 import stark_rings_tpu_torch.linalg
 import stark_rings_tpu_torch.mle
 import stark_rings_tpu_torch.mle.fix
@@ -70,6 +74,18 @@ plain = ops.mxu.MxuModMat([[1, 2], [3, 4]], device="cpu")
 assert (m.apply(x[:, :5]) == plain.apply(x[:, :5])).all()
 assert (ops.fold.pointwise_chain(x, x, 2) == ops.fold.pointwise_chain_ref(
     x, x, 2)).all()
+par = stark_rings_tpu_torch.parallel
+for field in ("goldilocks", "babybear"):
+    sn = par.ShardedNTT(field, 256, 4, exchange="pallas")
+    mesh = par.make_mesh(4, device="cpu")
+    cspec, _ = sn.shard_specs(1)
+    f = stark_rings_tpu_torch.get_field(field)
+    a = f.rand((2, 256), np.random.default_rng(1), "cpu")
+    got = sn.gather(sn.make_fns(mesh, batch_ndim=1)[2](
+        sn.shard(sn.to_matrix(a), cspec, mesh),
+        sn.shard(sn.to_matrix(a), cspec, mesh)), cspec, "cpu")
+    want = stark_rings_tpu_torch.get_power_ring(field, 8, device="cpu")
+    assert (sn.from_matrix(got) == want.coeff_square(a)).all()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked
