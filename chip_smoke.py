@@ -65,8 +65,8 @@ Phases, one line each:
   8. mle parity: K5, K6 and K7 against their plain twins on the card, bit
      for bit, on tables of zeros, of q-1 and of random values: K5 at
      nv = 4, 11, 20 and 24, K6 at nv = 20 for k in {1, 7, 13}, K7 (twin:
-     the generic msb prover) at nv = 4, 11 and 20 for k = 2 and 3 and at
-     nv = 24 for k = 2;
+     the generic msb prover; one cooperative launch a proof) at nv = 4,
+     11 and 20 for k = 2 and 3 and at nv = 24 for k = 2;
   9. mle path: the Fiat-Shamir proof at nv = 20 (plain rounds, real
      transcript) verifies with K5 in its final check, a proof with one
      message changed is rejected, K7 on the bit-reversed tables with the
@@ -77,16 +77,21 @@ Phases, one line each:
      fix_last_variables_mxu;
  10. mle oracle: K5 at nv = 20 equals a Python-int evaluation of the same
      table, computed on a host thread;
- 11. mle launch counts of phase 9 (K5, K6 and K7 must each have run);
+ 11. mle launch counts of phase 9 (K5, K6 and K7 must each have run;
+     the path's one K7 proof is one launch);
  12. mle timings (CUDA events, median of 10 after warm-up): each kernel
      against its twin, proofs/s of K7 (nv = 20, k = 2), evaluations/s at
      nv = 20 through K5, DenseMLE.evaluate and evaluate_goldilocks_mxu;
  13. mle profile: device busy time against wall time of one K7 proof,
-     one K5 evaluation and one Fiat-Shamir prove (torch.profiler);
+     one K5 evaluation and one Fiat-Shamir prove (torch.profiler); per
+     K7 proof its wall time (CUDA events), busy time and launches;
  14. power-ring kernel parity: the K4 kernels against their twins, bit
      for bit, at B = 4096 (unsigned) and B = 256 (signed), on buckets
      from the real GEMM, at the bucket bound and over the whole int32
-     range; K1 untransposed and K3 at R = 256 (deg 2^16) and R = 512
+     range; the tiled transposed bb_fold_tw also at R and t off its
+     32 x 64 tile in both schemes (the tw and twi buckets of deg 2^10,
+     2^11 and 2^14 rings, deg 2^6's 8 x 8 twiddles, a raw 100 x 72
+     table); K1 untransposed and K3 at R = 256 (deg 2^16) and R = 512
      (deg 2^18); the slot-product kernel on [80, 2^16] and on a length
      that is not a multiple of its block;
  15. power-ring path, launches counted: BabyBear mxu_ctx() mul,
@@ -116,19 +121,23 @@ Phases, one line each:
      card limits: 9 tables at nv = 12 (the run-time-k round kernel, 13
      launches) and nv = 0 (the empty proof, no launch) against the
      generic prover, and a W = 65,536,
-     nv = 1 batch (two chunks of claims) against its twin;
+     nv = 1 batch (two chunks of claims, one launch each) against its
+     twin; the persistent kernel at nv = 20 for k = 1..8 over the three
+     fields, one launch each, with its registers, spills, grid and
+     resident blocks an SM;
  20. fields path, launches counted: per field an nv = 20 Fiat-Shamir
      proof (real transcript) verified through DenseMLE.evaluate, a
      tampered one rejected, and K7 on the bit-reversed tables
      reproducing it; the W = 4 batch equal to 4 single K7 proofs;
- 21. launch counts of phase 20 (each kernel must have run; the batch is
-     nv + 1 launches);
+ 21. launch counts of phase 20 (each kernel must have run; each proof,
+     and the batch, is one launch);
  22. timings (CUDA events, median of 10 after warm-up): K7 over each
      field at nv = 20 for k = 2 (against its twin) and k = 3, proofs/s
      and memory floors; the batch against its twin, and against 4 single
      proofs in turns;
  23. profile: device busy time against wall time of one call of each of
-     the three kernels (torch.profiler);
+     the three kernels (torch.profiler); per field and for the batch the
+     proof's wall time (CUDA events), busy time and launches;
  24. engine parity: ntt_stage (both directions, with and without 1/N) and
      ntt_tile (forward, inverse, mul_eval) at N = 2^16, B = 80, the
      one-launch mul at N = 2^10, pointwise_chain (depth 16 and 0, a
@@ -227,6 +236,9 @@ MLE_KERNELS = {
 BB_LOG = 12         # BASELINE config 2: BabyBear deg 2^12 ...
 BB_B = 4096         # ... at the batch the reference measures (bench.py:678)
 BB_B_SIGNED = 256
+BB_RAGGED = ((10, 256), (11, 128), (14, 64))  # (log deg, B): tiles off 64
+BB_TABLE_LOG = 6    # an 8 x 8 twiddle table, on random buckets
+BB_RAW = (100, 72, 33)  # R, t, B: ragged edges on both axes
 GL_BIG_LOG = 18     # the big-degree point of the Goldilocks power ring
 GL_BIG_B = 16
 BB_SOURCE = "stark_rings_tpu_torch/csrc/fold_bb.cu"
@@ -502,6 +514,61 @@ def kernel_parity(e, Bx, label, mod, prefix, rng, max_err):
     return V1, V2i, V1i, Va, Vb, Vc
 
 
+def tw_ragged_parity(dev, rng, max_err) -> None:
+    """The tiled transposed ``bb_fold_tw`` (32 x 64 tiles) at R and t off
+    the tile, in both schemes, against its twin: the level-1 (tw) and
+    inverse level-2 (twi) buckets of BabyBear rings of deg 2^10, 2^11
+    and 2^14 from their real GEMMs, at the bucket bound and over the
+    whole int32 range; deg 2^6's 8 x 8 twiddles and a raw [100, 72]
+    twiddle table on full-range buckets."""
+    import torch
+
+    from stark_rings_tpu_torch import BABYBEAR as FB, MxuBBFusedNTT
+    from stark_rings_tpu_torch.ops import fold_bb as KB
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def full(rows, cols):
+        return torch.randint(-2**31, 2**31, (rows, cols), generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    cases = []
+    for unsigned in (True, False):
+        s, K = not unsigned, 4 if unsigned else 5
+        for log, Bx in BB_RAGGED:
+            e = MxuBBFusedNTT(1 << log, unsigned=unsigned, device=dev)
+            V1 = e._dot(e.mat1, e._to_internal(FB.rand((Bx, e.N), rng, dev)),
+                        e.c, "w1")
+            V2i = e._dot(e.mat2i, FB.rand((e.mat2i.C, Bx, e.N1), rng, dev),
+                         e.c, "w2i")
+            bound = (1 << 26) - 1 if s else (1 << 27) - 1
+            R = e.mat1.R
+            cases += [(f"deg 2^{log} tw", V1, e.c["tw"], R, s),
+                      (f"deg 2^{log} twi", V2i, e.c["twi"], e.mat2i.R, s),
+                      (f"deg 2^{log} bound", torch.full_like(V1, bound),
+                       e.c["tw"], R, s),
+                      (f"deg 2^{log} int32", full(*V1.shape), e.c["tw"], R,
+                       s)]
+        small = MxuBBFusedNTT(1 << BB_TABLE_LOG, unsigned=unsigned,
+                              device=dev)
+        R, t = small.c["tw"].shape
+        cases.append((f"deg 2^{BB_TABLE_LOG} tw int32", full(K * R, 4096 * t),
+                      small.c["tw"], R, s))
+        R, t, Bx = BB_RAW
+        cases.append((f"raw R={R} t={t} int32", full(K * R, Bx * t),
+                      FB.rand((R, t), rng, dev), R, s))
+    for what, V, tw, R, s in cases:
+        kw = {"transpose_out": True, "signed": s}
+        check(max_err, "bb_fold_tw", KB.bb_fold_tw(V, tw, R, **kw),
+              KB.bb_fold_tw_ref(V, tw, R, **kw),
+              f"{what} {'signed' if s else 'unsigned'}")
+    torch.cuda.synchronize()
+    phase("parity", f"tiled bb_fold_tw: {len(cases)} cases off the 32 x 64 "
+          "tile (deg 2^10, 2^11, 2^14 GEMM buckets, bound and int32; deg "
+          f"2^{BB_TABLE_LOG}'s 8 x 8 and a raw {BB_RAW[0]} x {BB_RAW[1]} "
+          "table; both schemes) bit-equal to the twin")
+
+
 def py_evaluate(table, points, q) -> int:
     """Multilinear evaluation in Python ints, variable 0 first."""
     vals = table.tolist()
@@ -521,6 +588,27 @@ def py_lagrange(ys, x, q) -> int:
                 den = den * (i - j) % q
         acc = (acc + y * num * pow(den, q - 2, q)) % q
     return acc
+
+
+def k7_summary(label, wall_ms, busy_ms, fn, smi) -> None:
+    """One line per K7 proof: its wall time (CUDA events), its device
+    busy time (torch.profiler), its launches (one call of ``fn``,
+    counted) and the cooperative grid."""
+    import torch
+
+    from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+
+    before = sum(SK.LAUNCHES.values())
+    fn()
+    torch.cuda.synchronize()
+    launches = sum(SK.LAUNCHES.values()) - before
+    grid = ", ".join(f"{k.removeprefix('sumcheck_prove_')} {g} blocks "
+                     f"({b}/SM)" for k, (g, b) in SK.LAST_GRID.items())
+    busy = (f"busy {busy_ms:.4f} ms (profiler)" if busy_ms else
+            "busy not measured (the profiler recorded no kernel)")
+    phase("k7", f"{label} nv={NV} k=2: wall {wall_ms:.4f} ms (CUDA events), "
+          f"{busy}, {launches} launch(es) a proof; grids so far: {grid}  "
+          f"({smi})")
 
 
 def slice_e(dev, smi, rng) -> list:
@@ -678,6 +766,9 @@ def slice_e(dev, smi, rng) -> list:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
+    if launches["sumcheck_prove_many_goldilocks"] != 1:
+        raise AssertionError("the path's one K7 proof took other than one "
+                             "launch")
 
     # -- 12. timings --------------------------------------------------------
     G20, H20 = F.rand((1 << NV,), rng, dev), F.rand((1 << NV,), rng, dev)
@@ -736,7 +827,7 @@ def slice_e(dev, smi, rng) -> list:
 
     # -- 13. where the device time of the slice's calls goes ----------------
     calls = [
-        ("K7 nv=20 k=2", 3,
+        ("K7 nv=20 k=2", 10,
          lambda: SK.sumcheck_prove_many_goldilocks([G20, H20], c20)),
         ("K5 nv=20", 3, lambda: FX.evaluate_goldilocks(T20, p20)),
         ("prove nv=20", 1, lambda: example.prove(
@@ -747,6 +838,8 @@ def slice_e(dev, smi, rng) -> list:
         phase("mle profile", f"{label}: device busy {busy_ms:.4f} ms of "
               f"{wall_ms:.4f} ms wall (profiled), idle share "
               f"{1 - busy_ms / wall_ms:.3f}; {top}  ({smi})")
+        if label.startswith("K7"):
+            k7_summary("goldilocks", k7_ms, busy_ms, fn, smi)
 
     return [record(name, MLE_SOURCE, MLE_KERNELS[name], launches[name],
                    max_err[name], *times[name]) for name in MLE_KERNELS]
@@ -791,6 +884,7 @@ def slice_b(dev, smi, rng, gl) -> list:
                         rng, max_err)
     kernel_parity(bb_signed, BB_B_SIGNED, f"babybear signed B={BB_B_SIGNED}",
                   KB, "bb_", rng, max_err)
+    tw_ragged_parity(dev, rng, max_err)
 
     def whole_array_parity(e, Bx):
         """K1 untransposed and K3 as mxu_ctx() runs them, on buckets from
@@ -1159,18 +1253,49 @@ def slice_c(dev, smi, rng) -> list:
     check(max_err, rec, msgs, want_m, what)
     check(max_err, rec, torch.stack(finals), torch.stack(want_f),
           what + " finals")
-    if over != 4:
-        raise AssertionError(f"{what}: {over} launches, not 2 chunks of 2")
+    if over != 2:
+        raise AssertionError(f"{what}: {over} launches, not 2 chunks of 1")
     torch.cuda.synchronize()
     phase("fields parity", f"K7's card limits: k=9 at nv={SC_NV_K9} on the "
           f"run-time-k round kernel ({SC_NV_K9 + 1} launches) and nv=0 (the "
           f"empty proof, no launch) equal the generic prover; the "
           f"W={SC_W_OVER}, nv=1 batch equals its twin in {over} launches "
-          f"(2 chunks)")
-    phase("fields parity", "K7 round kernels' registers a thread (ptxas, "
-          "from the built library; spill = local bytes): " + "; ".join(
-              f"{ops} {k}: {reg} regs, {spill} B spill"
-              for (ops, k), (reg, spill) in sorted(k7_registers().items())))
+          f"(2 chunks of one)")
+    # every K of the persistent kernel at nv = 20, one launch each: the
+    # grid and its resident blocks an SM
+    grids = {}
+    for name in ("goldilocks", *SC_FIELDS):
+        f = get_field(name)
+        rec_k = f"sumcheck_prove_many_{name}"
+        chal = f.rand((NV,), rng, dev)
+        for k in range(1, 9):
+            tables = [f.rand((1 << NV,), rng, dev) for _ in range(k)]
+            before = SK.LAUNCHES[rec_k]
+            msgs, finals = SK.sumcheck_prove_many(tables, chal, field=name)
+            launched = SK.LAUNCHES[rec_k] - before
+            want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, name)
+            what = f"nv={NV} k={k} random"
+            check(max_err, rec_k, msgs, want_m, what)
+            check(max_err, rec_k, torch.stack(finals), torch.stack(want_f),
+                  what)
+            if launched != 1:
+                raise AssertionError(f"K7 {name} {what}: {launched} launches")
+            grids[(name, k)] = SK.LAST_GRID[rec_k]
+            cases += 1
+    regs = k7_registers()
+    ops = {"goldilocks": "GlOps", "babybear": "BbOps", "frog": "FrogOps"}
+    usage = []
+    for (name, k), (g, b) in grids.items():
+        reg, stack = regs[(ops[name], f"{k:02d}")]
+        usage.append(f"{name} {k}: {reg} regs, {stack} B stack, {g} blocks, "
+                     f"{b}/SM")
+    usage += [f"{o} wide: {reg} regs, {stack} B stack"
+              for (o, k), (reg, stack) in sorted(regs.items()) if k == "wide"]
+    phase("fields parity", "K7's persistent kernel at nv=20, k=1..8, "
+          "bit-equal to the generic prover in one launch each; registers a "
+          "thread "
+          "(from the built library; stack = spilled bytes), grid and "
+          "resident blocks an SM: " + "; ".join(usage))
     phase("fields parity", f"{cases} K7 cases over {'/'.join(SC_FIELDS)} "
           f"(nv={NV_SMALL} random, nv={NV} zeros/q-1/random; k=2, 3) and "
           f"the W={SC_W} Goldilocks batch bit-equal to their twins, and "
@@ -1236,8 +1361,10 @@ def slice_c(dev, smi, rng) -> list:
     for name in FIELD_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was never launched on the path")
-    if launches["sumcheck_prove_batch_goldilocks"] != NV + 1:
-        raise AssertionError("the batch took other than nv + 1 launches")
+    for name in FIELD_KERNELS:     # one proof (one batch) each: 1 launch
+        if launches[name] != 1:
+            raise AssertionError(f"{name}: {launches[name]} launches for "
+                                 "one proof, not 1")
 
     # -- 22. timings -------------------------------------------------------------
     times = {}
@@ -1285,10 +1412,12 @@ def slice_c(dev, smi, rng) -> list:
     for name, label, kern, _, _, with_twin in timed:
         if not with_twin:
             continue
-        busy_ms, wall_ms, top = device_profile(kern, 3, dev, 2)
+        busy_ms, wall_ms, top = device_profile(kern, 10, dev, 2)
         phase("fields profile", f"{name} {label}: device busy {busy_ms:.4f} "
               f"ms of {wall_ms:.4f} ms wall (profiled), idle share "
               f"{1 - busy_ms / wall_ms:.3f}; {top}  ({smi})")
+        k7_summary(name.removeprefix("sumcheck_prove_"), times[name][0],
+                   busy_ms, kern, smi)
 
     return [record(name, MLE_SOURCE, ref, launches[name], max_err[name],
                    *times[name]) for name, ref in FIELD_KERNELS.items()]
@@ -1895,8 +2024,10 @@ def modmul_peak(dev) -> tuple:
 
 
 def k7_registers() -> dict:
-    """{(field ops, K or "wide"): (registers, local bytes)} of K7's round
-    kernels, from ``cuobjdump -res-usage`` on the built library."""
+    """{(field ops, K or "wide"): (registers, stack bytes)} of K7's
+    kernels (the persistent kernel's K = 1..8 and the run-time-k round
+    kernel), from ``cuobjdump -res-usage`` on the built library; ptxas
+    places spilled registers on the stack."""
     from stark_rings_tpu_torch.ops import _build
 
     tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
@@ -1904,16 +2035,16 @@ def k7_registers() -> dict:
                           str(_build.library_path())],
                          capture_output=True, text=True, check=True).stdout
     regs = {}
-    for fn, reg, local in re.findall(
-            r"Function (\S*sumcheck_round_\w+):\s*REG:(\d+)\s+STACK:\d+"
-            r"\s+SHARED:\d+\s+LOCAL:(\d+)", out):
+    for fn, reg, stack in re.findall(
+            r"Function (\S*sumcheck_(?:prove|round_wide)_kernel\w*):\s*"
+            r"REG:(\d+)\s+STACK:(\d+)", out):
         ops = re.search(r"(Gl|Bb|Frog)Ops", fn).group(0)
         k = re.search(r"Li(\d+)E", fn)
         key = (ops, f"{int(k.group(1)):02d}" if k else "wide")
-        regs[key] = (int(reg), int(local))
+        regs[key] = (int(reg), int(stack))
     if len(regs) != 27:
-        raise RuntimeError(f"expected K7's 27 round kernels (3 fields x K = "
-                           f"1..8 and wide) in the SASS, found {len(regs)}")
+        raise RuntimeError(f"expected K7's 27 kernels (3 fields x K = 1..8 "
+                           f"and wide) in the SASS, found {len(regs)}")
     return regs
 
 

@@ -115,17 +115,15 @@ def kernels() -> ctypes.CDLL:
     lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
     lib.srt_mle_eval_tiles.argtypes = [p, p, i64, i32, p, p]
     lib.srt_mle_fix_top.argtypes = [p, p, i64, i32, p, p]
-    lib.srt_sumcheck_partial_rows.argtypes = [i64, i32, i32]
-    lib.srt_sumcheck_partial_rows.restype = i64
     sumcheck = []
     for field in ("goldilocks", "babybear", "frog"):
-        rnd = getattr(lib, f"srt_sumcheck_round_{field}")
+        prove = getattr(lib, f"srt_sumcheck_prove_{field}")
         wide = getattr(lib, f"srt_sumcheck_round_wide_{field}")
         red = getattr(lib, f"srt_sumcheck_reduce_{field}")
-        rnd.argtypes = [p, p, i32, i32, i64, i64, i64, p, i32, i32, p, p]
-        wide.argtypes = rnd.argtypes
+        prove.argtypes = [p, p, i32, i32, i64, i32, i32, p, i64, p, p, p, p]
+        wide.argtypes = [p, p, i32, i32, i64, i64, i64, p, i32, i32, p, p]
         red.argtypes = [p, p, i32, i32, i32, i64, p]
-        sumcheck += [rnd, wide, red]
+        sumcheck += [prove, wide, red]
     exchange = []
     for field in ("goldilocks", "babybear"):
         fn = getattr(lib, f"srt_twiddle_exchange_{field}")

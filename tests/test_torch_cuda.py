@@ -11,6 +11,8 @@ it also runs where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -127,6 +129,29 @@ def test_bb_kernels_match_twins(dev, R, t, B, signed):
         assert KB.LAUNCHES[kernel.__name__] == before[kernel.__name__] + 1
         assert torch.equal(got, twin(*args, signed=signed, **kw)), \
             (kernel.__name__, kw)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
+@pytest.mark.parametrize("R,t,B", [(1, 1, 40), (8, 8, 5), (100, 72, 3),
+                                   (65, 130, 2), (3, 200, 2), (128, 128, 2),
+                                   (64, 64, 4)])
+def test_bb_fold_tw_tiled_matches_twin(dev, R, t, B, signed):
+    """The transposed bb_fold_tw goes through 32 x 64 tiles in shared
+    memory: R and t below, above and between multiples of the tile, and
+    whole tiles, against the twin (untransposed too)."""
+    rng = np.random.default_rng(R * t + B + signed)
+    V = _buckets(rng, (5 if signed else 4) * R, B * t, signed).to(dev)
+    tw = to_torch_u32(rng.integers(0, BABYBEAR.q, (R, t), dtype=np.uint32),
+                      dev)
+    for transpose_out in (True, False):
+        before = KB.LAUNCHES["bb_fold_tw"]
+        got = KB.bb_fold_tw(V, tw, R, transpose_out=transpose_out,
+                            signed=signed)
+        torch.cuda.synchronize()
+        assert KB.LAUNCHES["bb_fold_tw"] == before + 1
+        want = KB.bb_fold_tw_ref(V, tw, R, transpose_out=transpose_out,
+                                 signed=signed)
+        assert torch.equal(got, want), transpose_out
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 3 * 1024 + 7])
@@ -266,15 +291,16 @@ def test_mle_kernels_match_twins(dev, nv, kind):
 @pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
 @pytest.mark.parametrize("nv", [1, 4, 11, 13])
 def test_sumcheck_kernel_matches_generic(dev, nv, k, kind):
-    """K7 launches for every nv >= 1 on the card, small tables included
-    (the reference hands nv < 12 to the generic prover)."""
+    """K7 proves in one launch for every nv >= 1 on the card, small
+    tables included (the reference hands nv < 12 to the generic
+    prover)."""
     rng = np.random.default_rng(nv * 10 + k)
     tables = [to_torch(_tables(rng, nv, kind), dev) for _ in range(k)]
     chal = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
     before = SK.LAUNCHES["sumcheck_prove_many_goldilocks"]
     msgs, finals = SK.sumcheck_prove_many(tables, chal)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES["sumcheck_prove_many_goldilocks"] == before + nv + 1
+    assert SK.LAUNCHES["sumcheck_prove_many_goldilocks"] == before + 1
     want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal)
     assert torch.equal(msgs, want_m)
     assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
@@ -352,17 +378,62 @@ def test_sumcheck_kernel_fields_match_generic(dev, field, nv, k, kind):
     before = SK.LAUNCHES[name]
     msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES[name] == before + nv + 1
+    assert SK.LAUNCHES[name] == before + 1
     want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
     assert msgs.dtype == f.dtype and torch.equal(msgs, want_m)
     assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
 
 
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("nv", [1, 2, 11, 12, 20])
+@pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
+def test_sumcheck_persistent_kernel_matches_generic(dev, field, nv, k):
+    """One cooperative launch per proof at every k <= 8, around where
+    the one-block tail begins (nv = 11, 12 for k = 2) and at nv = 20,
+    against the generic prover; the grid fits the card."""
+    f = get_field(field)
+    rng = np.random.default_rng(nv * 10 + k)
+    tables = [f.rand((1 << nv,), rng, dev) for _ in range(k)]
+    chal = f.rand((nv,), rng, dev)
+    name = f"sumcheck_prove_many_{field}"
+    before = SK.LAUNCHES[name]
+    msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
+    torch.cuda.synchronize()
+    assert SK.LAUNCHES[name] == before + 1
+    grid, per_sm = SK.LAST_GRID[name]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= grid <= sms * per_sm
+    want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
+    assert torch.equal(msgs, want_m)
+    assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+def test_sumcheck_refused_launch_raises(dev, monkeypatch):
+    """A cooperative launch the card refuses raises; no per-round kernel
+    runs in its place."""
+    lib = _build.kernels()
+
+    def refused(*args):
+        return 720        # cudaErrorCooperativeLaunchTooLarge
+
+    def no_round(*args):
+        raise AssertionError("a per-round kernel ran")
+
+    monkeypatch.setattr(lib, "srt_sumcheck_prove_goldilocks", refused)
+    monkeypatch.setattr(lib, "srt_sumcheck_round_wide_goldilocks", no_round)
+    f = get_field("goldilocks")
+    rng = np.random.default_rng(720)
+    tables = [f.rand((1 << 12,), rng, dev) for _ in range(2)]
+    before = dict(SK.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cooperative"):
+        SK.sumcheck_prove_many(tables, f.rand((12,), rng, dev))
+    assert SK.LAUNCHES == before
+
+
 @pytest.mark.parametrize("W", [1, 3, 4])
 def test_sumcheck_batch_matches_single_proofs(dev, W):
-    """W Goldilocks claims on the kernels' second grid axis: nv + 1
-    launches, and claim w's proof equals a single K7 proof on row w and
-    the twin."""
+    """W Goldilocks claims as virtual blocks of one launch, and claim
+    w's proof equals a single K7 proof on row w and the twin."""
     f = get_field("goldilocks")
     nv = 11
     rng = np.random.default_rng(W)
@@ -372,8 +443,7 @@ def test_sumcheck_batch_matches_single_proofs(dev, W):
         before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
         msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
         torch.cuda.synchronize()
-        assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] \
-            == before + nv + 1
+        assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] == before + 1
         assert msgs.shape == (W, nv, k + 1)
         assert [tuple(x.shape) for x in finals] == [(W,)] * k
         for w in range(W):
@@ -385,21 +455,43 @@ def test_sumcheck_batch_matches_single_proofs(dev, W):
         assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
 
 
-@pytest.mark.parametrize("nv", [1, 4, 20])
+@pytest.mark.parametrize("nv", [1, 4, 12, 20])
 def test_sumcheck_partials_hold_only_the_blocks_used(dev, nv):
-    """The partials of a proof hold one row per block of each round (no
-    round pads to the most blocks), W times for W claims."""
-    lib = _build.kernels()
+    """The partials of a proof hold one row per block of each round
+    before the tail (a phase's rounds take the blocks of its last round;
+    no round pads to the most blocks), W times for W claims: the kernel
+    takes the plan's rows and tail round and refuses any other, with no
+    launch."""
+    f = get_field("goldilocks")
     half = 1 << (nv - 1)
-    per_claim = sum(min(1024, -(-(half >> i) // 256)) for i in range(nv))
-    for W in (1, 4, 65535):
-        assert lib.srt_sumcheck_partial_rows(half, nv, W) == W * per_claim
+    grid_rounds = [i for i in range(nv) if half >> i > 1024]
+    per_claim = sum(min(1024, -(-(half >> min(i // 3 * 3 + 2,
+                                              grid_rounds[-1])) // 256))
+                    for i in grid_rounds)
+    lib = _build.kernels()
+    fn = lib.srt_sumcheck_prove_goldilocks
+    info = (ctypes.c_int * 2)()
+    ins = (ctypes.c_void_p * 2)(0, 0)
+    rng = np.random.default_rng(nv)
+    for W in (1, 4):
+        p = SK.plan(nv, 2, 8, W)
+        assert p.rows == per_claim and p.launches == 1
+        for tail, rows in ((p.tail, p.rows + 1), (p.tail + 1, p.rows),
+                           *(((p.tail, p.rows - 1),) if p.rows else ())):
+            err = fn(ins, None, 2, W, half, nv, tail, None, rows, None,
+                     None, info, None)
+            assert err == 1, (tail, rows)      # cudaErrorInvalidValue
+        tables = [f.rand((W, 1 << nv), rng, dev) for _ in range(2)]
+        chal = f.rand((nv,), rng, dev)
+        msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
+        want_m, want_f = SK.sumcheck_prove_batch_ref(tables, chal)
+        assert torch.equal(msgs, want_m)
+        assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
 
 
 def test_sumcheck_batch_many_claims(dev):
-    """The most claims one launch takes (65,535 on the grid's second
-    axis) at nv = 4: nv + 1 launches, and sampled claims equal their
-    single K7 proofs."""
+    """The most claims one launch takes (65,535) at nv = 4: one launch,
+    and sampled claims equal their single K7 proofs."""
     f = get_field("goldilocks")
     W, nv = 65535, 4
     rng = np.random.default_rng(W)
@@ -408,7 +500,7 @@ def test_sumcheck_batch_many_claims(dev):
     before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
     msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] == before + nv + 1
+    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] == before + 1
     for w in (0, 1, 4097, W // 2, W - 1):
         m, fs = SK.sumcheck_prove_many([T[w] for T in tables], chal)
         assert torch.equal(msgs[w], m), w
@@ -487,7 +579,7 @@ def test_sumcheck_no_variables_on_card(dev, k):
 
 def test_sumcheck_batch_over_one_launch(dev):
     """W = 65,536 claims at nv = 1, one more than a launch takes: two
-    chunks of nv + 1 launches, equal to the twin on every claim."""
+    chunks of one launch each, equal to the twin on every claim."""
     f = get_field("goldilocks")
     W, nv = 65536, 1
     rng = np.random.default_rng(W)
@@ -496,8 +588,8 @@ def test_sumcheck_batch_over_one_launch(dev):
     before = SK.LAUNCHES["sumcheck_prove_batch_goldilocks"]
     msgs, finals = SK.sumcheck_prove_batch_goldilocks(tables, chal)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] \
-        == before + 2 * (nv + 1)
+    assert SK.LAUNCHES["sumcheck_prove_batch_goldilocks"] == before + 2
+    assert SK.plan(nv, 2, 8, W).chunks == ((0, 65535), (65535, 1))
     want_m, want_f = SK.sumcheck_prove_batch_ref(tables, chal)
     assert msgs.shape == (W, nv, 3) and torch.equal(msgs, want_m)
     assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
