@@ -51,7 +51,10 @@ Phases, one line each:
      for bit, at the main path's shapes, on buckets from the real GEMM,
      at the bucket bound and over the whole int32 range; both digit
      schemes (the signed one at batch 8); the GEMM against an exact
-     float64 product;
+     float64 product; the transposed K1, stored through a tile in shared
+     memory, also at R and t off its tile in both schemes (B = 1 at
+     deg 2^16; the tw and twi buckets of deg 2^6, 2^10 and 2^13 rings;
+     raw 37 x 100 and 1 x 1 twiddle tables);
   4. engine parity at N = 2^16, B = 80: mul, stack_forward mul, square,
      mul_cached (batch-80 and batch-1 operand) and the folding combine
      w' = c*w + v, each bit-equal to the kernel-free Mxu2NTT on the card,
@@ -139,7 +142,9 @@ Phases, one line each:
      the three kernels (torch.profiler); per field and for the batch the
      proof's wall time (CUDA events), busy time and launches;
  24. engine parity: ntt_stage (both directions, with and without 1/N) and
-     ntt_tile (forward, inverse, mul_eval) at N = 2^16, B = 80, the
+     ntt_tile (forward, inverse, mul_eval) at N = 2^16, B = 80, and in
+     every mode at log_tile 1, 3, 4, 5, 9, 13 (and 14 up to LOG_TILE):
+     the whole row at B = 80, and 4 rows of 2^16; the
      one-launch mul at N = 2^10, pointwise_chain (depth 16 and 0, a
      ragged length) and the pointwise kernel against their twins;
      mxu_mod_mat on MatmulNTT's four level matrices (an MxuModMatFused
@@ -158,11 +163,15 @@ Phases, one line each:
      Goldilocks modmul peak (gl::mul's instructions in the SASS against
      the SMs' issue rate), which bounds every Goldilocks kernel of this
      slice, and the depth-256 chain's sustained rate beside it; each
-     kernel against its twin and its bound;
+     kernel against its twin and its bound, the tile in its forward,
+     inverse and mul_eval modes each with its bytes, modmuls and bound;
      mxu_mod_mat beside MxuModMat.apply and the stacked _int_mm alone; the
      radix mul and Mxu2FusedNTT.mul in turns, NTTContext.mul; MatmulNTT
-     (both level kinds) and the radix mul at N = 2^14;
- 28. profile: device busy time against wall time of one radix mul;
+     (both level kinds) and the radix mul at N = 2^14; the radix mul
+     at N = 2^16 and 2^14 at the other tile size the kernel takes
+     (log_tile 13 against 14) in turns;
+ 28. profile: device busy time against wall time of one radix mul, and
+     its kernels by name (the stage passes and the tile's two modes);
  29. sharded parity: K8 forward and inverse against their twins, bit for
      bit, over Goldilocks and BabyBear at deg 2^20: 8 shards at B = 8 on
      tables of zeros, of q-1 and of random words, and batchless; 1, 2
@@ -236,6 +245,8 @@ MLE_KERNELS = {
 BB_LOG = 12         # BASELINE config 2: BabyBear deg 2^12 ...
 BB_B = 4096         # ... at the batch the reference measures (bench.py:678)
 BB_B_SIGNED = 256
+K1_RAGGED = ((6, 512), (10, 64), (13, 16))  # (log deg, B): R, t of 8 to 128
+K1_RAW = ((37, 100, 3), (1, 1, 40))  # R, t, B: ragged edges on both axes
 BB_RAGGED = ((10, 256), (11, 128), (14, 64))  # (log deg, B): tiles off 64
 BB_TABLE_LOG = 6    # an 8 x 8 twiddle table, on random buckets
 BB_RAW = (100, 72, 33)  # R, t, B: ragged edges on both axes
@@ -275,6 +286,7 @@ ISSUE_PER_SM_CLOCK = 128    # thread instructions an SM issues per clock:
                             # (NVIDIA's Hopper architecture white paper)
 LAUNCH_REPS = 1000
 NTT_SIZES = (1 << 10, 1 << 14)   # parity points of the radix engine
+NTT_TILE_LOGS = (1, 3, 4, 5, 9, 13, 14)  # log_tiles held in every mode
 MM_N = 1 << 14      # MatmulNTT's one size (128 x 128)
 MM_TWIN_COLS = 1024  # columns at which the mod-mat twin is held
 CHAIN_DEPTH = 16    # pointwise_chain's default depth in the reference
@@ -512,6 +524,60 @@ def kernel_parity(e, Bx, label, mod, prefix, rng, max_err):
     phase("parity", f"{label}: {len(cases)} kernel cases bit-equal to the "
           f"twins; GEMM {tuple(V1.shape)} exact")
     return V1, V2i, V1i, Va, Vb, Vc
+
+
+def k1_ragged_parity(engines, dev, rng, max_err) -> None:
+    """The transposed K1, whose store goes through a tile in shared
+    memory, at R and t off the tile, in both schemes (one engine of
+    ``engines`` each), against its twin: B = 1 at the main path's R = t
+    = 256; the level-1 (tw) and inverse level-2 (twi) buckets of the
+    deg 2^6, 2^10 and 2^13 rings (R, t of 8, 32, 64 and 128) from their
+    real GEMMs, at the bucket bound and over the whole int32 range; raw
+    37 x 100 and 1 x 1 twiddle tables on full-range buckets."""
+    import torch
+
+    from stark_rings_tpu_torch import GOLDILOCKS as F, Mxu2FusedNTT
+    from stark_rings_tpu_torch.ops import fold as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def full(rows, cols):
+        return torch.randint(-2**31, 2**31, (rows, cols), generator=gen,
+                             dtype=torch.int32, device=dev)
+
+    cases = []
+    for e0 in engines:
+        s, K_ = e0.signed, 9 if e0.signed else 8
+        V1 = e0._dot(e0.mat1, e0._to_internal(F.rand((1, e0.N), rng, dev)),
+                     e0.c, "w1")
+        cases.append(("deg 2^16 B=1 tw", V1, e0.c["tw"], e0.mat1.R, s))
+        for log, Bx in K1_RAGGED:
+            e = Mxu2FusedNTT(1 << log, unsigned=not s, device=dev)
+            V1 = e._dot(e.mat1, e._to_internal(F.rand((Bx, e.N), rng, dev)),
+                        e.c, "w1")
+            V2i = e._dot(e.mat2i, F.rand((e.mat2i.C, Bx, e.N1), rng, dev),
+                         e.c, "w2i")
+            bound = (1 << 26) - 1 if s else (1 << 27) - 1
+            R = e.mat1.R
+            cases += [(f"deg 2^{log} tw", V1, e.c["tw"], R, s),
+                      (f"deg 2^{log} twi", V2i, e.c["twi"], e.mat2i.R, s),
+                      (f"deg 2^{log} bound", torch.full_like(V1, bound),
+                       e.c["tw"], R, s),
+                      (f"deg 2^{log} int32", full(*V1.shape), e.c["tw"], R,
+                       s)]
+        for R, t, Bx in K1_RAW:
+            cases.append((f"raw R={R} t={t} int32", full(K_ * R, Bx * t),
+                          F.rand((R, t), rng, dev), R, s))
+    for what, V, tw, R, s in cases:
+        kw = {"transpose_out": True, "signed": s}
+        check(max_err, "fold_tw", K.fold_tw(V, tw, R, **kw),
+              K.fold_tw_ref(V, tw, R, **kw),
+              f"{what} {'signed' if s else 'unsigned'}")
+    torch.cuda.synchronize()
+    phase("parity", f"tiled fold_tw (K1 transposed): {len(cases)} cases off "
+          "its tile (B = 1 at deg 2^16; deg 2^6, 2^10, 2^13 GEMM buckets, "
+          "bound and int32; raw 37 x 100 and 1 x 1 tables; both schemes) "
+          "bit-equal to the twin")
 
 
 def tw_ragged_parity(dev, rng, max_err) -> None:
@@ -1481,6 +1547,25 @@ def slice_ntt(dev, smi, rng, gl) -> list:
         check(max_err, "ntt_tile", G.ntt_tile(*args), G.ntt_tile_ref(*args),
               f"N={Nx} B={Bx} {mode}")
         cases += 1
+    # every mode at several log_tiles: the tile the whole row (mul when
+    # 2N <= 2^LOG_TILE), and the tiles of 4 rows of the 2^16 operands
+    for L in NTT_TILE_LOGS:
+        if L > G.LOG_TILE:
+            continue
+        wt = G.GoldilocksKernelNTT(1 << L, device=dev).tables()
+        xw, ow = (F.rand((Bx, 1 << L), rng, dev) for _ in range(2))
+        for mode in G.MODES:
+            if mode == "mul" and 2 << L > 1 << G.LOG_TILE:
+                continue
+            args = (xw, *wt, L, mode, ow)
+            check(max_err, "ntt_tile", G.ntt_tile(*args),
+                  G.ntt_tile_ref(*args), f"N=2^{L} B={Bx} {mode}")
+            cases += 1
+        for mode in ("forward", "inverse", "mul_eval"):
+            args = (a[:4], wf, wi, ninv, L, mode, b[:4])
+            check(max_err, "ntt_tile", G.ntt_tile(*args),
+                  G.ntt_tile_ref(*args), f"N={Nx} B=4 log_tile {L} {mode}")
+            cases += 1
     e10, _ = small[NTT_SIZES[0]]
     x10 = F.rand((Bx, e10.N), rng, dev)
     y10 = F.rand((Bx, e10.N), rng, dev)
@@ -1643,6 +1728,13 @@ def slice_ntt(dev, smi, rng, gl) -> list:
     timed("ntt_tile", lambda: G.ntt_tile(*targs),
           lambda: G.ntt_tile_ref(*targs), (a, b, wf[lo:], wi[lo:]),
           Bx * (radix.log_tile * Nx + Nx), f"mul_eval [{Bx}, {Nx}]")
+    # the forward and inverse tiles: one direction's stages, the same
+    # modmuls; x, the result and the direction's twiddles [2^passes, N)
+    for mode, w in (("forward", wf), ("inverse", wi)):
+        dargs = (a, wf, wi, ninv, radix.log_tile, mode)
+        timed(f"ntt_tile {mode}", lambda: G.ntt_tile(*dargs),
+              lambda: G.ntt_tile_ref(*dargs), (a, w[lo:]),
+              Bx * radix.log_tile * Nx // 2, f"[{Bx}, {Nx}]")
     timed("pointwise_mul[GoldilocksKernelNTT.pointwise]",
           lambda: radix.pointwise(a, b), lambda: K.pointwise_mul_ref(a, b),
           (a, b), n, f"[{Bx}, {Nx}]")
@@ -1687,6 +1779,30 @@ def slice_ntt(dev, smi, rng, gl) -> list:
           f"{rates(rad_ms)}; Mxu2FusedNTT {rates(mxu_ms)} (in turns); "
           f"NTTContext {ctx_ms:.4f} ms; {mul_moved} B, {mul_mm} modmuls, "
           f"bound {bound:.4f} ms  ({smi})")
+    # LOG_TILE against the other tile size the kernel takes: a 2^13 tile
+    # lets two blocks share an SM, a 2^14 tile saves one pass a transform
+    kept = G.LOG_TILE
+    alt = 13 if kept == 14 else 14
+    try:
+        G.LOG_TILE = alt
+        alts = {n: G.GoldilocksKernelNTT(n, device=dev) for n in (Nx, MM_N)}
+        G.LOG_TILE = max(kept, alt)
+        tile_ms = {}
+        for e, x, y in ((radix, a, b), (small[MM_N][0], a14, b14)):
+            e_alt = alts[e.N]
+            if not torch.equal(e_alt.mul(x, y), e.mul(x, y)):
+                raise AssertionError(f"radix mul N={e.N} at log_tile {alt} "
+                                     "differs")
+            tile_ms[e.N] = (e.passes, e_alt.passes,
+                            *in_turns(lambda: e.mul(x, y),
+                                      lambda: e_alt.mul(x, y)))
+    finally:
+        G.LOG_TILE = kept
+    for n, (passes, alt_passes, kept_ms, alt_ms) in tile_ms.items():
+        phase("engine time", f"mul N={n} B={Bx}: log_tile {kept} (LOG_TILE, "
+              f"{passes} passes a transform) {rates(kept_ms)}; log_tile "
+              f"{alt} ({alt_passes} passes) {rates(alt_ms)} (in turns)  "
+              f"({smi})")
     phase("engine time", f"mul N={MM_N} B={Bx}: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in mm_ms.items()) + f"  ({smi})")
 
@@ -2137,6 +2253,7 @@ def main() -> None:
                                              "", rng, max_err)
     kernel_parity(eng_signed, B_SIGNED, f"signed B={B_SIGNED}", K, "", rng,
                   max_err)
+    k1_ragged_parity((eng, eng_signed), dev, rng, max_err)
     phase("parity", f"done in {time.perf_counter() - t0:.1f} s")
 
     # -- 4. engine parity at N = 2^16, B = 80 ------------------------------

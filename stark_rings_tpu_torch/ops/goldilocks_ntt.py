@@ -10,18 +10,18 @@ canonical u64 bits in int64 storage.
 A row of N = 2^16 words (512 KB) does not fit one block's shared memory,
 so a transform splits its stages by butterfly span t = N / 2^(s+1):
 
-* the stages with 2t <= 2^LOG_TILE (2^14 words, 128 KB) run in one
-  ``ntt_tile`` launch, each aligned tile of a row in one block's shared
-  memory;
+* the stages with 2t <= 2^LOG_TILE (2^13 words, 64 KB) run in one
+  ``ntt_tile`` launch, each aligned tile of a row in one block's
+  registers, exchanged through its shared memory between rounds;
 * the stages with 2t > 2^LOG_TILE run as ``ntt_stage`` launches, one
-  grid-wide pass over device memory each (2 at N = 2^16).
+  grid-wide pass over device memory each (3 at N = 2^16).
 
 ``mul`` is fused: fwd(b) as above, then fwd(a)'s passes, then one tile
 launch that finishes fwd(a), multiplies by fwd(b) and starts the
 inverse, then the inverse's passes (the last one times 1/N).  When a
-row of each operand fits one block's shared memory (2N <= 2^14 words)
-the whole multiply is one launch.  Launches per ``mul``: 1 for
-N <= 2^13, 2 at N = 2^14, 8 at N = 2^16.
+row of each operand fits one tile (2N <= 2^LOG_TILE words) the whole
+multiply is one launch.  Launches per ``mul``: 1 for N <= 2^12, 2 at
+N = 2^13, 5 at N = 2^14, 11 at N = 2^16.
 
 Kernels, wrappers and twins:
 
@@ -62,7 +62,11 @@ __all__ = ["GoldilocksKernelNTT", "ntt_stage", "ntt_tile", "ntt_stage_ref",
            "ntt_tile_ref", "LAUNCHES", "reset_launches", "LOG_TILE"]
 
 F = GOLDILOCKS
-LOG_TILE = 14   # 2^14 words = 128 KB: the shared memory of one block
+# The stages a tile launch runs.  The kernel takes tiles up to 2^14 words
+# (one block an SM); 2^13-word tiles let two blocks share an SM, and on an
+# H100 that made the deg-2^16 mul faster despite one more pass a transform
+# (chip_smoke.py phase 27 times both).
+LOG_TILE = 13
 
 # mode bits of ntt_tile (csrc/ntt.cu)
 _FWD, _PW_GLOBAL, _PW_TILE, _INV = 1, 2, 4, 8
@@ -180,7 +184,8 @@ def ntt_stage(x, w, s, *, inverse=False, ninv=None, inplace=False):
 def ntt_tile(x, wf, wi, ninv, log_tile, mode, other=None, *,
              inplace=False):
     """The stages s >= logN - log_tile of every row x [rows, N], each
-    aligned 2^log_tile-word tile in one block's shared memory.  ``mode``:
+    aligned 2^log_tile-word tile in one block (its words in registers,
+    exchanged through shared memory between rounds).  ``mode``:
 
     * ``"forward"``: the forward stages;
     * ``"inverse"``: the inverse stages (and x 1/N when the tile is the
@@ -188,8 +193,8 @@ def ntt_tile(x, wf, wi, ninv, log_tile, mode, other=None, *,
     * ``"mul_eval"``: forward stages, times ``other`` (evaluations of the
       same shape), inverse stages (and x 1/N if whole row);
     * ``"mul"``: the whole fused ring multiply of rows x and ``other``
-      (coefficients); needs the tile to be the row, and two rows in
-      shared memory (2N <= 2^LOG_TILE).
+      (coefficients); needs the tile to be the row, and two rows in a
+      tile's registers (2N <= 2^LOG_TILE).
 
     ``ninv`` is 1/N as an int.  Returns a new tensor, or x itself,
     overwritten, with ``inplace``."""
@@ -294,7 +299,8 @@ class GoldilocksKernelNTT:
         return self._inv_passes(y).reshape(x.shape)
 
     def mul(self, a, b):
-        """Fused negacyclic ring multiply (one launch when 2N <= 2^14)."""
+        """Fused negacyclic ring multiply (one launch when 2N <=
+        2^LOG_TILE)."""
         if a.shape != b.shape:
             raise ValueError(f"mul: shapes {tuple(a.shape)} and "
                              f"{tuple(b.shape)} differ")

@@ -1,11 +1,14 @@
 """The port's CUDA kernels on the card, against their plain twins: the
-fold kernels K1-K3, the BabyBear folds K4 and the Goldilocks pointwise
+fold kernels K1-K3 (the transposed K1 at ragged tiles and at the main
+path's shape), the BabyBear folds K4 and the Goldilocks pointwise
 kernel, and the engines built on them against the kernel-free engines;
 the MLE kernels K5 and K6, and the sumcheck prover K7 over Goldilocks,
-BabyBear and frog, for one claim and for a batch; the radix NTT kernels,
-the fused mod-mat kernel and the chain kernel, and the engines on them.
-Marked ``cuda``: they skip where no CUDA card is present.  This file imports no JAX, so
-it also runs where JAX is not installed:
+BabyBear and frog, for one claim and for a batch; the radix NTT kernels
+(the tile kernel in every mode at every log_tile, and the engine against
+NTTContext from N = 2 to 2^16), the fused mod-mat kernel and the chain
+kernel, and the engines on them.  Marked ``cuda``: they skip where no
+CUDA card is present.  This file imports no JAX, so it also runs where
+JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda \
         tests/test_torch_cuda.py
@@ -80,6 +83,53 @@ def test_kernels_match_twins(dev, R, t, B, signed):
         assert K.LAUNCHES[kernel.__name__] == before[kernel.__name__] + 1
         assert torch.equal(got, twin(*args, signed=signed, **kw)), \
             (kernel.__name__, kw)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
+@pytest.mark.parametrize("R,t,B", [(1, 1, 40), (8, 8, 5), (37, 100, 3),
+                                   (65, 130, 2), (3, 200, 2), (32, 64, 4),
+                                   (128, 128, 2), (256, 256, 1)])
+def test_fold_tw_tiled_matches_twin(dev, R, t, B, signed):
+    """The transposed K1 goes through 32 x 32 tiles of u64 words in
+    shared memory: R and t below, above and between multiples of the
+    tile, whole tiles and B = 1, against the twin (untransposed too)."""
+    rng = np.random.default_rng(R * t + B + signed)
+    V = _buckets(rng, (9 if signed else 8) * R, B * t, signed).to(dev)
+    tw = to_torch(rng.integers(0, Q, (R, t), dtype=np.uint64), dev)
+    tw[0, 0] = to_torch(np.array([Q - 1], dtype=np.uint64), dev)[0]
+    for transpose_out in (True, False):
+        before = K.LAUNCHES["fold_tw"]
+        got = K.fold_tw(V, tw, R, transpose_out=transpose_out, signed=signed)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["fold_tw"] == before + 1
+        want = K.fold_tw_ref(V, tw, R, transpose_out=transpose_out,
+                             signed=signed)
+        assert torch.equal(got, want), transpose_out
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
+def test_fold_tw_tiled_at_the_main_shape(dev, signed):
+    """K1 transposed at the deg-2^16 multiply's shape: R = t = 256 and
+    B = 80 (unsigned) or 8 (signed), on buckets of the real level-1 GEMM
+    and on full-range int32 buckets."""
+    N = 1 << 16
+    rng = np.random.default_rng(16 + signed)
+    e = Mxu2FusedNTT(N, unsigned=not signed, device=dev)
+    B = 8 if signed else 80
+    x = to_torch(rng.integers(0, Q, (B, N), dtype=np.uint64), dev)
+    V = e._dot(e.mat1, e._to_internal(x), e.c, "w1")
+    R = e.mat1.R
+    gen = torch.Generator(device=dev).manual_seed(1)
+    full = torch.randint(-2**31, 2**31, V.shape, generator=gen,
+                         dtype=torch.int32, device=dev)
+    for buckets in (V, full):
+        got = K.fold_tw(buckets, e.c["tw"], R, transpose_out=True,
+                        signed=signed)
+        want = K.fold_tw_ref(buckets, e.c["tw"], R, transpose_out=True,
+                             signed=signed)
+        torch.cuda.synchronize()
+        assert got.shape == (256, B * R)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("unsigned", [True, False], ids=["u8", "s8"])
@@ -738,6 +788,79 @@ def test_ntt_kernels_match_twins(dev, logN, log_tile, monkeypatch):
     assert torch.equal(e.mul_composite(x, o), got)
     assert torch.equal(e.forward(x), ctx.forward(x))
     assert torch.equal(e.inverse(x), ctx.inverse(x))
+
+
+@pytest.mark.parametrize("log_tile", range(1, 15))
+def test_ntt_tile_every_log_tile(dev, log_tile, monkeypatch):
+    """ntt_tile in all four modes against its twin at every log_tile
+    the kernel takes (up to 2^14 words, one above LOG_TILE): the tile the
+    whole row (N = 2^log_tile, where the inverse scales by 1/N and mul
+    takes both rows when 2N <= 2^14), and four tiles a row (N =
+    2^(log_tile + 2), at most 2^16)."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+
+    monkeypatch.setattr(G, "LOG_TILE", 14)
+
+    for logN in sorted({log_tile, min(log_tile + 2, 16)}):
+        N = 1 << logN
+        rng = np.random.default_rng(64 * log_tile + logN)
+        x, o = (to_torch(rng.integers(0, Q, (3, N), dtype=np.uint64), dev)
+                for _ in range(2))
+        x[0, :2] = to_torch(np.array([Q - 1, 0], dtype=np.uint64), dev)
+        wf, wi, ninv = G.GoldilocksKernelNTT(N, device=dev).tables()
+        for mode in G.MODES:
+            if mode == "mul" and (logN != log_tile or 2 * N > 1 << 14):
+                continue
+            before = G.LAUNCHES["ntt_tile"]
+            got = G.ntt_tile(x, wf, wi, ninv, log_tile, mode, o)
+            torch.cuda.synchronize()
+            assert G.LAUNCHES["ntt_tile"] == before + 1
+            want = G.ntt_tile_ref(x, wf, wi, ninv, log_tile, mode, o)
+            assert torch.equal(got, want), (logN, mode)
+
+
+def test_ntt_tile_at_deg_2_16(dev):
+    """The three tile modes of the deg-2^16 multiply at log_tile =
+    LOG_TILE on B = 80 rows (320 tiles), against the twin, out of place
+    and in place."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+
+    N, B = 1 << 16, 80
+    rng = np.random.default_rng(2)
+    x, o = (to_torch(rng.integers(0, Q, (B, N), dtype=np.uint64), dev)
+            for _ in range(2))
+    e = G.GoldilocksKernelNTT(N, device=dev)
+    wf, wi, ninv = e.tables()
+    assert e.log_tile == G.LOG_TILE
+    for mode in ("forward", "inverse", "mul_eval"):
+        want = G.ntt_tile_ref(x, wf, wi, ninv, e.log_tile, mode, o)
+        assert torch.equal(G.ntt_tile(x, wf, wi, ninv, e.log_tile, mode, o),
+                           want), mode
+        y = x.clone()
+        G.ntt_tile(y, wf, wi, ninv, e.log_tile, mode, o, inplace=True)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), mode
+
+
+@pytest.mark.parametrize("logN", [1, 3, 10, 14, 16])
+def test_radix_engine_matches_ntt_context(dev, logN):
+    """GoldilocksKernelNTT's mul, forward and inverse against NTTContext
+    from a one-thread tile (N = 2) to the main path's two passes and
+    tile (N = 2^16)."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+
+    N = 1 << logN
+    rng = np.random.default_rng(logN)
+    a, b = (to_torch(rng.integers(0, Q, (4, N), dtype=np.uint64), dev)
+            for _ in range(2))
+    e = G.GoldilocksKernelNTT(N, device=dev)
+    ctx = NTTContext(GOLDILOCKS, N, device=dev)
+    got = e.mul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ctx.mul(a, b))
+    assert torch.equal(e.forward(a), ctx.forward(a))
+    assert torch.equal(e.inverse(a), ctx.inverse(a))
+    assert torch.equal(e.inverse(e.forward(a)), a)
 
 
 @pytest.mark.parametrize("R,C,M", [(4, 128, 3), (5, 9, 130),

@@ -48,6 +48,7 @@ import stark_rings_tpu_torch.mle.sumcheck
 import stark_rings_tpu_torch.mle.sumcheck_kernel
 import stark_rings_tpu_torch.rings.absorb
 import stark_rings_tpu_torch.examples.sumcheck
+import stark_rings_tpu_torch.examples.tile_variants
 for field in ("goldilocks", "babybear", "frog"):
     stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu",
                                                  field=field)
