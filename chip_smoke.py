@@ -67,24 +67,31 @@ Phases, one line each:
      (torch.profiler);
   8. mle parity: K5, K6 and K7 against their plain twins on the card, bit
      for bit, on tables of zeros, of q-1 and of random values: K5 at
-     nv = 4, 11, 20 and 24, K6 at nv = 20 for k in {1, 7, 13}, K7 (twin:
-     the generic msb prover; one cooperative launch a proof) at nv = 4,
-     11 and 20 for k = 2 and 3 and at nv = 24 for k = 2;
+     nv = 1, 4, 9, 10, 11, 12, 20, 21 and 24, K6 at nv = 20 for k in
+     {1, 5, 6, 7, 13} and at nv = 24 for k = 17, K7 (twin: the generic
+     msb prover; one cooperative launch a proof) at nv = 4, 11 and 20
+     for k = 2 and 3 and at nv = 24 for k = 2;
   9. mle path: the Fiat-Shamir proof at nv = 20 (plain rounds, real
      transcript) verifies with K5 in its final check, a proof with one
      message changed is rejected, K7 on the bit-reversed tables with the
      transcript's challenges reproduces the messages and finals, the
      verifier recurrence holds in Python ints; K5 at nv = 20 and 24
      equals DenseMLE.evaluate and evaluate_goldilocks_mxu, K6 at nv = 20
-     equals DenseMLE.fix_last_variables and (k >= 3)
-     fix_last_variables_mxu;
+     (k = 1, 7, 13) and 24 (k = 17) equals DenseMLE.fix_last_variables
+     and (nv = 20, k >= 3) fix_last_variables_mxu;
  10. mle oracle: K5 at nv = 20 equals a Python-int evaluation of the same
      table, computed on a host thread;
  11. mle launch counts of phase 9 (K5, K6 and K7 must each have run;
-     the path's one K7 proof is one launch);
+     the path's one K7 proof is one launch, and each K5 evaluation and
+     K6 call at nv = 20 and 24 one launch);
  12. mle timings (CUDA events, median of 10 after warm-up): each kernel
      against its twin, proofs/s of K7 (nv = 20, k = 2), evaluations/s at
      nv = 20 through K5, DenseMLE.evaluate and evaluate_goldilocks_mxu;
+     K5 at nv = 20 and 24 (warm, and after a 100 MB write that flushes
+     the L2) and K6 at nv = 20, k = 1, 7, 13: beside the wall, device
+     busy (torch.profiler), the wrapper's host time against the
+     one-launch floor (_build.launch of a 1-element kernel), launches a
+     call and the byte bound;
  13. mle profile: device busy time against wall time of one K7 proof,
      one K5 evaluation and one Fiat-Shamir prove (torch.profiler); per
      K7 proof its wall time (CUDA events), busy time and launches;
@@ -235,6 +242,11 @@ NV = 20             # BASELINE config 4: 20-variable MLEs
 NV_BIG = 24         # the scale point (a 128 MB table)
 NV_SMALL = (4, 11)  # below the reference kernels' cuts (nv >= 9, >= 12)
 FIX_KS = (1, 7, 13)
+# K5 and K6 held to their twins in phase 8: one tile and below (nv <= 11),
+# one ticket level (12, 20, 21) and two (24); K6 on the tree (k <= 5) and
+# on eq weights in one chunk and in many, up to k = nv - 7
+K5_NVS = (1, 4, 9, 10, 11, 12, NV, 21, NV_BIG)
+K6_KS = (1, 5, 6, 7, 13)
 MLE_SOURCE = "stark_rings_tpu_torch/csrc/mle.cu"
 MLE_KERNELS = {
     "evaluate_goldilocks": "stark_rings_tpu/mle/pallas_fix.py:182",
@@ -347,9 +359,10 @@ def record(name, source, replaces, launches, err, ms, plain_ms, moved,
             "library_ms": None}
 
 
-def time_ms(fn, inner=1):
+def time_ms(fn, inner=1, before=None):
     """Median ms per call over REPS timed groups of ``inner`` calls,
-    after two warm-up calls (CUDA events)."""
+    after two warm-up calls (CUDA events).  ``before``, where given, runs
+    ahead of each group, outside its events."""
     import torch
 
     for _ in range(2):
@@ -357,6 +370,8 @@ def time_ms(fn, inner=1):
     torch.cuda.synchronize()
     samples = []
     for _ in range(REPS):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -378,9 +393,10 @@ def shape(*ts) -> str:
     return " x ".join(str(list(t.shape)) for t in ts)
 
 
-def device_profile(fn, n, dev, top):
+def device_profile(fn, n, dev, top, skip=()):
     """Per call of ``fn`` over ``n`` calls under torch.profiler: (device
-    busy ms, wall ms, the ``top`` kernels by device time as text)."""
+    busy ms, wall ms, the ``top`` kernels by device time as text).
+    Kernels whose name holds a string of ``skip`` are left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -395,12 +411,58 @@ def device_profile(fn, n, dev, top):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = sorted(prof.key_averages(), key=lambda r: -r.self_device_time_total)
+    rows = sorted((r for r in prof.key_averages()
+                   if not any(s in r.key for s in skip)),
+                  key=lambda r: -r.self_device_time_total)
     busy_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
     text = "; ".join(f"{r.key[:48]} x{r.count // n} "
                      f"{r.self_device_time_total / 1e3 / n:.4f} ms"
                      for r in rows[:top])
     return busy_ms, wall_ms, text
+
+
+def host_us(fn, n=200):
+    """Median µs of host time a call over 5 groups of ``n`` calls, none
+    synchronised."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        samples.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def call_costs(counts, name, fn, dev, floor_us, flush=None) -> str:
+    """What one call of the wrapper ``fn`` costs beside its wall time,
+    as text: its launches (``counts[name]``), its kernels' device busy
+    time (torch.profiler), its host time against ``floor_us`` (the
+    one-launch floor) and, with ``flush`` (a buffer of twice the L2),
+    its wall and busy time when the buffer was written just before (the
+    L2 cold; the write's kernel left out of busy)."""
+    def ms(x):
+        return f"{x:.4f} ms" if x else "not measured"
+
+    before = counts[name]
+    fn()
+    launches = counts[name] - before
+    skip = ("at::native",)   # torch's kernels: the window's opener, flush
+    text = (f"{launches} launch(es) a call, busy "
+            f"{ms(device_profile(fn, 20, dev, 0, skip)[0])}, host "
+            f"{host_us(fn):.2f} us against the one-launch floor "
+            f"{floor_us:.2f} us")
+    if flush is not None:
+        cold = time_ms(fn, before=lambda: flush.fill_(1))
+        cold_busy = device_profile(lambda: (flush.fill_(1), fn()), 10, dev,
+                                   0, skip)[0]
+        text += (f"; after an L2 flush wall {cold:.4f} ms, busy "
+                 f"{ms(cold_busy)}")
+    return text
 
 
 def digit_gemms(e, Bx, rng) -> dict:
@@ -692,6 +754,7 @@ def slice_e(dev, smi, rng) -> list:
     from stark_rings_tpu_torch.mle.mxu_eval import (evaluate_goldilocks_mxu,
                                                     fix_last_variables_mxu)
     from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+    from stark_rings_tpu_torch.ops import _build
     from stark_rings_tpu_torch.rings import Transcript
 
     q = F.q
@@ -718,7 +781,7 @@ def slice_e(dev, smi, rng) -> list:
 
     t0 = time.perf_counter()
     cases = 0
-    for nv in (*NV_SMALL, NV, NV_BIG):
+    for nv in sorted({*K5_NVS, *NV_SMALL}):
         pts = F.rand((nv,), rng, dev)
         chal = F.rand((nv,), rng, dev)
         for kind in ("zeros", "q-1", "random"):
@@ -727,12 +790,15 @@ def slice_e(dev, smi, rng) -> list:
                   FX.evaluate_goldilocks(T, pts),
                   FX.evaluate_goldilocks_ref(T, pts), f"nv={nv} {kind}")
             cases += 1
-            for k in FIX_KS if nv == NV else ():
+            ks = {NV: K6_KS, NV_BIG: (NV_BIG - 7,)}.get(nv, ())
+            for k in ks:
                 check(max_err, "fix_last_goldilocks",
-                      FX.fix_last_goldilocks(T, pts[NV - k:]),
-                      FX.fix_last_goldilocks_ref(T, pts[NV - k:]),
+                      FX.fix_last_goldilocks(T, pts[nv - k:]),
+                      FX.fix_last_goldilocks_ref(T, pts[nv - k:]),
                       f"nv={nv} k={k} {kind}")
                 cases += 1
+            if nv not in (*NV_SMALL, NV, NV_BIG):
+                continue
             for k in (2,) if nv == NV_BIG else (2, 3):
                 tables = [T] + [table(nv, kind) for _ in range(k - 1)]
                 msgs, finals = SK.sumcheck_prove_many_goldilocks(tables,
@@ -746,8 +812,9 @@ def slice_e(dev, smi, rng) -> list:
                 cases += 1
     torch.cuda.synchronize()
     phase("mle parity", f"{cases} cases of K5/K6/K7 bit-equal to their "
-          f"twins (zeros, q-1, random; nv={NV_SMALL}, {NV} and {NV_BIG}) "
-          f"in "
+          f"twins (zeros, q-1, random; K5 at nv={K5_NVS}, K6 at nv={NV} "
+          f"k={K6_KS} and nv={NV_BIG} k={NV_BIG - 7}, K7 at "
+          f"nv={NV_SMALL}, {NV} and {NV_BIG}) in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # -- 9. the slice's main path, launches counted ------------------------
@@ -760,8 +827,18 @@ def slice_e(dev, smi, rng) -> list:
                                    NV)
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
+    # K5's and K6's launches per call on the path: one each
+    per_call = {"evaluate_goldilocks": [], "fix_last_goldilocks": []}
+
+    def counted(name, fn, calls=1):
+        before = FX.LAUNCHES[name]
+        out = fn()
+        per_call[name].append((FX.LAUNCHES[name] - before) / calls)
+        return out
+
     t1 = time.perf_counter()
-    if not example.verify(S, msgs, g, h, Transcript(b"smoke")):
+    if not counted("evaluate_goldilocks", lambda: example.verify(
+            S, msgs, g, h, Transcript(b"smoke")), calls=2):
         raise AssertionError("the honest nv=20 proof was rejected")
     verify_s = time.perf_counter() - t1
     bad = [list(m) for m in msgs]
@@ -773,8 +850,10 @@ def slice_e(dev, smi, rng) -> list:
     m7, f7 = SK.sumcheck_prove_many_goldilocks(
         [bit_reverse_table(g.evals), bit_reverse_table(h.evals)],
         torch.stack(chals))
-    gv = FX.evaluate_goldilocks(g.evals, chals)
-    hv = FX.evaluate_goldilocks(h.evals, chals)
+    gv = counted("evaluate_goldilocks",
+                 lambda: FX.evaluate_goldilocks(g.evals, chals))
+    hv = counted("evaluate_goldilocks",
+                 lambda: FX.evaluate_goldilocks(h.evals, chals))
     if u64_err(m7, torch.stack([torch.stack(m) for m in msgs]), "K7") \
             or u64_err(torch.stack(f7), torch.stack([gv, hv]), "K7 finals"):
         raise AssertionError("K7 on the bit-reversed tables does not "
@@ -790,30 +869,35 @@ def slice_e(dev, smi, rng) -> list:
         raise AssertionError("final claim != g(r) h(r) in Python ints")
     # evaluation and fix-variables against DenseMLE and the digit GEMMs
     for nv, T, pts in ((NV, T20, p20), (NV_BIG, T24, p24)):
-        k5 = FX.evaluate_goldilocks(T, pts)
+        k5 = counted("evaluate_goldilocks",
+                     lambda: FX.evaluate_goldilocks(T, pts))
         for what, want in (
                 ("DenseMLE.evaluate", DenseMLE(e, nv, T).evaluate(list(pts))),
                 ("evaluate_goldilocks_mxu", evaluate_goldilocks_mxu(T, pts))):
             if u64_err(k5, want, what):
                 raise AssertionError(f"K5 nv={nv} differs from {what}")
-    for k in FIX_KS:
-        k6 = FX.fix_last_goldilocks(T20, p20[NV - k:])
-        wants = [("DenseMLE.fix_last_variables", DenseMLE(e, NV, T20)
-                  .fix_last_variables(list(p20[NV - k:])).evals)]
-        if k >= 3:
+    for nv, T, pts, k in [(NV, T20, p20, k) for k in FIX_KS] + [
+            (NV_BIG, T24, p24, NV_BIG - 7)]:
+        k6 = counted("fix_last_goldilocks",
+                     lambda: FX.fix_last_goldilocks(T, pts[nv - k:]))
+        wants = [("DenseMLE.fix_last_variables", DenseMLE(e, nv, T)
+                  .fix_last_variables(list(pts[nv - k:])).evals)]
+        if k >= 3 and nv == NV:   # its int32 buckets stop below k = 17
             wants.append(("fix_last_variables_mxu",
-                          fix_last_variables_mxu(T20, p20[NV - k:])))
+                          fix_last_variables_mxu(T, pts[nv - k:])))
         for what, want in wants:
             if u64_err(k6, want, what):
-                raise AssertionError(f"K6 k={k} differs from {what}")
+                raise AssertionError(f"K6 nv={nv} k={k} differs from "
+                                     f"{what}")
     torch.cuda.synchronize()
     launches = {**FX.LAUNCHES, **SK.LAUNCHES}
     phase("mle path", f"nv={NV} proof: prove {prove_s:.3f} s, verify "
           f"{verify_s:.3f} s, accepted; tampered proof rejected; K7 on the "
           f"bit-reversed tables reproduces its {NV}x3 messages and finals; "
           f"verifier recurrence holds in Python ints; K5 (nv={NV}, "
-          f"{NV_BIG}) and K6 (k={FIX_KS}) equal DenseMLE and the digit-GEMM "
-          f"path; {time.perf_counter() - t0:.1f} s")
+          f"{NV_BIG}) and K6 (nv={NV} k={FIX_KS}, nv={NV_BIG} "
+          f"k={NV_BIG - 7}) equal DenseMLE and the digit-GEMM path; "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- 10. the Python-int oracle -----------------------------------------
     t0 = time.perf_counter()
@@ -835,6 +919,12 @@ def slice_e(dev, smi, rng) -> list:
     if launches["sumcheck_prove_many_goldilocks"] != 1:
         raise AssertionError("the path's one K7 proof took other than one "
                              "launch")
+    phase("mle launches", "per call: " + json.dumps(per_call))
+    for name, counts in per_call.items():
+        if any(c != 1 for c in counts) or launches[name] != len(counts) + (
+                name == "evaluate_goldilocks"):   # verify's two calls
+            raise AssertionError(f"{name}: other than one launch a call at "
+                                 f"nv={NV} and {NV_BIG}: {counts}")
 
     # -- 12. timings --------------------------------------------------------
     G20, H20 = F.rand((1 << NV,), rng, dev), F.rand((1 << NV,), rng, dev)
@@ -865,15 +955,27 @@ def slice_e(dev, smi, rng) -> list:
          lambda: SK.sumcheck_prove_many_ref([G20, H20, T20], c20),
          (G20, H20, T20, c20)),
     ]
+    # the one-launch floor: _build.launch of a 1-element kernel, timed as
+    # phase 17 times it; K5 after a write of twice the 50 MB L2
+    one = F.encode([1], dev)
+    ptrs = (one.data_ptr(), one.data_ptr(), torch.empty_like(one).data_ptr(),
+            1)
+    floor_us = 1e3 * time_ms(lambda: _build.launch(
+        {"floor": 0}, "floor", _build.kernels().srt_pointwise_mul, dev,
+        *ptrs), inner=LAUNCH_REPS)
+    flush = torch.empty(100 << 20, dtype=torch.uint8, device=dev)
     times = {}
     for name, label, kern, twin, inputs in timed:
         moved = nbytes(inputs, kern())
         ms = time_ms(kern, inner=10)
         plain_ms = time_ms(twin)
         times.setdefault(name, (ms, plain_ms, moved))
+        costs = "" if name not in FX.LAUNCHES else "; " + call_costs(
+            FX.LAUNCHES, name, kern, dev, floor_us,
+            flush if name == "evaluate_goldilocks" else None)
         phase("mle time", f"{name} {label}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, memory floor "
-              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} B)  "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms ({moved} B){costs}  "
               f"({smi})")
     k7_ms = times["sumcheck_prove_many_goldilocks"][0]
     phase("mle time", f"K7 nv={NV} k=2: {1e3 / k7_ms:.1f} proofs/s; the "

@@ -15,12 +15,19 @@
 // scratch and bind top variables on contiguous row halves.  At nv = 20
 // that copy is 4 MB per table, far above a Hopper SM's 227 KB of shared
 // memory, so the designs here differ:
-//   K5 binds the low variables first, one 2^10-entry tile per block in
-//      shared memory: the table is read once, and nv = 20 is two
-//      launches (tiles of the table, then the tile of the 2^10 partials).
-//   K6 must bind the top variables: each thread owns one output index
-//      and combines its 2^s strided inputs (coalesced across the warp)
-//      in registers, s <= 5 variables per launch.
+//   K5 binds the low variables first, 2^12 words a block: each thread
+//      binds its 16 words in registers (16-byte loads), the warp the
+//      next five variables with shuffles, the block the last three after
+//      one barrier.  The blocks' values go to partials, and the block that
+//      draws the last ticket of a group of them binds the group, in the
+//      same launch: one launch an evaluation at every nv.
+//   K6 must bind the top variables, in one launch a call.  For k <= 5
+//      each thread owns one output and combines its 2^k strided inputs
+//      (coalesced across the warp) in a register tree.  For k > 5 each
+//      output is a sum of its 2^k inputs times eq weights (a table a
+//      block in shared memory), split over blocks in chunks of j's whose
+//      partials the block with a tile's last ticket adds, so the table
+//      is read once.
 //   K7 proves in one cooperative launch per proof (or per chunk of
 //      claims), as the reference proves in one pallas_call.  Before this
 //      design it was one launch a round plus one reduction: at nv = 20
@@ -39,7 +46,7 @@
 //      the grid barriers and the tail's chain of dependent rounds.
 // None is bound by the modular arithmetic: one lerp (one 64x64->128
 // multiply; three for frog's Montgomery product) per entry read.  K5 and
-// K6 are bound by memory traffic and launch latency.
+// K6 are bound by memory traffic and, at nv = 20, by the launch itself.
 
 #include <cstdint>
 
@@ -53,36 +60,237 @@
 namespace {
 
 // ---------------------------------------------------------------------------
+// K5 and K6 take their points as a table in the launch parameters, so a
+// list of 0-d point tensors needs no stack: point j is the device word
+// *ptr[j], or val[j] where ptr[j] is null (a point given as an integer).
+// A launch that combines the values of several blocks takes two scratch
+// buffers of the caller's: tickets (u32 counters) and partials (64-bit
+// words).  Every ticket is 0 before a launch, and the block that draws
+// a ticket's last number sets it back to 0, so one pair of buffers
+// serves every launch on a stream in turn, whatever its shape; two
+// streams need two pairs (mle/fix.py keeps one a stream).
+// ---------------------------------------------------------------------------
+
+constexpr int MLE_MAX_POINTS = 40;   // a table of 2^40 words is 8 TB
+
+struct Points {
+    const uint64_t* ptr[MLE_MAX_POINTS];
+    uint64_t val[MLE_MAX_POINTS];
+};
+
+__device__ __forceinline__ uint64_t point(const Points& p, int j) {
+    const auto* a = reinterpret_cast<const unsigned long long*>(p.ptr[j]);
+    return a ? __ldg(a) : p.val[j];
+}
+
+// Loads through L2 only (ld.global.cg): a partial that another block
+// wrote in this launch is never read from a stale L1 line.
+__device__ __forceinline__ uint64_t ld_cg(const uint64_t* p) {
+    uint64_t a;
+    asm volatile("ld.global.cg.u64 %0, [%1];" : "=l"(a) : "l"(p) : "memory");
+    return a;
+}
+
+__device__ __forceinline__ void ld_cg2(const uint64_t* p, uint64_t& a,
+                                       uint64_t& b) {
+    asm volatile("ld.global.cg.v2.u64 {%0, %1}, [%2];"
+                 : "=l"(a), "=l"(b) : "l"(p) : "memory");
+}
+
+// One word, or two from a 16-byte boundary: through L2 (CG) where
+// another block of the launch wrote them, else plain loads (a kernel's
+// input, which it never writes).
+template <bool CG>
+__device__ __forceinline__ uint64_t load1(const uint64_t* p) {
+    if constexpr (CG) return ld_cg(p);
+    return *p;
+}
+
+template <bool CG>
+__device__ __forceinline__ void load2(const uint64_t* p, uint64_t& a,
+                                      uint64_t& b) {
+    if constexpr (CG) {
+        ld_cg2(p, a, b);
+    } else {
+        const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(p);
+        a = v.x;
+        b = v.y;
+    }
+}
+
+// Binds the variable of shuffle distance 1 << s: every lane ends with
+// the pair's value (the lane whose bit s is 0 holds the low entry).
+__device__ __forceinline__ uint64_t lerp_lanes(uint64_t v, int s, uint64_t r) {
+    const uint64_t o = __shfl_xor_sync(0xffffffffu, v, 1 << s);
+    const bool odd = (threadIdx.x >> s) & 1;
+    return gl::lerp(odd ? o : v, odd ? v : o, r);
+}
+
+// A launch's scratch: `tickets` counters, all 0, and room for
+// `partials` words.
+struct Scratch {
+    unsigned* tickets;
+    int64_t n_tickets;
+    uint64_t* partials;
+    int64_t n_partials;
+
+    bool holds(int64_t tickets_needed, int64_t partials_needed) const {
+        return tickets_needed <= n_tickets && partials_needed <= n_partials
+               && (!tickets_needed || tickets)
+               && (!partials_needed || partials);
+    }
+};
+
+// ---------------------------------------------------------------------------
 // K5: full evaluation.  Replaces evaluate_goldilocks_pallas
 // (stark_rings_tpu/mle/pallas_fix.py, _make_eval_kernel and _lerp).
 // ---------------------------------------------------------------------------
 
 constexpr int EVAL_THREADS = 256;
-constexpr int EVAL_MAX_BITS = 10;
+constexpr int EVAL_WARPS = EVAL_THREADS / 32;
+constexpr int EVAL_BITS = 12;                       // a block binds 2^12 words
+constexpr int EVAL_WORDS = (1 << EVAL_BITS) / EVAL_THREADS;  // 16 a thread
 
-// Block b binds the m low variables of tile b (entries b*2^m ...
-// (b+1)*2^m - 1) to pts[0..m-1] and writes the value to out[b].  The
-// tile's top variable is bound while it is loaded (two coalesced reads
-// per thread), the rest in shared memory on top and bottom halves.
-__global__ void __launch_bounds__(EVAL_THREADS)
-mle_eval_tiles_kernel(const uint64_t* __restrict__ in,
-                      uint64_t* __restrict__ out, int m,
-                      const uint64_t* __restrict__ pts) {
-    __shared__ uint64_t s[1 << (EVAL_MAX_BITS - 1)];
-    const uint64_t* tile = in + (static_cast<int64_t>(blockIdx.x) << m);
-    int h = 1 << (m - 1);
-    const uint64_t r_top = pts[m - 1];
-    for (int i = threadIdx.x; i < h; i += EVAL_THREADS)
-        s[i] = gl::lerp(tile[i], tile[i + h], r_top);
-    for (int j = m - 2; j >= 0; --j) {
-        __syncthreads();
-        h = 1 << j;
-        const uint64_t r = pts[j];
-        // s[i] is read and written only by the thread that owns i < h
-        for (int i = threadIdx.x; i < h; i += EVAL_THREADS)
-            s[i] = gl::lerp(s[i], s[i + h], r);
+__host__ __device__ constexpr int ilog2(int x) {
+    return x > 1 ? 1 + ilog2(x / 2) : 0;
+}
+
+// Binds the 2^n words src[0 .. 2^n), n <= EVAL_BITS, to the points
+// off .. off+n-1 (bit b of the index to point off + b) with the whole
+// block; the value is valid in thread 0, and every thread must call it.
+// Thread (warp w, lane l) loads VW words at a time (VW = 2: 16-byte
+// loads) from VW*(l + 32*(w + 8*u)), u < EVAL_WORDS/VW, so each load
+// instruction of a warp covers 32*VW contiguous words.  The index bits
+// split three ways:
+//   registers: bit 0 if VW = 2 (bound as it is loaded), and the top
+//     bits (those of u);
+//   lanes: the next five bits, bound with shuffles, no barrier;
+//   warps: the next three, bound by warp 0 after one barrier.
+// Every thread computes each step, so none sits idle until the warps'
+// step.  Words at or beyond 2^n read as 0 and the variables past n are
+// not bound, so thread 0's value never takes them in.  CG: src holds
+// partials of this launch (read through L2).
+template <int VW, bool CG>
+__device__ __forceinline__ uint64_t eval_block(const uint64_t* src, int n,
+                                               const Points& pts, int off,
+                                               uint64_t* sh) {
+    constexpr int LV = ilog2(VW);           // index bits within a load
+    constexpr int U = EVAL_WORDS / VW;      // loads a thread
+    constexpr int LU = ilog2(U);            // index bits of u
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t size = int64_t{1} << n;
+    uint64_t r0 = 0;
+    if constexpr (VW == 2) r0 = point(pts, off);
+    uint64_t x[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+        const int64_t i = VW * (lane + 32 * (warp + EVAL_WARPS * u));
+        x[u] = 0;
+        if (i < size) {
+            if constexpr (VW == 2) {
+                uint64_t a, b;
+                load2<CG>(src + i, a, b);
+                x[u] = gl::lerp(a, b, r0);
+            } else {
+                x[u] = load1<CG>(src + i);
+            }
+        }
     }
-    if (threadIdx.x == 0) out[blockIdx.x] = s[0];  // written by thread 0
+#pragma unroll
+    for (int s = 0; s < LU; ++s) {           // u's bits: pairs (2c, 2c+1)
+        const int b = LV + 8 + s;
+        const uint64_t r = b < n ? point(pts, off + b) : 0;
+#pragma unroll
+        for (int c = 0; c < (U >> (s + 1)); ++c)
+            x[c] = b < n ? gl::lerp(x[2 * c], x[2 * c + 1], r) : x[2 * c];
+    }
+    uint64_t v = x[0];
+#pragma unroll
+    for (int s = 0; s < 5; ++s)
+        if (LV + s < n) v = lerp_lanes(v, s, point(pts, off + LV + s));
+    if (lane == 0) sh[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        v = lane < EVAL_WARPS ? sh[lane] : 0;
+#pragma unroll
+        for (int s = 0; s < 3; ++s)
+            if (LV + 5 + s < n)
+                v = lerp_lanes(v, s, point(pts, off + LV + 5 + s));
+    }
+    return v;
+}
+
+// The levels of an evaluation: level 0 binds b0 = min(nv, EVAL_BITS)
+// variables in each of its 2^(nv - b0) blocks; each later level binds up
+// to EVAL_BITS more, in the block that draws the last ticket of its
+// group.  The tickets (one a group of every later level) and partials
+// (the values of every level but the last) of an nv; mle/fix.py's
+// eval_plan mirrors these rules.
+__host__ __device__ inline void eval_layout(int nv, int64_t& tickets,
+                                            int64_t& partials) {
+    tickets = partials = 0;
+    int done = nv < EVAL_BITS ? nv : EVAL_BITS;
+    while (done < nv) {
+        const int b = nv - done < EVAL_BITS ? nv - done : EVAL_BITS;
+        partials += int64_t{1} << (nv - done);
+        tickets += int64_t{1} << (nv - done - b);
+        done += b;
+    }
+}
+
+// The launch's point table from host arrays of n device pointers (0 for
+// a point given as a value) and n values.
+inline bool make_points(Points& p, int n, const void* ptrs,
+                        const void* vals) {
+    if (n < 1 || n > MLE_MAX_POINTS || !ptrs || !vals) return false;
+    const auto* pp = static_cast<const uint64_t*>(ptrs);
+    const auto* vv = static_cast<const uint64_t*>(vals);
+    for (int j = 0; j < MLE_MAX_POINTS; ++j) {
+        p.ptr[j] = j < n ? reinterpret_cast<const uint64_t*>(pp[j]) : nullptr;
+        p.val[j] = j < n ? vv[j] : 0;
+    }
+    return true;
+}
+
+// The whole evaluation in one launch.  Block x binds tile x of 2^b0
+// words; while variables are left, it writes its value to the level's
+// partials, fences, and takes a ticket of its group of 2^b values: the
+// block that draws the group's last ticket sets the ticket back to 0 and
+// binds the group (reading the partials through L2).  The one block
+// that binds the last level writes *out.
+template <int VW>
+__global__ void __launch_bounds__(EVAL_THREADS)
+mle_eval_kernel(const uint64_t* __restrict__ in, int nv,
+                const __grid_constant__ Points pts, uint64_t* partials,
+                unsigned* tickets, uint64_t* __restrict__ out) {
+    __shared__ uint64_t sh[EVAL_WARPS];
+    __shared__ int last;
+    int done = nv < EVAL_BITS ? nv : EVAL_BITS;
+    int64_t idx = blockIdx.x;
+    uint64_t v = eval_block<VW, false>(in + (idx << done), done, pts, 0,
+                                       sh);
+    while (done < nv) {
+        const int b = nv - done < EVAL_BITS ? nv - done : EVAL_BITS;
+        const int64_t g = idx >> b;
+        if (threadIdx.x == 0) {
+            partials[idx] = v;
+            __threadfence();
+            const bool mine = atomicAdd(tickets + g, 1u) == (1u << b) - 1;
+            if (mine) {
+                tickets[g] = 0;
+                __threadfence();
+            }
+            last = mine;
+        }
+        __syncthreads();
+        if (!last) return;                  // the whole block
+        v = eval_block<VW, true>(partials + (g << b), b, pts, done, sh);
+        partials += int64_t{1} << (nv - done);
+        tickets += int64_t{1} << (nv - done - b);
+        idx = g;
+        done += b;
+    }
+    if (threadIdx.x == 0) *out = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -91,45 +299,202 @@ mle_eval_tiles_kernel(const uint64_t* __restrict__ in,
 // ---------------------------------------------------------------------------
 
 constexpr int FIX_THREADS = 256;
-constexpr int FIX_MAX_BITS = 5;
+constexpr int FIX_TREE_BITS = 5;     // k <= 5: the register tree
+constexpr int FIX_ROW = 64;          // threads of a row: 2 outputs each
+constexpr int FIX_ROWS = FIX_THREADS / FIX_ROW;
+constexpr int FIX_TILE = 2 * FIX_ROW;              // outputs of a block
+constexpr int64_t FIX_TARGET_BLOCKS = 256;
+constexpr int64_t FIX_MAX_CHUNKS = 128;
+constexpr int64_t FIX_MIN_J = 8;
+constexpr int64_t FIX_MAX_J = 256;
+constexpr int FIX_PREFETCH = 8;      // j's a thread loads before the weights
+static_assert(FIX_PREFETCH <= FIX_MIN_J, "every row takes FIX_PREFETCH j's");
 
-// The multilinear value of p[(base + j)*M], j < 2^S, at pts[0..S-1]
-// (bit t of j bound to pts[t]): the top bit splits j into two halves.
+// The multilinear value of p[(base + j)*M], j < 2^S, at r[0..S-1]
+// (bit t of j bound to r[t]): the top bit splits j into two halves.
 // Written as a compile-time recursion so the 2^S loads are independent
 // scalars the compiler keeps in registers (an indexed local array was
 // placed in local memory).
 template <int S>
 __device__ __forceinline__ uint64_t fix_tree(const uint64_t* p, int64_t M,
-                                             int base, const uint64_t* pts) {
+                                             int base, const uint64_t* r) {
     if constexpr (S == 0) {
         return p[base * M];
     } else {
-        const uint64_t lo = fix_tree<S - 1>(p, M, base, pts);
-        const uint64_t hi = fix_tree<S - 1>(p, M, base + (1 << (S - 1)), pts);
-        return gl::lerp(lo, hi, pts[S - 1]);
+        const uint64_t lo = fix_tree<S - 1>(p, M, base, r);
+        const uint64_t hi = fix_tree<S - 1>(p, M, base + (1 << (S - 1)), r);
+        return gl::lerp(lo, hi, r[S - 1]);
     }
 }
 
-// Binds the top S variables of a table of 2^S * M entries: out[i] for
-// i < M combines in[i + j*M], j < 2^S, where bit t of j is the variable
-// bound to pts[t].  Consecutive threads read consecutive addresses for
-// every j.
+// k = S <= 5: out[i] for i < M combines in[i + j*M], j < 2^S, where bit
+// t of j is the variable bound to point t.  Consecutive threads read
+// consecutive addresses for every j.
 template <int S>
 __global__ void __launch_bounds__(FIX_THREADS)
-mle_fix_top_kernel(const uint64_t* __restrict__ in,
-                   uint64_t* __restrict__ out, int64_t M,
-                   const uint64_t* __restrict__ pts) {
+mle_fix_tree_kernel(const uint64_t* __restrict__ in,
+                    uint64_t* __restrict__ out, int64_t M,
+                    const __grid_constant__ Points pts) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * FIX_THREADS
                       + threadIdx.x;
-    if (i < M) out[i] = fix_tree<S>(in + i, M, 0, pts);
+    uint64_t r[S];
+#pragma unroll
+    for (int t = 0; t < S; ++t) r[t] = point(pts, t);
+    if (i < M) out[i] = fix_tree<S>(in + i, M, 0, r);
 }
 
-template <int S>
-void launch_fix(const uint64_t* in, uint64_t* out, int64_t M,
-                const uint64_t* pts, cudaStream_t s) {
-    const auto blocks = static_cast<unsigned>((M + FIX_THREADS - 1)
-                                              / FIX_THREADS);
-    mle_fix_top_kernel<S><<<blocks, FIX_THREADS, 0, s>>>(in, out, M, pts);
+// k > 5: the split of the 2^k j's of each output.  A block takes a tile
+// of FIX_TILE outputs and one of `chunks` chunks of consecutive j's, J a
+// row.  Chunks double (J halves) while J exceeds FIX_MAX_J, and while
+// the grid has fewer than FIX_TARGET_BLOCKS blocks, up to
+// FIX_MAX_CHUNKS chunks and down to FIX_MIN_J.  fix_plan in mle/fix.py
+// mirrors these rules.
+__host__ __device__ inline void fix_layout(int nv, int k, int64_t& chunks,
+                                           int64_t& J) {
+    const int64_t tiles = (int64_t{1} << (nv - k)) / FIX_TILE;
+    J = (int64_t{1} << k) / FIX_ROWS;
+    chunks = 1;
+    while (J > FIX_MAX_J || (tiles * chunks < FIX_TARGET_BLOCKS
+                             && chunks < FIX_MAX_CHUNKS
+                             && J >= 2 * FIX_MIN_J)) {
+        chunks *= 2;
+        J /= 2;
+    }
+}
+
+// Outputs i and i + 1 of input row p: one 16-byte load (VW = 2), or
+// two 8-byte loads off a 16-byte boundary.
+template <int VW>
+__device__ __forceinline__ void load_in(const uint64_t* p, uint64_t& a,
+                                        uint64_t& b) {
+    if constexpr (VW == 2) {
+        load2<false>(p, a, b);
+    } else {
+        a = load1<false>(p);
+        b = load1<false>(p + 1);
+    }
+}
+
+// Two outputs' 128-bit sums of products, each product reduced first
+// (< q < 2^64), so 2^64 terms cannot overflow.
+struct Acc2 {
+    uint64_t lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+    __device__ __forceinline__ void add(uint64_t a, uint64_t b) {
+        lo0 += a;
+        hi0 += lo0 < a;
+        lo1 += b;
+        hi1 += lo1 < b;
+    }
+};
+
+// k > 5 in one launch, reading each input word once: out[i] =
+// sum_j w_j in[i + j*M] with the eq weights w_j = prod_t (bit t of j ?
+// r_t : 1 - r_t), which equals the lerp tree mod q (the multilinear
+// extension is unique).  Block (tile, chunk c) builds the weights of its
+// 4J j's in shared memory: the chunk's high bits give one factor, every
+// thread's own; then row y's thread t sums its J j's for outputs
+// tile*128 + 2t and +1 (16-byte loads when VW = 2, each row of a warp
+// on 512 contiguous bytes), the rows add up through shared memory, and
+// with one chunk the block writes the outputs.  With more, it writes the
+// chunk's partials, fences, and takes the tile's ticket: the block that
+// draws the last sets it back to 0 and adds the chunks' partials.
+template <int VW>
+__global__ void __launch_bounds__(FIX_THREADS)
+mle_fix_eq_kernel(const uint64_t* __restrict__ in,
+                  uint64_t* __restrict__ out, int64_t M, int k, int J,
+                  int64_t chunks, const __grid_constant__ Points pts,
+                  uint64_t* partials, unsigned* tickets) {
+    __shared__ uint64_t w[FIX_ROWS * FIX_MAX_J];
+    __shared__ uint64_t rows[FIX_ROWS][FIX_TILE];
+    __shared__ int last;
+    const int64_t tiles = M / FIX_TILE;
+    const int64_t tile = blockIdx.x % tiles;
+    const int64_t c = blockIdx.x / tiles;
+    const int y = threadIdx.x / FIX_ROW, t = threadIdx.x % FIX_ROW;
+    const int64_t i = tile * FIX_TILE + 2 * t;
+    int lb = 0;                               // bits of j within a chunk
+    while ((1 << lb) < FIX_ROWS * J) ++lb;
+    const int64_t j0 = c << lb;
+    const uint64_t* p = in + i + (j0 + static_cast<int64_t>(y) * J) * M;
+    // the first FIX_PREFETCH j's are in flight while the weights are made
+    uint64_t xa[FIX_PREFETCH], xb[FIX_PREFETCH];
+#pragma unroll
+    for (int u = 0; u < FIX_PREFETCH; ++u) load_in<VW>(p + u * M, xa[u], xb[u]);
+    if (static_cast<int>(threadIdx.x) < FIX_ROWS * J) {
+        uint64_t hi = 1;
+        for (int s = lb; s < k; ++s) {
+            const uint64_t r = point(pts, s);
+            hi = gl::mul(hi, (j0 >> s) & 1 ? r : gl::sub(1, r));
+        }
+        for (int e = threadIdx.x; e < FIX_ROWS * J; e += FIX_THREADS) {
+            uint64_t x = hi;
+            for (int s = 0; s < lb; ++s) {
+                const uint64_t r = point(pts, s);
+                x = gl::mul(x, (e >> s) & 1 ? r : gl::sub(1, r));
+            }
+            w[e] = x;
+        }
+    }
+    __syncthreads();
+    const uint64_t* wy = w + y * J;
+    Acc2 acc;
+#pragma unroll
+    for (int u = 0; u < FIX_PREFETCH; ++u)
+        acc.add(gl::mul(wy[u], xa[u]), gl::mul(wy[u], xb[u]));
+#pragma unroll 8
+    for (int u = FIX_PREFETCH; u < J; ++u) {
+        uint64_t a, b;
+        load_in<VW>(p + u * M, a, b);
+        const uint64_t wu = wy[u];
+        acc.add(gl::mul(wu, a), gl::mul(wu, b));
+    }
+    rows[y][2 * t] = gl::reduce128(acc.hi0, acc.lo0);
+    rows[y][2 * t + 1] = gl::reduce128(acc.hi1, acc.lo1);
+    __syncthreads();
+    // thread x < FIX_TILE adds output x's rows
+    const int64_t o = tile * FIX_TILE + threadIdx.x;
+    uint64_t s = 0;
+    if (threadIdx.x < FIX_TILE) {
+        s = rows[0][threadIdx.x];
+#pragma unroll
+        for (int r = 1; r < FIX_ROWS; ++r) s = gl::add(s, rows[r][threadIdx.x]);
+    }
+    if (chunks == 1) {
+        if (threadIdx.x < FIX_TILE) out[o] = s;
+        return;
+    }
+    if (threadIdx.x < FIX_TILE) {
+        partials[c * M + o] = s;
+        __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        const bool mine = atomicAdd(tickets + tile, 1u)
+                          == static_cast<unsigned>(chunks - 1);
+        if (mine) {
+            tickets[tile] = 0;
+            __threadfence();
+        }
+        last = mine;
+    }
+    __syncthreads();
+    if (!last) return;                      // the whole block
+    // row y adds chunks y, y + 4, ... for outputs i and i + 1
+    Acc2 sum;
+    for (int64_t cc = y; cc < chunks; cc += FIX_ROWS) {
+        uint64_t a, b;
+        ld_cg2(partials + cc * M + i, a, b);
+        sum.add(a, b);
+    }
+    rows[y][2 * t] = gl::reduce128(sum.hi0, sum.lo0);
+    rows[y][2 * t + 1] = gl::reduce128(sum.hi1, sum.lo1);
+    __syncthreads();
+    if (threadIdx.x < FIX_TILE) {
+        s = rows[0][threadIdx.x];
+#pragma unroll
+        for (int r = 1; r < FIX_ROWS; ++r) s = gl::add(s, rows[r][threadIdx.x]);
+        out[o] = s;
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -747,36 +1112,84 @@ int sumcheck_reduce(const void* partials, void* msgs, int k1, int rounds,
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError() (0 on success).  The Python wrappers check sizes.
 
-// K5 stage: n_tiles tiles of 2^m entries (1 <= m <= 10) -> n_tiles values.
-extern "C" int srt_mle_eval_tiles(const void* in, void* out, int64_t n_tiles,
-                                  int m, const void* pts, void* stream) {
-    if (m < 1 || m > EVAL_MAX_BITS || n_tiles < 1 || n_tiles >= (1ll << 31))
+// K5: the multilinear value of the 2^nv words `in` at the nv points
+// (1 <= nv <= 40), written to *out, in one launch.  pt_ptrs / pt_vals:
+// host arrays of nv device pointers (0 for a point given as a value) and
+// nv values.  tickets (n_tickets u32, all 0) and partials (n_partials
+// words): the scratch that eval_layout asks for, null where it asks for
+// none.
+extern "C" int srt_mle_eval(const void* in, int nv, const void* pt_ptrs,
+                            const void* pt_vals, void* tickets,
+                            int64_t n_tickets, void* partials,
+                            int64_t n_partials, void* out, void* stream) {
+    Points pts;
+    const Scratch sc{static_cast<unsigned*>(tickets), n_tickets,
+                     static_cast<uint64_t*>(partials), n_partials};
+    int64_t need_t, need_p;
+    eval_layout(nv, need_t, need_p);
+    if (!make_points(pts, nv, pt_ptrs, pt_vals) || !sc.holds(need_t, need_p))
         return static_cast<int>(cudaErrorInvalidValue);
-    mle_eval_tiles_kernel<<<static_cast<unsigned>(n_tiles), EVAL_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out), m,
-        static_cast<const uint64_t*>(pts));
+    const int b0 = nv < EVAL_BITS ? nv : EVAL_BITS;
+    const auto blocks = static_cast<unsigned>(int64_t{1} << (nv - b0));
+    const auto* ip = static_cast<const uint64_t*>(in);
+    auto* op = static_cast<uint64_t*>(out);
+    auto st = static_cast<cudaStream_t>(stream);
+    if ((reinterpret_cast<uintptr_t>(in) & 15) == 0)
+        mle_eval_kernel<2><<<blocks, EVAL_THREADS, 0, st>>>(
+            ip, nv, pts, sc.partials, sc.tickets, op);
+    else
+        mle_eval_kernel<1><<<blocks, EVAL_THREADS, 0, st>>>(
+            ip, nv, pts, sc.partials, sc.tickets, op);
     return static_cast<int>(cudaGetLastError());
 }
 
-// K6 stage: a table of 2^s * M entries -> M entries, top s variables
-// bound (1 <= s <= 5).
-extern "C" int srt_mle_fix_top(const void* in, void* out, int64_t M, int s,
-                               const void* pts, void* stream) {
-    if (M < 1 || (M + FIX_THREADS - 1) / FIX_THREADS >= (1ll << 31))
+// K6: bind the top k variables of the 2^nv words `in` (nv >= 9,
+// 1 <= k <= nv - 7) to the k points (bit t of the top k to point t) and
+// write the 2^(nv-k) words `out`, in one launch.  Points and scratch as
+// srt_mle_eval's, the layout fix_layout's: with more than one chunk,
+// one ticket a tile and chunks * 2^(nv-k) partials.
+extern "C" int srt_mle_fix(const void* in, int nv, int k, const void* pt_ptrs,
+                           const void* pt_vals, void* tickets,
+                           int64_t n_tickets, void* partials,
+                           int64_t n_partials, void* out, void* stream) {
+    Points pts;
+    if (nv < 9 || nv > MLE_MAX_POINTS || k < 1 || k > nv - 7
+            || !make_points(pts, k, pt_ptrs, pt_vals))
         return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t M = int64_t{1} << (nv - k);
     const auto* ip = static_cast<const uint64_t*>(in);
     auto* op = static_cast<uint64_t*>(out);
-    const auto* pp = static_cast<const uint64_t*>(pts);
     auto st = static_cast<cudaStream_t>(stream);
-    switch (s) {
-        case 1: launch_fix<1>(ip, op, M, pp, st); break;
-        case 2: launch_fix<2>(ip, op, M, pp, st); break;
-        case 3: launch_fix<3>(ip, op, M, pp, st); break;
-        case 4: launch_fix<4>(ip, op, M, pp, st); break;
-        case 5: launch_fix<5>(ip, op, M, pp, st); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
+    if (k <= FIX_TREE_BITS) {
+        const auto blocks = static_cast<unsigned>((M + FIX_THREADS - 1)
+                                                  / FIX_THREADS);
+        switch (k) {
+#define FIX_TREE(S)                                                         \
+            case S:                                                         \
+                mle_fix_tree_kernel<S><<<blocks, FIX_THREADS, 0, st>>>(     \
+                    ip, op, M, pts);                                        \
+                break;
+            FIX_TREE(1) FIX_TREE(2) FIX_TREE(3) FIX_TREE(4) FIX_TREE(5)
+#undef FIX_TREE
+        }
+        return static_cast<int>(cudaGetLastError());
     }
+    int64_t chunks, J;
+    fix_layout(nv, k, chunks, J);
+    const int64_t tiles = M / FIX_TILE;
+    const Scratch sc{static_cast<unsigned*>(tickets), n_tickets,
+                     static_cast<uint64_t*>(partials), n_partials};
+    if (!sc.holds(chunks > 1 ? tiles : 0, chunks > 1 ? chunks * M : 0)
+            || tiles * chunks >= (int64_t{1} << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const auto blocks = static_cast<unsigned>(tiles * chunks);
+    const int j = static_cast<int>(J);
+    if ((reinterpret_cast<uintptr_t>(in) & 15) == 0)
+        mle_fix_eq_kernel<2><<<blocks, FIX_THREADS, 0, st>>>(
+            ip, op, M, k, j, chunks, pts, sc.partials, sc.tickets);
+    else
+        mle_fix_eq_kernel<1><<<blocks, FIX_THREADS, 0, st>>>(
+            ip, op, M, k, j, chunks, pts, sc.partials, sc.tickets);
     return static_cast<int>(cudaGetLastError());
 }
 

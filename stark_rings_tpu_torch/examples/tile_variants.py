@@ -4,7 +4,9 @@ multiply on the card, beside the kept design: the transposed K1 (the
 tile shape, loads in flight, blocks an SM of ``csrc/fold.cu``'s
 ``fold_tw_t_kernel``) and the radix engine's tile (words a thread of
 ``csrc/ntt.cu``'s ``ntt_tile_kernel``), at the main path's shapes
-(B = 80, N = 2^16, R = t = 256).
+(B = 80, N = 2^16, R = t = 256); and of K5, the MLE evaluation
+(``csrc/mle.cu``'s ``mle_eval_kernel``, words a block), at nv = 20 and
+24.
 
 Each variant is a copy of the kept source with some constants changed,
 built by nvcc on its own into ``build/tile_variants/``, and called
@@ -14,10 +16,15 @@ outputs differ on purpose: one drops the twiddle products' reduction
 (``w * b`` mod 2^64), one the reduction of the butterfly's sum and
 difference, one the twiddle loads (constant twiddles), one the words an
 exchange moves through shared memory (its barrier stays).  What each
-saves is what that part costs in the tile.
+saves is what that part costs in the tile.  K5's three probes do the
+same for its lerps (each becomes an xor), for the levels after the first
+(each block writes its value and stops: no tickets, no last block), and
+for both at once (the loads, shuffles and one barrier).
 
 Run on a machine with a CUDA card and nvcc, from the root of a checkout:
-    python -m stark_rings_tpu_torch.examples.tile_variants
+    python -m stark_rings_tpu_torch.examples.tile_variants [fold] [tile]
+        [eval]
+(every group when none is named).
 """
 
 from __future__ import annotations
@@ -27,15 +34,17 @@ import pathlib
 import shutil
 import statistics
 import subprocess
+import sys
 
 import numpy as np
 import torch
 
 from ..fields import GOLDILOCKS as F
+from ..mle import fix as FX
 from ..ops import _build, fold as K, goldilocks_ntt as G
 from ..ops.fold import Mxu2FusedNTT
 
-__all__ = ["FOLD_VARIANTS", "TILE_VARIANTS", "main"]
+__all__ = ["EVAL_VARIANTS", "FOLD_VARIANTS", "TILE_VARIANTS", "main"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "tile_variants"
@@ -78,6 +87,31 @@ TILE_VARIANTS = {
           "    for (int j = 0; j < REG; ++j) x[j] = sh[spad(word_at(p.u, "
           "next, j))];",
           "x[j] += lo + next;\n    __syncthreads();")]),
+}
+_NO_LERPS = [
+    ("return gl::lerp(odd ? o : v, odd ? v : o, r);", "return v ^ o ^ r;"),
+    ("x[u] = gl::lerp(a, b, r0);", "x[u] = a ^ b ^ r0;"),
+    ("x[c] = b < n ? gl::lerp(x[2 * c], x[2 * c + 1], r) : x[2 * c];",
+     "x[c] = b < n ? x[2 * c] ^ x[2 * c + 1] ^ r : x[2 * c];")]
+_ONE_LEVEL = [
+    ("    while (done < nv) {\n"
+     "        const int b = nv - done < EVAL_BITS ? nv - done : EVAL_BITS;\n"
+     "        const int64_t g = idx >> b;",
+     "    if (done < nv) {\n"
+     "        if (threadIdx.x == 0) partials[idx] = v;\n"
+     "        return;\n"
+     "    }\n"
+     "    while (done < nv) {\n"
+     "        const int b = nv - done < EVAL_BITS ? nv - done : EVAL_BITS;\n"
+     "        const int64_t g = idx >> b;")]
+EVAL_VARIANTS = {
+    "kept": ("2^12 words a block, 16 a thread", []),
+    "8 words a thread": ("2^11 words a block",
+                         [("EVAL_BITS = 12;", "EVAL_BITS = 11;")]),
+    "probe: no lerps": ("cost probe, every lerp an xor", _NO_LERPS),
+    "probe: one level": ("cost probe, no tickets and no last block",
+                         _ONE_LEVEL),
+    "probe: loads only": ("cost probe, both", _NO_LERPS + _ONE_LEVEL),
 }
 REPS = 10
 
@@ -138,7 +172,8 @@ def _call(fn, *args) -> None:
         raise RuntimeError(f"launch failed ({err})")
 
 
-def main() -> None:
+def main(groups=None) -> None:
+    groups = set(groups or sys.argv[1:] or ("fold", "tile", "eval"))
     if not torch.cuda.is_available():
         raise SystemExit("tile_variants: needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -147,12 +182,20 @@ def main() -> None:
          "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    p, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_uint64)
     rng = np.random.default_rng(0)
     N, B = 1 << 16, 80
     a, b = F.rand((B, N), rng, dev), F.rand((B, N), rng, dev)
+    if "fold" in groups:
+        _fold(a, dev, card)
+    if "tile" in groups:
+        _tile(a, b, dev, card)
+    if "eval" in groups:
+        _eval(rng, dev, card)
 
+
+def _fold(a, dev, card) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    N = a.shape[1]
     eng = Mxu2FusedNTT(N, device=dev)
     V = eng._dot(eng.mat1, eng._to_internal(a), eng.c, "w1")
     tw, R = eng.c["tw"], eng.mat1.R
@@ -177,6 +220,11 @@ def main() -> None:
               f"({FOLD_VARIANTS[name][0]}): {_time_ms(run):.4f} ms  "
               f"({card})")
 
+
+def _tile(a, b, dev, card) -> None:
+    p, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint64)
+    B, N = a.shape
     wf, wi, ninv = G.GoldilocksKernelNTT(N, device=dev).tables()
     libs = _build_variants("ntt.cu", TILE_VARIANTS)
     for log_tile in (13, 14):
@@ -201,6 +249,41 @@ def main() -> None:
                 print(f"tile {mode} log_tile {log_tile} [{B}, {N}] {name} "
                       f"({TILE_VARIANTS[name][0]}): {_time_ms(run):.4f} ms"
                       f"  ({card})")
+
+
+
+def _eval(rng, dev, card) -> None:
+    """K5's variants at nv = 20 and 24 through ``srt_mle_eval``, each
+    launch on its own scratch (more than any variant asks for); the kept
+    design is timed first and last."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    libs = _build_variants("mle.cu", EVAL_VARIANTS)
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    partials = torch.empty(1 << 16, dtype=torch.int64, device=dev)
+    for nv in (20, 24):
+        T = F.rand((1 << nv,), rng, dev)
+        P = F.rand((nv,), rng, dev)
+        want = FX.evaluate_goldilocks_ref(T, P)
+        ptrs, vals = FX._point_table("variant", P, dev)
+        for name in [*EVAL_VARIANTS, "kept"]:
+            lib = libs[name]
+            lib.srt_mle_eval.argtypes = [p, i32, p, p, p, i64, p, i64, p, p]
+            out = torch.empty((), dtype=torch.int64, device=dev)
+
+            def run():
+                _call(lib.srt_mle_eval, T.data_ptr(), nv, ptrs, vals,
+                      tickets.data_ptr(), tickets.numel(),
+                      partials.data_ptr(), partials.numel(), out.data_ptr())
+
+            for _ in range(3):   # back to back: the tickets return to 0
+                run()
+                torch.cuda.synchronize()
+                equal = torch.equal(out, want)
+                if equal == name.startswith("probe"):
+                    raise AssertionError(f"K5 variant {name!r} nv={nv}: "
+                                         f"equal to the twin is {equal}")
+            print(f"K5 nv={nv} {name} ({EVAL_VARIANTS[name][0]}): "
+                  f"{_time_ms(run):.4f} ms  ({card})", flush=True)
 
 
 if __name__ == "__main__":

@@ -113,8 +113,8 @@ def kernels() -> ctypes.CDLL:
     lib.srt_bb_fold_tw.argtypes = lib.srt_fold_tw.argtypes
     lib.srt_bb_fold_end2_mul.argtypes = lib.srt_fold_end2_mul.argtypes
     lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
-    lib.srt_mle_eval_tiles.argtypes = [p, p, i64, i32, p, p]
-    lib.srt_mle_fix_top.argtypes = [p, p, i64, i32, p, p]
+    lib.srt_mle_eval.argtypes = [p, i32, p, p, p, i64, p, i64, p, p]
+    lib.srt_mle_fix.argtypes = [p, i32, i32, p, p, p, i64, p, i64, p, p]
     sumcheck = []
     for field in ("goldilocks", "babybear", "frog"):
         prove = getattr(lib, f"srt_sumcheck_prove_{field}")
@@ -134,7 +134,7 @@ def kernels() -> ctypes.CDLL:
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
                lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
-               lib.srt_mle_eval_tiles, lib.srt_mle_fix_top, *sumcheck,
+               lib.srt_mle_eval, lib.srt_mle_fix, *sumcheck,
                *exchange):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
@@ -156,12 +156,17 @@ def on_cuda(name, *tensors) -> bool:
     raise ValueError(f"{name}: no kernel for device {dev}")
 
 
-def launch(counts: dict, name: str, fn, device, *args) -> None:
+def launch(counts: dict, name: str, fn, device, *args, stream=None) -> None:
     """Call the C entry point ``fn(*args, stream)`` on ``device``'s
-    current stream, raise if the launch failed, and count it in
-    ``counts[name]``."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current stream (or on the handle ``stream``), raise if the launch
+    failed, and count it in ``counts[name]``."""
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err:
         msg = kernels().srt_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")

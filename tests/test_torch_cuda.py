@@ -2,13 +2,14 @@
 fold kernels K1-K3 (the transposed K1 at ragged tiles and at the main
 path's shape), the BabyBear folds K4 and the Goldilocks pointwise
 kernel, and the engines built on them against the kernel-free engines;
-the MLE kernels K5 and K6, and the sumcheck prover K7 over Goldilocks,
-BabyBear and frog, for one claim and for a batch; the radix NTT kernels
-(the tile kernel in every mode at every log_tile, and the engine against
-NTTContext from N = 2 to 2^16), the fused mod-mat kernel and the chain
-kernel, and the engines on them.  Marked ``cuda``: they skip where no
-CUDA card is present.  This file imports no JAX, so it also runs where
-JAX is not installed:
+the MLE kernels K5 and K6 (one launch a call, on one stream and on two,
+points in every form, unaligned tables), and the sumcheck prover K7
+over Goldilocks, BabyBear and frog, for one claim and for a batch; the
+radix NTT kernels (the tile kernel in every mode at every log_tile, and
+the engine against NTTContext from N = 2 to 2^16), the fused mod-mat
+kernel and the chain kernel, and the engines on them.  Marked ``cuda``:
+they skip where no CUDA card is present.  This file imports no JAX, so
+it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda \
         tests/test_torch_cuda.py
@@ -329,12 +330,125 @@ def test_mle_kernels_match_twins(dev, nv, kind):
     before = FX.LAUNCHES["evaluate_goldilocks"]
     got = FX.evaluate_goldilocks(ev, pts)
     torch.cuda.synchronize()
-    assert FX.LAUNCHES["evaluate_goldilocks"] == before + (nv + 9) // 10
+    assert FX.LAUNCHES["evaluate_goldilocks"] == before + 1
     assert torch.equal(got, FX.evaluate_goldilocks_ref(ev, pts))
     for k in [k for k in (1, 2, 5, 6) if k <= nv - 7]:
         got = FX.fix_last_goldilocks(ev, pts[:k])
         torch.cuda.synchronize()
         assert torch.equal(got, FX.fix_last_goldilocks_ref(ev, pts[:k])), k
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv", [1, 4, 9, 10, 11, 12, 20, 21, 24])
+def test_evaluate_is_one_launch(dev, nv, kind):
+    """K5 in one launch at every nv: one tile and below (nv <= 11), one
+    ticket level (12, 20, 21) and two (24)."""
+    rng = np.random.default_rng(1000 + nv)
+    ev = to_torch(_tables(rng, nv, kind), dev)
+    pts = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    before = FX.LAUNCHES["evaluate_goldilocks"]
+    got = FX.evaluate_goldilocks(ev, pts)
+    torch.cuda.synchronize()
+    assert FX.LAUNCHES["evaluate_goldilocks"] == before + 1
+    assert torch.equal(got, FX.evaluate_goldilocks_ref(ev, pts))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
+@pytest.mark.parametrize("nv,k", [(20, 1), (20, 5), (20, 6), (20, 7),
+                                  (20, 13), (9, 2), (12, 5), (13, 6),
+                                  (16, 9), (24, 17)])
+def test_fix_last_is_one_launch(dev, nv, k, kind):
+    """K6 in one launch for every k: the tree (k <= 5), eq weights in one
+    chunk or in many with tickets, up to k = nv - 7."""
+    rng = np.random.default_rng(2000 + 32 * nv + k)
+    ev = to_torch(_tables(rng, nv, kind), dev)
+    pts = to_torch(rng.integers(0, Q, k, dtype=np.uint64), dev)
+    before = FX.LAUNCHES["fix_last_goldilocks"]
+    got = FX.fix_last_goldilocks(ev, pts)
+    torch.cuda.synchronize()
+    assert FX.LAUNCHES["fix_last_goldilocks"] == before + 1
+    assert torch.equal(got, FX.fix_last_goldilocks_ref(ev, pts))
+
+
+def test_mle_kernels_back_to_back_and_on_two_streams(dev):
+    """Every launch leaves its tickets at 0: calls in a row on one
+    stream, then on two streams at once (a work buffer each), all
+    bit-equal to the twins."""
+    rng = np.random.default_rng(3)
+    tabs = [to_torch(_tables(rng, nv, "random"), dev)
+            for nv in (20, 20, 21, 24)]
+    pts = [to_torch(rng.integers(0, Q, T.numel().bit_length() - 1,
+                                 dtype=np.uint64), dev) for T in tabs]
+    ev_want = [FX.evaluate_goldilocks_ref(T, P) for T, P in zip(tabs, pts)]
+    fx_want = [FX.fix_last_goldilocks_ref(T, P[:13])
+               for T, P in zip(tabs, pts)]
+
+    def calls():
+        return ([FX.evaluate_goldilocks(T, P) for T, P in zip(tabs, pts)],
+                [FX.fix_last_goldilocks(T, P[:13]) for T, P in zip(tabs,
+                                                                    pts)])
+
+    runs = [calls() for _ in range(4)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                runs.append(calls())
+    torch.cuda.synchronize()
+    for ev, fx in runs:
+        assert all(torch.equal(a, b) for a, b in zip(ev, ev_want))
+        assert all(torch.equal(a, b) for a, b in zip(fx, fx_want))
+    keys = {key for key in FX._WORK if key[0] == dev.index}
+    assert {s.cuda_stream for s in streams} <= {key[1] for key in keys}
+
+
+def test_mle_points_in_every_form(dev):
+    """Points as a tensor (strided too), a list of 0-d tensors on the
+    card, python ints, and CPU tensors: one launch a call, the twin's
+    value."""
+    rng = np.random.default_rng(4)
+    nv = 20
+    ev = to_torch(_tables(rng, nv, "random"), dev)
+    pts = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    forms = [pts, list(pts), [int(v) for v in pts.cpu().numpy().view(
+        np.uint64)], pts.cpu(), [p.cpu() for p in pts],
+        torch.stack([pts, pts], 1)[:, 1]]
+    want_e = FX.evaluate_goldilocks_ref(ev, pts)
+    for k in (4, 9):
+        want_f = FX.fix_last_goldilocks_ref(ev, pts[:k])
+        for form in forms:
+            before = dict(FX.LAUNCHES)
+            got_e = FX.evaluate_goldilocks(ev, form)
+            got_f = FX.fix_last_goldilocks(ev, form[:k])
+            torch.cuda.synchronize()
+            assert torch.equal(got_e, want_e) and torch.equal(got_f, want_f)
+            assert FX.LAUNCHES["evaluate_goldilocks"] == before[
+                "evaluate_goldilocks"] + 1
+            assert FX.LAUNCHES["fix_last_goldilocks"] == before[
+                "fix_last_goldilocks"] + 1
+    with pytest.raises(ValueError, match="one int64 word"):
+        FX.evaluate_goldilocks(ev, [p.to(torch.int32) for p in pts])
+
+
+@pytest.mark.parametrize("nv,k", [(4, None), (11, None), (20, None),
+                                  (24, None), (20, 1), (20, 7), (20, 13)])
+def test_mle_kernels_on_unaligned_tables(dev, nv, k):
+    """A table 8 bytes off a 16-byte boundary takes the kernels' 8-byte
+    loads."""
+    rng = np.random.default_rng(5)
+    big = to_torch(rng.integers(0, Q, (1 << nv) + 1, dtype=np.uint64), dev)
+    ev = big[1:]
+    assert ev.data_ptr() % 16 == 8
+    pts = to_torch(rng.integers(0, Q, nv, dtype=np.uint64), dev)
+    if k is None:
+        got, want = (FX.evaluate_goldilocks(ev, pts),
+                     FX.evaluate_goldilocks_ref(ev, pts))
+    else:
+        got, want = (FX.fix_last_goldilocks(ev, pts[:k]),
+                     FX.fix_last_goldilocks_ref(ev, pts[:k]))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 8])
@@ -387,8 +501,7 @@ def test_example_proof_on_card(dev, nv):
     S, msgs, chals = example.prove(g.evals, h.evals, Transcript(b"t"), nv)
     before = FX.LAUNCHES["evaluate_goldilocks"]
     assert example.verify(S, msgs, g, h, Transcript(b"t"))
-    assert FX.LAUNCHES["evaluate_goldilocks"] == before + 2 * ((nv + 9)
-                                                               // 10)
+    assert FX.LAUNCHES["evaluate_goldilocks"] == before + 2
     bad = [list(m) for m in msgs]
     bad[3][0] = GOLDILOCKS.add(bad[3][0], GOLDILOCKS.const(1, dev))
     assert not example.verify(S, [tuple(m) for m in bad], g, h,
