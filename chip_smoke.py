@@ -128,9 +128,10 @@ Phases, one line each:
      product of the finals); the W = 4, nv = 20, k = 2 Goldilocks batch
      against its twin (the generic prover on the claims at once), and
      three claims of a W = 65,535, nv = 4 batch against theirs; K7's
-     card limits: 9 tables at nv = 12 (the run-time-k round kernel, 13
-     launches) and nv = 0 (the empty proof, no launch) against the
-     generic prover, and a W = 65,536,
+     card limits: 9 tables at nv = 12 over the three fields and 16 at
+     nv = 16 over Goldilocks (the run-time-k kernel, one launch each)
+     and nv = 0 (the empty proof, no launch) against the generic
+     prover, and a W = 65,536,
      nv = 1 batch (two chunks of claims, one launch each) against its
      twin; the persistent kernel at nv = 20 for k = 1..8 over the three
      fields, one launch each, with its registers, spills, grid and
@@ -144,7 +145,9 @@ Phases, one line each:
  22. timings (CUDA events, median of 10 after warm-up): K7 over each
      field at nv = 20 for k = 2 (against its twin) and k = 3, proofs/s
      and memory floors; the batch against its twin, and against 4 single
-     proofs in turns;
+     proofs in turns; K7 beyond 8 tables (Goldilocks, nv = 16, k = 9 and
+     16): wall, busy and host time a proof against its bound (bytes, and
+     its own loop's modmuls at the card's peak) and the one-launch floor;
  23. profile: device busy time against wall time of one call of each of
      the three kernels (torch.profiler); per field and for the batch the
      proof's wall time (CUDA events), busy time and launches;
@@ -157,7 +160,8 @@ Phases, one line each:
      mxu_mod_mat on MatmulNTT's four level matrices (an MxuModMatFused
      built on each) at M = 10,240 and a ragged 10,277 against
      MxuModMat.apply, at M = 1,024 against its twin (data columns
-     2^64 - 1, q - 1, 0, 1 included);
+     2^64 - 1, q - 1, 0, 1 included), and at R, C, M off its 64 x 32
+     tile (70 x 45 at M = 100, 5 x 9 at M = 33) against both;
  25. engine path, launches counted: the radix forward, inverse, mul and
      mul_composite at N = 2^16, B = 80, bit-equal to NTTContext, mul to
      Mxu2FusedNTT.mul and the schoolbook rows; the radix mul at N = 2^10
@@ -172,7 +176,10 @@ Phases, one line each:
      slice, and the depth-256 chain's sustained rate beside it; each
      kernel against its twin and its bound, the tile in its forward,
      inverse and mul_eval modes each with its bytes, modmuls and bound;
-     mxu_mod_mat beside MxuModMat.apply and the stacked _int_mm alone; the
+     mxu_mod_mat beside MxuModMat.apply and the stacked _int_mm alone,
+     its tensor-core integer MMA instructions counted in the built
+     library's SASS (none fails the phase), its registers and shared
+     memory; the
      radix mul and Mxu2FusedNTT.mul in turns, NTTContext.mul; MatmulNTT
      (both level kinds) and the radix mul at N = 2^14; the radix mul
      at N = 2^16 and 2^14 at the other tile size the kernel takes
@@ -283,6 +290,8 @@ SC_W_MAX = 65535    # the most claims one launch takes ...
 SC_NV_MANY = 4      # ... at a small nv
 SC_W_OVER = 65536   # one claim more than a launch takes (two chunks)
 SC_NV_K9 = 12       # nine tables here: beyond the kernel's eight
+SC_NV_WIDE = 16     # the wide kernel's scale point: 16 tables ...
+SC_WIDE_TIMED = ((SC_NV_WIDE, 9), (SC_NV_WIDE, 16))  # ... timed as (nv, k)
 FIELD_KERNELS = {  # record name -> reference kernel (file:line)
     "sumcheck_prove_many_babybear":
         "stark_rings_tpu/mle/pallas_sumcheck.py:87",     # _BbOps
@@ -301,6 +310,7 @@ NTT_SIZES = (1 << 10, 1 << 14)   # parity points of the radix engine
 NTT_TILE_LOGS = (1, 3, 4, 5, 9, 13, 14)  # log_tiles held in every mode
 MM_N = 1 << 14      # MatmulNTT's one size (128 x 128)
 MM_TWIN_COLS = 1024  # columns at which the mod-mat twin is held
+MM_RAGGED = ((70, 45, 100), (5, 9, 33))  # R, C, M off the kernel's tile
 CHAIN_DEPTH = 16    # pointwise_chain's default depth in the reference
 CHAIN_DEEP = 256    # the depth whose rate is the sustained modmul rate
 NTT_SOURCE = "stark_rings_tpu_torch/csrc/ntt.cu"
@@ -1334,10 +1344,12 @@ def slice_c(dev, smi, rng) -> list:
 
     from stark_rings_tpu_torch import GOLDILOCKS as F, get_field
     from stark_rings_tpu_torch.examples import sumcheck as example
+    from stark_rings_tpu_torch.examples.wrapper_times import wide_times
     from stark_rings_tpu_torch.linalg import FieldElems
     from stark_rings_tpu_torch.mle import DenseMLE
     from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
     from stark_rings_tpu_torch.mle.sumcheck import bit_reverse_table
+    from stark_rings_tpu_torch.ops import _build
     from stark_rings_tpu_torch.rings import Transcript
 
     fields = {name: get_field(name) for name in SC_FIELDS}
@@ -1390,23 +1402,27 @@ def slice_c(dev, smi, rng) -> list:
         check(max_err, rec, msgs[w], want_m, what)
         check(max_err, rec, torch.stack([x[w] for x in finals]),
               torch.stack(want_f), what + " finals")
-    # K7's card limits: k > 8 tables run the run-time-k round kernel,
-    # nv = 0 is the empty proof with no launch, and a batch over one
-    # launch's claims runs in chunks
-    rec9 = "sumcheck_prove_many_goldilocks"
-    T9 = [F.rand((1 << SC_NV_K9,), rng, dev) for _ in range(9)]
-    c9 = F.rand((SC_NV_K9,), rng, dev)
+    # K7's card limits: k > 8 tables run the run-time-k kernel, one launch
+    # a proof, nv = 0 is the empty proof with no launch, and a batch over
+    # one launch's claims runs in chunks
     T0 = [F.rand((1,), rng, dev) for _ in range(2)]
     c0 = torch.empty(0, dtype=torch.int64, device=dev)
-    for what, tables, chal, want in (
-            (f"k=9 nv={SC_NV_K9}", T9, c9, SC_NV_K9 + 1),
-            ("nv=0", T0, c0, 0)):
-        before = SK.LAUNCHES[rec9]
-        m, fs = SK.sumcheck_prove_many(tables, chal)
-        launched = SK.LAUNCHES[rec9] - before
-        wm, wf = SK.sumcheck_prove_many_ref(tables, chal)
-        check(max_err, rec9, m, wm, what)
-        check(max_err, rec9, torch.stack(fs), torch.stack(wf),
+    limits = [(f"{name} k={k} nv={nv}", name,
+               [get_field(name).rand((1 << nv,), rng, dev)
+                for _ in range(k)], get_field(name).rand((nv,), rng, dev), 1)
+              for name, k, nv in (("goldilocks", 9, SC_NV_K9),
+                                  ("goldilocks", 16, SC_NV_WIDE),
+                                  ("babybear", 9, SC_NV_K9),
+                                  ("frog", 9, SC_NV_K9))]
+    limits.append(("goldilocks nv=0", "goldilocks", T0, c0, 0))
+    for what, name, tables, chal, want in limits:
+        rec_w = f"sumcheck_prove_many_{name}"
+        before = SK.LAUNCHES[rec_w]
+        m, fs = SK.sumcheck_prove_many(tables, chal, field=name)
+        launched = SK.LAUNCHES[rec_w] - before
+        wm, wf = SK.sumcheck_prove_many_ref(tables, chal, name)
+        check(max_err, rec_w, m, wm, what)
+        check(max_err, rec_w, torch.stack(fs), torch.stack(wf),
               what + " finals")
         if not m.is_cuda or launched != want:
             raise AssertionError(f"K7 {what}: {launched} launches on "
@@ -1424,8 +1440,9 @@ def slice_c(dev, smi, rng) -> list:
     if over != 2:
         raise AssertionError(f"{what}: {over} launches, not 2 chunks of 1")
     torch.cuda.synchronize()
-    phase("fields parity", f"K7's card limits: k=9 at nv={SC_NV_K9} on the "
-          f"run-time-k round kernel ({SC_NV_K9 + 1} launches) and nv=0 (the "
+    phase("fields parity", f"K7's card limits: k=9 at nv={SC_NV_K9} over "
+          f"the three fields and k=16 at nv={SC_NV_WIDE} over goldilocks on "
+          f"the run-time-k kernel (one launch each) and nv=0 (the "
           f"empty proof, no launch) equal the generic prover; the "
           f"W={SC_W_OVER}, nv=1 batch equals its twin in {over} launches "
           f"(2 chunks of one)")
@@ -1575,6 +1592,32 @@ def slice_c(dev, smi, rng) -> list:
           f"{t[1]:.4f} / {t[2]:.4f} ms = {SC_W * 1e3 / t[1]:.1f} claims/s; "
           f"{SC_W} single K7 proofs {t[0]:.4f} / {t[3]:.4f} ms = "
           f"{SC_W * 1e3 / t[0]:.1f} claims/s (in turns)  ({smi})")
+    # K7 beyond 8 tables, the run-time-k kernel: wall, busy and host time
+    # of a proof against its bound (each table read once; the modmuls of
+    # its own loop, (k+1)(k-1) products and k folds an entry pair, at the
+    # card's peak) and the one-launch floor (_build.launch of a 1-element
+    # kernel, as phase 12 times it)
+    peak = modmul_peak(dev)[0]
+    one = F.encode([1], dev)
+    floor_us = 1e3 * time_ms(lambda: _build.launch(
+        {"floor": 0}, "floor", _build.kernels().srt_pointwise_mul, dev,
+        one.data_ptr(), one.data_ptr(), torch.empty_like(one).data_ptr(), 1),
+        inner=LAUNCH_REPS)
+    for (nv, k), (n, wall, busy, host) in wide_times(
+            dev, rng, SC_WIDE_TIMED).items():
+        moved = 8 * ((k << nv) + nv * (k + 1) + k)
+        modmuls = ((k + 1) * (k - 1) + k) * ((1 << nv) - 1)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = modmuls / peak * 1e3
+        bound = max(bytes_ms, ops_ms)
+        phase("fields time", f"goldilocks nv={nv} k={k} (run-time-k "
+              f"kernel): {n} launch(es) a proof, wall {wall:.4f} ms, busy "
+              f"{busy:.4f} ms, host {host:.2f} us against the one-launch "
+              f"floor {floor_us:.2f} us; {moved} B ({bytes_ms:.4f} ms), "
+              f"{modmuls} modmuls ({ops_ms:.4f} ms at {peak:.4e}/s), bound "
+              f"{bound:.4f} ms, {bound / wall:.0%} of the wall  ({smi})")
+        if n != 1:
+            raise AssertionError(f"K7 nv={nv} k={k}: {n} launches a proof")
 
     # -- 23. where the device time goes -------------------------------------------
     for name, label, kern, _, _, with_twin in timed:
@@ -1605,8 +1648,10 @@ def slice_ntt(dev, smi, rng, gl) -> list:
     from stark_rings_tpu_torch.fields.field import u64_lt
     from stark_rings_tpu_torch.ops import fold as K
     from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.ops import _build
     from stark_rings_tpu_torch.ops import mxu_fused as MF
-    from stark_rings_tpu_torch.ops.mxu import DIGITS, MatmulNTT, data_digits
+    from stark_rings_tpu_torch.ops.mxu import (DIGITS, MatmulNTT, MxuModMat,
+                                               data_digits)
 
     a, b = gl["a"], gl["b"]
     Bx, Nx = a.shape
@@ -1705,6 +1750,21 @@ def slice_ntt(dev, smi, rng, gl) -> list:
               MF.mxu_mod_mat_ref(xt, fused.w),
               f"{key} M={MM_TWIN_COLS} against the twin")
         cases += 1
+    # R, C and M off the kernel's 64 x 32 tile and 32-column chunk
+    for R, C, M in MM_RAGGED:
+        rag = MF.MxuModMatFused(
+            [[int(v) for v in row] for row in rng.integers(
+                0, q, (R, C), dtype=np.uint64)], device=dev)
+        xr = F.rand((C, M), rng, dev)
+        xr[:, :3] = edge
+        xr[:, 3] = -1
+        got = rag.apply(xr)
+        check(max_err, "mxu_mod_mat", got, MxuModMat(rag.matrix(),
+                                                     device=dev).apply(xr),
+              f"R={R} C={C} M={M} against MxuModMat")
+        check(max_err, "mxu_mod_mat", got, MF.mxu_mod_mat_ref(xr, rag.w),
+              f"R={R} C={C} M={M} against the twin")
+        cases += 2
     torch.cuda.synchronize()
     phase("engine parity", f"{cases} cases of ntt_stage, ntt_tile, "
           f"pointwise_chain, the pointwise kernel and mxu_mod_mat bit-equal "
@@ -1862,6 +1922,11 @@ def slice_ntt(dev, smi, rng, gl) -> list:
           f"_int_mm {shape(w_big, xcat_t)} alone "
           f"{int_mm_ms:.4f} ms; {moved} B, {macs} int8 MACs, "
           f"bound {floor:.4f} ms ({floor / ms:.0%} of it)  ({smi})")
+    imma, ops, usage = mxu_sass()
+    phase("engine time", f"mxu_mod_mat_kernel in the built library: {imma} "
+          f"tensor-core integer MMA instructions ({ops}); {usage}, "
+          f"{_build.kernels().srt_mxu_mod_mat_smem()} B of dynamic shared "
+          f"memory")
 
     mxu_ms, rad_ms = in_turns(lambda: gl["eng"].mul(a, b),
                               lambda: radix.mul(a, b))
@@ -2241,9 +2306,38 @@ def modmul_peak(dev) -> tuple:
     return sms * ISSUE_PER_SM_CLOCK * mhz * 1e6 / per, per, mix, sms, mhz
 
 
+def mxu_sass() -> tuple:
+    """The tensor-core integer MMA instructions in ``mxu_mod_mat_kernel``'s
+    SASS (``IMMA`` for mma.sync, ``IGMMA`` for wgmma; cuobjdump on the
+    built library): (their count, their opcodes, the kernel's registers,
+    stack and static shared memory as text).  Raises if there is none."""
+    from stark_rings_tpu_torch.ops import _build
+
+    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    lib = str(_build.library_path())
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    fn = re.search(r"Function : \S*mxu_mod_mat_kernel\S*(.*?)"
+                   r"(?=Function :|\Z)", sass, re.S)
+    if fn is None:
+        raise RuntimeError("no mxu_mod_mat_kernel in the library's SASS")
+    ops = re.findall(r"\b(I(?:G)?MMA[.\w]*)", fn.group(1))
+    if not ops:
+        raise AssertionError("mxu_mod_mat_kernel holds no tensor-core "
+                             "integer MMA instruction (IMMA / IGMMA)")
+    res = subprocess.run([str(tool), "-res-usage", lib], capture_output=True,
+                         text=True, check=True).stdout
+    use = re.search(r"Function \S*mxu_mod_mat_kernel\S*:\s*REG:(\d+)\s+"
+                    r"STACK:(\d+)\s+SHARED:(\d+)", res)
+    usage = (f"{use.group(1)} registers a thread, {use.group(2)} B stack, "
+             f"{use.group(3)} B static shared memory" if use else
+             "registers not found")
+    return len(ops), ", ".join(sorted(set(ops))), usage
+
+
 def k7_registers() -> dict:
     """{(field ops, K or "wide"): (registers, stack bytes)} of K7's
-    kernels (the persistent kernel's K = 1..8 and the run-time-k round
+    kernels (the persistent kernel's K = 1..8 and the run-time-k wide
     kernel), from ``cuobjdump -res-usage`` on the built library; ptxas
     places spilled registers on the stack."""
     from stark_rings_tpu_torch.ops import _build
@@ -2254,7 +2348,7 @@ def k7_registers() -> dict:
                          capture_output=True, text=True, check=True).stdout
     regs = {}
     for fn, reg, stack in re.findall(
-            r"Function (\S*sumcheck_(?:prove|round_wide)_kernel\w*):\s*"
+            r"Function (\S*sumcheck_(?:prove|wide)_kernel\w*):\s*"
             r"REG:(\d+)\s+STACK:(\d+)", out):
         ops = re.search(r"(Gl|Bb|Frog)Ops", fn).group(0)
         k = re.search(r"Li(\d+)E", fn)

@@ -44,9 +44,16 @@
 //      earlier rounds' per-block partials to their messages.  What
 //      bounds it: round 0's read of the tables from device memory, then
 //      the grid barriers and the tail's chain of dependent rounds.
-// None is bound by the modular arithmetic: one lerp (one 64x64->128
-// multiply; three for frog's Montgomery product) per entry read.  K5 and
-// K6 are bound by memory traffic and, at nv = 20, by the launch itself.
+//      Beyond 8 tables, sumcheck_wide_kernel reads k at run time and
+//      runs the same schedule in one launch, one round a grid phase, each
+//      entry's k + 1 sums split over threads 8 at a time (before, one
+//      launch a round and a reduction: nv + 1 launches, host-bound).
+//      There a round's k - 1 products a sum bind the modular arithmetic
+//      more than the bytes do.
+// K5, K6 and K7 up to 8 tables are not bound by the modular arithmetic:
+// one lerp (one 64x64->128 multiply; three for frog's Montgomery product)
+// per entry read.  K5 and K6 are bound by memory traffic and, at nv = 20,
+// by the launch itself.
 
 #include <cstdint>
 
@@ -509,8 +516,7 @@ mle_fix_eq_kernel(const uint64_t* __restrict__ in,
 constexpr int SC_THREADS = 256;
 constexpr int SC_MAX_BLOCKS = 1024;
 constexpr int SC_MAX_K = 8;
-constexpr int SC_MAX_CLAIMS = 65535;     // per launch (the wide kernels'
-                                         // gridDim.y)
+constexpr int SC_MAX_CLAIMS = 65535;     // per launch (a chunk of claims)
 constexpr int SC_WARPS = SC_THREADS / 32;
 constexpr int SC_MAX_DEVICES = 64;       // devices whose capacity is kept
 // The tail: rounds whose tables of 2*half words each fit SC_TAIL_BYTES of
@@ -576,35 +582,12 @@ __host__ __device__ inline int sc_blocks(int64_t half) {
     return b < SC_MAX_BLOCKS ? static_cast<int>(b) : SC_MAX_BLOCKS;
 }
 
-// Partial rows of rounds 0 .. rounds-1 of one claim whose first round
-// has half0: round i's rows follow those of rounds 0 .. i-1, and claim
-// w's follow those of claims 0 .. w-1, so no round leaves unused rows.
-__host__ __device__ inline int64_t sc_rows(int64_t half0, int rounds) {
-    int64_t n = 0;
-    for (int i = 0; i < rounds; ++i) n += sc_blocks(half0 >> i);
-    return n;
-}
-
 template <class F>
 __device__ __forceinline__ typename F::word warp_sum(typename F::word v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
         v = F::add(v, __shfl_down_sync(0xffffffffu, v, o));
     return v;
-}
-
-// Modular sum over the block; the result is valid in thread 0.  Every
-// thread of the block must call it.
-template <class F>
-__device__ typename F::word block_sum(typename F::word v,
-                                      typename F::word* sh) {
-    using W = typename F::word;
-    v = warp_sum<F>(v);
-    __syncthreads();                     // sh may still be read
-    if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-    __syncthreads();
-    v = threadIdx.x < SC_THREADS / 32 ? sh[threadIdx.x] : W(0);
-    return threadIdx.x < 32 ? warp_sum<F>(v) : v;
 }
 
 // The largest half a tail round takes, for k tables of word_bytes words,
@@ -901,108 +884,347 @@ __device__ __forceinline__ typename F::word small_multiple(
     return acc;
 }
 
-// One round for any number k of tables (the caller's route for
-// k > SC_MAX_K, one launch a round), with k read at run time: the table
-// pointers are device arrays, and the k+1 message sums go SC_WIDE_T at a
-// time, each group a pass over the block's entries that keeps SC_WIDE_T
-// sums and SC_WIDE_T products in registers, whatever k is.  The fold
-// runs after the last pass, since out[j] may be in[j].
-constexpr int SC_WIDE_T = 8;
+// ---------------------------------------------------------------------------
+// K7 beyond SC_MAX_K tables: sumcheck_wide_kernel reads k at run time and
+// proves in one cooperative launch per proof (or chunk of claims), with
+// the rounds as sumcheck_prove_kernel runs them: grid rounds, each ended
+// by a grid barrier (one round a phase: two entries of k > 8 tables
+// never fit SC_PHASE_BYTES a thread), then the tail of one block per
+// claim in shared memory.  An entry pair's k + 1 message sums go
+// SC_WIDE_T at a time: group gi holds sums 8*gi .. 8*gi + 7, and each of
+// a block's threads owns one (entry, group) pair, sc_wide_groups(k)
+// groups to an entry, so a round's chain of dependent products is k long
+// whatever k is.  A grid round first copies its block's entries of every
+// table into shared memory, all loads in flight at once (a thread's k
+// dependent loads were what a round waited on), and folds them from
+// there.  After the last grid round every block of the grid sums
+// partial rows into the grid rounds' messages, a warp a (claim, round,
+// sum), before the tail.  Table pointers ride in the launch parameters
+// (__grid_constant__) up to SC_WIDE_PTRS tables; beyond, all k come from
+// a device array.
+// ---------------------------------------------------------------------------
 
+constexpr int SC_WIDE_T = 8;              // sums a group
+constexpr int SC_WIDE_GROUPS = 32;        // most groups an entry a pass
+constexpr int SC_WIDE_PTRS = 64;
+constexpr int64_t SC_WIDE_STAGE_BYTES = 32 * 1024;   // a grid round's stage
+
+// Threads an entry: the groups of k + 1 sums, rounded up to a power of 2,
+// at most SC_WIDE_GROUPS (more groups take further passes).
+__host__ __device__ inline int sc_wide_groups(int k) {
+    const int g = (k + SC_WIDE_T) / SC_WIDE_T;
+    int p = 1;
+    while (p < g && p < SC_WIDE_GROUPS) p <<= 1;
+    return p;
+}
+
+// Entries a block takes at once, and the tables a grid round stages at
+// once (2 words an entry a table in SC_WIDE_STAGE_BYTES).
+__host__ __device__ inline int sc_wide_entries(int k) {
+    return SC_THREADS / sc_wide_groups(k);
+}
+
+__host__ __device__ inline int sc_wide_stage_tables(int k, int word_bytes) {
+    const int64_t n = SC_WIDE_STAGE_BYTES
+                      / (2 * int64_t{sc_wide_entries(k)} * word_bytes);
+    return n < k ? static_cast<int>(n) : k;
+}
+
+// Blocks of a wide round on 2*half entries a table, and the partial rows
+// of the grid rounds before round i.  plan() in mle/sumcheck_kernel.py
+// mirrors them.
+__host__ __device__ inline int sc_wide_blocks(int64_t half, int k) {
+    const int64_t e = sc_wide_entries(k);
+    const int64_t b = (half + e - 1) / e;
+    return b < SC_MAX_BLOCKS ? static_cast<int>(b) : SC_MAX_BLOCKS;
+}
+
+__host__ __device__ inline int64_t sc_wide_rows(int64_t half0, int k,
+                                                int i) {
+    int64_t n = 0;
+    for (int r = 0; r < i; ++r) n += sc_wide_blocks(half0 >> r, k);
+    return n;
+}
+
+template <class W>
+struct WideGrid {
+    const W* in[SC_WIDE_PTRS];   // claim 0's tables (k <= SC_WIDE_PTRS)
+    const W* const* more;        // device array of all k, or null
+    W* scratch;
+    int64_t claims, half0, claim_rows;
+    const W* chal;
+    W* partials;
+    int k;
+};
+
+template <class W>
+__device__ __forceinline__ const W* wide_table(const WideGrid<W>& g, int j) {
+    return g.more ? g.more[j] : g.in[j];
+}
+
+// Multiply factor lo + t*(hi - lo), t = t0 .. t0 + SC_WIDE_T - 1 (t <= k),
+// into prod[t - t0]; the first factor sets prod.  The factor at t0 + u is
+// the one at t0 + (u with its lowest bit cleared) plus that bit's multiple
+// of d: three adds deep, not seven.
 template <class F>
-__global__ void __launch_bounds__(SC_THREADS)
-sumcheck_round_wide_kernel(const typename F::word* const* __restrict__ in,
-                           typename F::word* const* __restrict__ out, int k,
-                           int64_t in_claim, int64_t out_claim, int64_t half,
-                           const typename F::word* __restrict__ chal,
-                           int round, int64_t row0, int64_t claim_rows,
-                           typename F::word* __restrict__ partials) {
+__device__ __forceinline__ void sc_wide_factor(
+        typename F::word (&prod)[SC_WIDE_T], typename F::word lo,
+        typename F::word hi, int t0, int k, bool first) {
     using W = typename F::word;
-    __shared__ W sh[SC_THREADS / 32];
-    const int64_t w = blockIdx.y;
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * SC_THREADS;
-    const int64_t first = static_cast<int64_t>(blockIdx.x) * SC_THREADS
-                          + threadIdx.x;
-    W* row = partials + (w * claim_rows + row0 + blockIdx.x) * (k + 1);
-    for (int t0 = 0; t0 <= k; t0 += SC_WIDE_T) {
+    W step[4];                            // d, 2d, 4d, 8d
+    step[0] = F::sub(hi, lo);
+#pragma unroll
+    for (int b = 1; b < 4; ++b) step[b] = F::add(step[b - 1], step[b - 1]);
+    static_assert(SC_WIDE_T == 8, "three doublings of d");
+    W cur[SC_WIDE_T];
+    cur[0] = t0 ? F::add(lo, small_multiple<F>(step[3], t0 / SC_WIDE_T))
+                : lo;
+#pragma unroll
+    for (int u = 1; u < SC_WIDE_T; ++u)
+        cur[u] = F::add(cur[u & (u - 1)],
+                        step[(u & 1) ? 0 : (u & 2) ? 1 : 2]);
+#pragma unroll
+    for (int u = 0; u < SC_WIDE_T; ++u) {
+        if (t0 + u > k) break;
+        prod[u] = first ? cur[u] : F::mul(prod[u], cur[u]);
+    }
+}
+
+// The block's sums of acc over its entries, for thread (e, gl)'s group
+// g0 + gl: the warp's lanes of a group by shuffles, the warps through
+// red (SC_WIDE_T * SC_WARPS * SC_WIDE_GROUPS words); out(t, v) receives
+// sum t <= k.  Every thread of the block calls it; its first barrier
+// also orders the caller's folds before later reads.
+template <class F, class Out>
+__device__ __forceinline__ void sc_wide_block_sums(
+        typename F::word (&acc)[SC_WIDE_T], int k, int g0, int GP,
+        typename F::word* red, Out out) {
+    using W = typename F::word;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int u = 0; u < SC_WIDE_T; ++u)
+        for (int o = GP; o < 32; o <<= 1)
+            acc[u] = F::add(acc[u], __shfl_xor_sync(0xffffffffu, acc[u], o));
+    __syncthreads();                     // red may still be read
+    if (lane < GP) {                     // GP divides 32: lane gl of a warp
+#pragma unroll
+        for (int u = 0; u < SC_WIDE_T; ++u)
+            red[(u * SC_WARPS + warp) * GP + lane] = acc[u];
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < SC_WIDE_T * GP) {
+        const int u = threadIdx.x / GP, gl = threadIdx.x % GP;
+        W a = red[u * SC_WARPS * GP + gl];
+        for (int wi = 1; wi < SC_WARPS; ++wi)
+            a = F::add(a, red[(u * SC_WARPS + wi) * GP + gl]);
+        const int t = (g0 + gl) * SC_WIDE_T + u;
+        if (t <= k) out(t, a);
+    }
+}
+
+// Grid round on virtual block b of nb: entries y0 + e, y0 = b*E, b*E +
+// nb*E, ... < h of src(j) (2h words), staged in `stage` a slice of tables
+// at a time; folded into dst(j) (h words, may be src(j)).
+template <class F, class Src, class Dst, class Out>
+__device__ __forceinline__ void sc_wide_grid_round(
+        int k, Src src, Dst dst, int64_t h, int64_t b, int nb,
+        typename F::word r, typename F::word* stage, typename F::word* red,
+        Out out) {
+    using W = typename F::word;
+    const int GP = sc_wide_groups(k), E = sc_wide_entries(k);
+    const int KJ = sc_wide_stage_tables(k, sizeof(W));
+    const int gl = threadIdx.x % GP, e = threadIdx.x / GP;
+    for (int g0 = 0; g0 * SC_WIDE_T <= k; g0 += GP) {
+        const int t0 = (g0 + gl) * SC_WIDE_T;
+        const bool fold = (g0 + GP) * SC_WIDE_T > k;   // the last pass
         W acc[SC_WIDE_T];
 #pragma unroll
         for (int u = 0; u < SC_WIDE_T; ++u) acc[u] = 0;
-        for (int64_t x = first; x < half; x += stride) {
+        for (int64_t y0 = b * E; y0 < h; y0 += int64_t{nb} * E) {
+            const bool mine = y0 + e < h;
             W prod[SC_WIDE_T];
-            for (int j = 0; j < k; ++j) {
-                const W* tj = in[j] + w * in_claim;
-                const W lo = tj[x];
-                const W d = F::sub(tj[x + half], lo);
-                W cur = F::add(lo, small_multiple<F>(d, t0));
+            for (int j0 = 0; j0 < k; j0 += KJ) {
+                const int nj = k - j0 < KJ ? k - j0 : KJ;
+                __syncthreads();                       // the stage is free
+                for (int x = threadIdx.x; x < nj * 2 * E; x += SC_THREADS) {
+                    const int j = x / (2 * E), q = x - j * 2 * E;
+                    const int64_t y = y0 + (q < E ? q : q - E);
+                    if (y < h) stage[x] = src(j0 + j)[q < E ? y : y + h];
+                }
+                __syncthreads();
+                if (mine && t0 <= k)
+                    for (int j = 0; j < nj; ++j)
+                        sc_wide_factor<F>(prod, stage[j * 2 * E + e],
+                                          stage[j * 2 * E + E + e], t0, k,
+                                          j0 + j == 0);
+                if (mine && fold)
+                    for (int j = gl; j < nj; j += GP) {
+                        const W lo = stage[j * 2 * E + e];
+                        const W hi = stage[j * 2 * E + E + e];
+                        dst(j0 + j)[y0 + e] = F::add(lo,
+                                                     F::mul(r, F::sub(hi, lo)));
+                    }
+            }
+            if (mine && t0 <= k) {
+#pragma unroll
+                for (int u = 0; u < SC_WIDE_T; ++u)
+                    if (t0 + u <= k) acc[u] = F::add(acc[u], prod[u]);
+            }
+        }
+        sc_wide_block_sums<F>(acc, k, g0, GP, red, out);
+    }
+}
+
+// Tail round on the block's tables in shared memory, tab(j) of 2h words,
+// folded in place.  When the round has fewer entries than the block has
+// (entry, group) threads, S = 2, 4, ... threads share an (entry, group):
+// thread s multiplies the factors j = s, s + S, ... and the S partial
+// products meet by shuffles, so a round's chain of products is about
+// k / S + log2(S) long (S <= k, and the GP * S threads of an entry lie in
+// one warp).
+template <class F, class Tab, class Out>
+__device__ __forceinline__ void sc_wide_tail_round(
+        int k, Tab tab, int64_t h, typename F::word r, typename F::word* red,
+        Out out) {
+    using W = typename F::word;
+    const int GP = sc_wide_groups(k);
+    int S = 1;
+    while (2 * S <= k && GP * 2 * S <= 32
+           && int64_t{SC_THREADS / (GP * 2 * S)} >= h)
+        S *= 2;
+    const int E = SC_THREADS / (GP * S);       // entries at once
+    const int gl = threadIdx.x % GP, s = threadIdx.x / GP % S;
+    const int e = threadIdx.x / (GP * S);
+    for (int g0 = 0; g0 * SC_WIDE_T <= k; g0 += GP) {
+        const int t0 = (g0 + gl) * SC_WIDE_T;
+        W acc[SC_WIDE_T];
+#pragma unroll
+        for (int u = 0; u < SC_WIDE_T; ++u) acc[u] = 0;
+        for (int64_t y0 = 0; y0 < h; y0 += E) {   // uniform: shuffles inside
+            const int64_t y = y0 + e;
+            W prod[SC_WIDE_T] = {};
+            if (y < h && t0 <= k)
+                for (int j = s; j < k; j += S)
+                    sc_wide_factor<F>(prod, tab(j)[y], tab(j)[y + h], t0, k,
+                                      j == s);
+            for (int o = GP; o < GP * S; o <<= 1) {
 #pragma unroll
                 for (int u = 0; u < SC_WIDE_T; ++u) {
-                    if (u) cur = F::add(cur, d);
-                    prod[u] = j ? F::mul(prod[u], cur) : cur;
+                    const W p = __shfl_xor_sync(0xffffffffu, prod[u], o);
+                    prod[u] = F::mul(prod[u], p);
                 }
             }
+            if (s == 0 && y < h && t0 <= k) {
 #pragma unroll
-            for (int u = 0; u < SC_WIDE_T; ++u)
-                acc[u] = F::add(acc[u], prod[u]);
+                for (int u = 0; u < SC_WIDE_T; ++u)
+                    if (t0 + u <= k) acc[u] = F::add(acc[u], prod[u]);
+            }
         }
-#pragma unroll
-        for (int u = 0; u < SC_WIDE_T; ++u) {
-            const W s = block_sum<F>(acc[u], sh);
-            if (threadIdx.x == 0 && t0 + u <= k) row[t0 + u] = s;
+        if ((g0 + GP) * SC_WIDE_T > k) {       // the last pass folds
+            __syncthreads();                   // the round's reads are done
+            for (int64_t y = e; y < h; y += E)
+                for (int j = s * GP + gl; j < k; j += GP * S) {
+                    const W lo = tab(j)[y];
+                    tab(j)[y] = F::add(lo, F::mul(r, F::sub(tab(j)[y + h],
+                                                            lo)));
+                }
         }
+        sc_wide_block_sums<F>(acc, k, g0, GP, red, out);
     }
-    const W r = chal[round];
-    for (int64_t x = first; x < half; x += stride)
-        for (int j = 0; j < k; ++j) {
-            const W* tj = in[j] + w * in_claim;
-            const W lo = tj[x];
-            out[j][w * out_claim + x] = F::add(lo,
-                                               F::mul(r, F::sub(tj[x + half],
-                                                                lo)));
-        }
 }
 
-// msgs[w, round, t] = sum of that claim's and round's per-block partials;
-// one block per (round, claim).
+// The whole proof of `claims` claims of k > SC_MAX_K tables in one
+// cooperative launch, in the layout of sumcheck_prove_kernel: claim w's
+// table j is wide_table(g, j) + w*2*half0, scratch [claims, k, half0]
+// holds the half-size tables and, afterwards, the finals at [w, j, 0].
+// Rounds 0 .. tail-1 are grid rounds (partial row w*claim_rows + the
+// blocks of the rounds before + b), rounds tail .. rounds-1 the tail's.
 template <class F>
 __global__ void __launch_bounds__(SC_THREADS)
-sumcheck_reduce_kernel(const typename F::word* __restrict__ partials,
-                       typename F::word* __restrict__ msgs, int k1,
-                       int rounds, int64_t half0) {
+sumcheck_wide_kernel(const __grid_constant__ WideGrid<typename F::word> g,
+                     int rounds, int tail, typename F::word* __restrict__ msgs) {
     using W = typename F::word;
-    __shared__ W sh[SC_THREADS / 32];
-    const int round = blockIdx.x;
-    const int64_t w = blockIdx.y;
-    const int64_t cr = w * rounds + round;
-    const int nb = sc_blocks(half0 >> round);
-    const W* rows = partials
-        + (w * sc_rows(half0, rounds) + sc_rows(half0, round)) * k1;
-    for (int t = 0; t < k1; ++t) {
+    __shared__ W red[SC_WIDE_T * SC_WARPS * SC_WIDE_GROUPS];
+    extern __shared__ __align__(16) unsigned char tail_bytes[];
+    W* st = reinterpret_cast<W*>(tail_bytes);   // the stage, then the tail
+    const int k = g.k;
+    const int64_t half0 = g.half0;
+    const int64_t claim_words = k * half0;   // scratch, claim to claim
+
+    int64_t row0 = 0;
+    for (int i = 0; i < tail; ++i) {
+        const int64_t h = half0 >> i;
+        const int nb = sc_wide_blocks(h, k);
+        for (int64_t v = blockIdx.x; v < g.claims * nb; v += gridDim.x) {
+            const int64_t w = v / nb;
+            const int64_t b = v - w * nb;
+            W* sc = g.scratch + w * claim_words;
+            W* row = g.partials + (w * g.claim_rows + row0 + b) * (k + 1);
+            sc_wide_grid_round<F>(
+                k,
+                [&](int j) -> const W* {
+                    return i ? sc + j * half0
+                             : wide_table(g, j) + w * 2 * half0;
+                },
+                [&](int j) { return sc + j * half0; }, h, b, nb, g.chal[i],
+                st, red, [&](int t, W s) { row[t] = s; });
+        }
+        row0 += nb;
+        cooperative_groups::this_grid().sync();
+    }
+
+    // the grid rounds' messages: a warp of the grid a (claim, round, sum)
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int64_t sums = tail * int64_t{k + 1};
+    for (int64_t p = blockIdx.x * int64_t{SC_WARPS} + warp;
+         p < g.claims * sums; p += int64_t{gridDim.x} * SC_WARPS) {
+        const int64_t w = p / sums;
+        const int i = static_cast<int>((p - w * sums) / (k + 1));
+        const int t = static_cast<int>(p - w * sums - int64_t{i} * (k + 1));
+        const W* rows = g.partials
+            + (w * g.claim_rows + sc_wide_rows(half0, k, i)) * (k + 1);
+        const int nb = sc_wide_blocks(half0 >> i, k);
         W a = 0;
-        for (int b = threadIdx.x; b < nb; b += SC_THREADS)
-            a = F::add(a, rows[b * k1 + t]);
-        a = block_sum<F>(a, sh);
-        if (threadIdx.x == 0) msgs[cr * k1 + t] = a;
+        for (int b = lane; b < nb; b += 32)
+            a = F::add(a, rows[b * (k + 1) + t]);
+        a = warp_sum<F>(a);
+        if (lane == 0) msgs[(w * rounds + i) * (k + 1) + t] = a;
+    }
+
+    const int64_t half_t = half0 >> tail;    // 0 when no round is left
+    for (int64_t w = blockIdx.x; w < g.claims && half_t; w += gridDim.x) {
+        W* sc = g.scratch + w * claim_words;
+        __syncthreads();                 // st is free (the stage, a claim)
+        for (int j = 0; j < k; ++j) {
+            const W* src = tail ? sc + j * half0
+                                : wide_table(g, j) + w * 2 * half0;
+            for (int64_t x = threadIdx.x; x < 2 * half_t; x += SC_THREADS)
+                st[j * 2 * half_t + x] = src[x];
+        }
+        __syncthreads();
+        const auto tab = [&](int j) { return st + j * 2 * half_t; };
+        for (int i = tail; i < rounds; ++i)
+            sc_wide_tail_round<F>(
+                k, tab, half0 >> i, g.chal[i], red,
+                [&](int t, W s) { msgs[(w * rounds + i) * (k + 1) + t] = s; });
+        __syncthreads();                 // the last round's fold is done
+        for (int j = threadIdx.x; j < k; j += SC_THREADS)
+            sc[j * half0] = st[j * 2 * half_t];   // the finals, tab(j)[0]
     }
 }
 
-template <class F, int K>
-int launch_prove(const Grid<typename F::word>& g, int rounds, int tail,
-                 void* msgs, int* info, cudaStream_t s) {
-    using W = typename F::word;
-    const auto kernel = sumcheck_prove_kernel<F, K>;
-    const int64_t half_t = g.half0 >> tail;
-    const size_t smem = 2 * half_t * K * sizeof(W);
-    // the resident capacity (SMs << 8 | blocks an SM), by device and
-    // tail size (half_t = 2^e, e <= 10), asked of the runtime once;
-    // 0 = not asked yet
-    static int capacity[SC_MAX_DEVICES][11];
+// Launches `kernel` cooperatively with `smem` bytes of dynamic shared
+// memory and a grid of the co-resident capacity capped at `work` (the most
+// virtual blocks a phase has).  The capacity (SMs << 8 | blocks an SM) is
+// asked of the runtime at `ask_smem` >= smem bytes, once, and kept in
+// *cached (0 = not asked yet; null: ask every time).  info[0] and info[1]
+// receive the grid and the blocks an SM.
+inline int launch_coop(const void* kernel, void** args, size_t smem,
+                       size_t ask_smem, int64_t work, int* cached, int* info,
+                       cudaStream_t s) {
     int dev = 0, coop = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return static_cast<int>(err);
-    int e = 0;
-    while ((int64_t{1} << e) < half_t) ++e;
-    int* cached = dev < SC_MAX_DEVICES ? &capacity[dev][e] : nullptr;
     if (cached && *cached) {
         sms = *cached >> 8;
         per_sm = *cached & 0xff;
@@ -1014,46 +1236,110 @@ int launch_prove(const Grid<typename F::word>& g, int rounds, int tail,
                                          dev);
         if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kernel, SC_THREADS, smem);
+                &per_sm, kernel, SC_THREADS, ask_smem);
         if (err != cudaSuccess) return static_cast<int>(err);
         if (!coop) return static_cast<int>(cudaErrorNotSupported);
         if (per_sm < 1 || per_sm > 0xff)
             return static_cast<int>(cudaErrorInvalidConfiguration);
         if (cached) *cached = sms << 8 | per_sm;
     }
-    // the co-resident capacity, capped by the most virtual blocks a phase
-    // has (the first grid phase's, or one per claim in the tail)
-    constexpr int MK = sc_phase_rounds(K, sizeof(W));
-    const int64_t work = tail ? g.claims * sc_round_blocks(g.half0, tail,
-                                                           MK, 0)
-                              : g.claims;
     const int64_t cap = static_cast<int64_t>(sms) * per_sm;
     const int grid = static_cast<int>(work < cap ? work : cap);
     info[0] = grid;
     info[1] = per_sm;
-    W* msgs_w = static_cast<W*>(msgs);
-    void* args[] = {const_cast<Grid<W>*>(&g), &rounds, &tail, &msgs_w};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                      dim3(grid), dim3(SC_THREADS), args,
-                                      smem, s);
+    err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(SC_THREADS),
+                                      args, smem, s);
     const cudaError_t last = cudaGetLastError();   // clear a refusal too
     return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <class F>
-int sumcheck_prove(const void* ins, void* scratch, int k, int claims,
-                   int64_t half0, int rounds, int tail, const void* chal,
-                   int64_t claim_rows, void* partials, void* msgs, int* info,
-                   cudaStream_t s) {
+template <class F, int K>
+int launch_prove(const Grid<typename F::word>& g, int rounds, int tail,
+                 void* msgs, int* info, cudaStream_t s) {
     using W = typename F::word;
-    if (k < 1 || k > SC_MAX_K || claims < 1 || claims > SC_MAX_CLAIMS
+    const int64_t half_t = g.half0 >> tail;
+    // the capacity by device and tail size (half_t = 2^e, e <= 10)
+    static int capacity[SC_MAX_DEVICES][11];
+    int dev = 0;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int e = 0;
+    while ((int64_t{1} << e) < half_t) ++e;
+    constexpr int MK = sc_phase_rounds(K, sizeof(W));
+    const int64_t work = tail ? g.claims * sc_round_blocks(g.half0, tail,
+                                                           MK, 0)
+                              : g.claims;
+    W* msgs_w = static_cast<W*>(msgs);
+    void* args[] = {const_cast<Grid<W>*>(&g), &rounds, &tail, &msgs_w};
+    const size_t smem = 2 * half_t * K * sizeof(W);
+    return launch_coop(
+        reinterpret_cast<const void*>(sumcheck_prove_kernel<F, K>), args,
+        smem, smem, work,
+        dev < SC_MAX_DEVICES ? &capacity[dev][e] : nullptr, info, s);
+}
+
+template <class F>
+int launch_wide(const WideGrid<typename F::word>& g, int rounds, int tail,
+                void* msgs, int* info, cudaStream_t s) {
+    using W = typename F::word;
+    // the tail's tables, or a grid round's stage, whichever is larger
+    const size_t tail_bytes = 2 * (g.half0 >> tail) * g.k * sizeof(W);
+    const size_t stage = tail ? 2 * sizeof(W) * sc_wide_entries(g.k)
+                                * sc_wide_stage_tables(g.k, sizeof(W))
+                              : 0;
+    const size_t smem = tail_bytes > stage ? tail_bytes : stage;
+    // the capacity by device and bytes rounded up to whole KB (at most
+    // 32): a grid that fits the rounded-up bytes fits
+    static int capacity[SC_MAX_DEVICES][SC_WIDE_STAGE_BYTES / 1024 + 1];
+    int dev = 0;
+    const cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int kb = static_cast<int>((smem + 1023) / 1024);
+    const int64_t work = tail ? g.claims * sc_wide_blocks(g.half0, g.k)
+                              : g.claims;
+    W* msgs_w = static_cast<W*>(msgs);
+    void* args[] = {const_cast<WideGrid<W>*>(&g), &rounds, &tail, &msgs_w};
+    const void* kernel = reinterpret_cast<const void*>(
+        sumcheck_wide_kernel<F>);
+    return launch_coop(kernel, args, smem, static_cast<size_t>(kb) * 1024,
+                       work,
+                       dev < SC_MAX_DEVICES ? &capacity[dev][kb] : nullptr,
+                       info, s);
+}
+
+template <class F>
+int sumcheck_prove(const void* ins, const void* more, void* scratch, int k,
+                   int claims, int64_t half0, int rounds, int tail,
+                   const void* chal, int64_t claim_rows, void* partials,
+                   void* msgs, int* info, cudaStream_t s) {
+    using W = typename F::word;
+    if (k < 1 || claims < 1 || claims > SC_MAX_CLAIMS
             || rounds < 1 || rounds > 62
             || half0 != (int64_t{1} << (rounds - 1))
             || tail != sc_tail_round(half0, rounds, k, sizeof(W))
-            || claim_rows != sc_phase_rows(half0, tail,
-                                           sc_phase_rounds(k, sizeof(W)),
-                                           tail))
+            || claim_rows != (k > SC_MAX_K
+                              ? sc_wide_rows(half0, k, tail)
+                              : sc_phase_rows(half0, tail,
+                                              sc_phase_rounds(k, sizeof(W)),
+                                              tail))
+            || (k > SC_WIDE_PTRS && !more))
         return static_cast<int>(cudaErrorInvalidValue);
+    if (k > SC_MAX_K) {
+        WideGrid<W> g{};
+        if (k > SC_WIDE_PTRS)
+            g.more = static_cast<const W* const*>(more);
+        else
+            for (int j = 0; j < k; ++j)
+                g.in[j] = static_cast<const W* const*>(ins)[j];
+        g.scratch = static_cast<W*>(scratch);
+        g.claims = claims;
+        g.half0 = half0;
+        g.claim_rows = claim_rows;
+        g.chal = static_cast<const W*>(chal);
+        g.partials = static_cast<W*>(partials);
+        g.k = k;
+        return launch_wide<F>(g, rounds, tail, msgs, info, s);
+    }
     Grid<W> g{};
     for (int j = 0; j < k; ++j)
         g.tb.in[j] = static_cast<const W* const*>(ins)[j];
@@ -1072,39 +1358,6 @@ int sumcheck_prove(const void* ins, void* scratch, int k, int claims,
 #undef SC_PROVE
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-}
-
-template <class F>
-int sumcheck_round_wide(const void* ins, const void* outs, int k, int claims,
-                        int64_t in_claim, int64_t out_claim, int64_t half,
-                        const void* chal, int round, int rounds,
-                        void* partials, cudaStream_t s) {
-    if (k < 1 || half < 1 || claims < 1 || claims > SC_MAX_CLAIMS
-            || round < 0 || round >= rounds || round > 62
-            || half > (INT64_MAX >> round))
-        return static_cast<int>(cudaErrorInvalidValue);
-    using W = typename F::word;
-    const int64_t half0 = half << round;
-    sumcheck_round_wide_kernel<F><<<dim3(sc_blocks(half), claims),
-                                    SC_THREADS, 0, s>>>(
-        static_cast<const W* const*>(ins), static_cast<W* const*>(outs), k,
-        in_claim, out_claim, half, static_cast<const W*>(chal), round,
-        sc_rows(half0, round), sc_rows(half0, rounds),
-        static_cast<W*>(partials));
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <class F>
-int sumcheck_reduce(const void* partials, void* msgs, int k1, int rounds,
-                    int claims, int64_t half0, cudaStream_t s) {
-    if (k1 < 2 || rounds < 1 || claims < 1
-            || claims > SC_MAX_CLAIMS || half0 < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    using W = typename F::word;
-    sumcheck_reduce_kernel<F><<<dim3(rounds, claims), SC_THREADS, 0, s>>>(
-        static_cast<const W*>(partials), static_cast<W*>(msgs), k1, rounds,
-        half0);
-    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1194,50 +1447,30 @@ extern "C" int srt_mle_fix(const void* in, int nv, int k, const void* pt_ptrs,
 }
 
 // K7 entry points, one set per field:
-//   srt_sumcheck_prove_<field>: the whole proof of `claims` claims for
-//     k <= 8 tables, one cooperative launch.  `ins` is a host array of k
-//     device pointers, claim w's table j at ins[j] + w*2*half0 words;
-//     scratch is [claims, k, half0] words, whose [w, j, 0] are the finals
-//     afterwards; msgs [claims, rounds, k+1].  `tail` and `claim_rows`
-//     are the plan's (mle/sumcheck_kernel.py): the first round run in
-//     the tail, and the partial rows of k+1 words a claim (partials holds
-//     claims * claim_rows); a call whose plan differs from the kernel's
-//     is refused.  info[0] and info[1] receive the grid and the resident
-//     blocks an SM.  A device that cannot launch cooperatively, or
-//     refuses the grid, returns the error and launches nothing.
-//   srt_sumcheck_round_wide_<field>: one round for any k >= 1.  `ins` /
-//     `outs` are device arrays of k device pointers, the tables read this
-//     round and the half-size tables written, claim w's at w*in_claim /
-//     w*out_claim words further; partials holds claims *
-//     sc_rows(half << round, rounds) rows of k+1 words.
-//   srt_sumcheck_reduce_<field>: msgs [claims, rounds, k1] words from the
-//     partials of rounds whose halves are half0, half0/2, ...
+//   srt_sumcheck_prove_<field>: the whole proof of `claims` claims of k
+//     tables, one cooperative launch (sumcheck_prove_kernel for k <= 8,
+//     sumcheck_wide_kernel beyond).  `ins` is a host array of k device
+//     pointers, claim w's table j at ins[j] + w*2*half0 words; for k >
+//     SC_WIDE_PTRS, `more` is a device array of the same k pointers
+//     (else null).  scratch is [claims, k, half0] words, whose [w, j, 0]
+//     are the finals afterwards; msgs [claims, rounds, k+1].  `tail` and
+//     `claim_rows` are the plan's (mle/sumcheck_kernel.py): the first
+//     round run in the tail, and the partial rows of k+1 words a claim
+//     (partials holds claims * claim_rows); a call whose plan differs from
+//     the kernel's is refused.  info[0] and info[1] receive the grid and
+//     the resident blocks an SM.  A device that cannot launch
+//     cooperatively, or refuses the grid, returns the error and launches
+//     nothing.
 #define SC_ENTRIES(NAME, OPS)                                                \
     extern "C" int srt_sumcheck_prove_##NAME(                                \
-            const void* ins, void* scratch, int k, int claims,               \
-            int64_t half0, int rounds, int tail, const void* chal,           \
-            int64_t claim_rows, void* partials, void* msgs, int* info,       \
-            void* stream) {                                                  \
-        return sumcheck_prove<OPS>(ins, scratch, k, claims, half0, rounds,   \
-                                   tail, chal, claim_rows, partials, msgs,   \
-                                   info, static_cast<cudaStream_t>(stream)); \
-    }                                                                        \
-    extern "C" int srt_sumcheck_round_wide_##NAME(                           \
-            const void* ins, const void* outs, int k, int claims,            \
-            int64_t in_claim, int64_t out_claim, int64_t half,               \
-            const void* chal, int round, int rounds, void* partials,         \
-            void* stream) {                                                  \
-        return sumcheck_round_wide<OPS>(ins, outs, k, claims, in_claim,      \
-                                        out_claim, half, chal, round,        \
-                                        rounds, partials,                    \
-                                        static_cast<cudaStream_t>(stream));  \
-    }                                                                        \
-    extern "C" int srt_sumcheck_reduce_##NAME(                               \
-            const void* partials, void* msgs, int k1, int rounds,            \
-            int claims, int64_t half0, void* stream) {                       \
-        return sumcheck_reduce<OPS>(partials, msgs, k1, rounds, claims,      \
-                                    half0,                                   \
-                                    static_cast<cudaStream_t>(stream));      \
+            const void* ins, const void* more, void* scratch, int k,         \
+            int claims, int64_t half0, int rounds, int tail,                 \
+            const void* chal, int64_t claim_rows, void* partials,            \
+            void* msgs, int* info, void* stream) {                           \
+        return sumcheck_prove<OPS>(ins, more, scratch, k, claims, half0,     \
+                                   rounds, tail, chal, claim_rows, partials, \
+                                   msgs, info,                               \
+                                   static_cast<cudaStream_t>(stream));       \
     }
 SC_ENTRIES(goldilocks, GlOps)
 SC_ENTRIES(babybear, BbOps)

@@ -6,7 +6,10 @@ tile shape, loads in flight, blocks an SM of ``csrc/fold.cu``'s
 ``csrc/ntt.cu``'s ``ntt_tile_kernel``), at the main path's shapes
 (B = 80, N = 2^16, R = t = 256); and of K5, the MLE evaluation
 (``csrc/mle.cu``'s ``mle_eval_kernel``, words a block), at nv = 20 and
-24.
+24; and the mod-mat kernel (``csrc/mxu.cu``'s ``mxu_mod_mat_kernel``)
+beside the reference's stacked operand form, which multiplies the zero
+blocks of its stacked weights too (190 tensor-core products a tile
+against 100), at the main shape of ``MatmulNTT``'s levels.
 
 Each variant is a copy of the kept source with some constants changed,
 built by nvcc on its own into ``build/tile_variants/``, and called
@@ -23,7 +26,7 @@ for both at once (the loads, shuffles and one barrier).
 
 Run on a machine with a CUDA card and nvcc, from the root of a checkout:
     python -m stark_rings_tpu_torch.examples.tile_variants [fold] [tile]
-        [eval]
+        [eval] [mxu]
 (every group when none is named).
 """
 
@@ -41,10 +44,13 @@ import torch
 
 from ..fields import GOLDILOCKS as F
 from ..mle import fix as FX
-from ..ops import _build, fold as K, goldilocks_ntt as G
+from ..mle import sumcheck_kernel as SK
+from ..ops import _build, fold as K, goldilocks_ntt as G, mxu_fused as MF
 from ..ops.fold import Mxu2FusedNTT
+from ..ops.mxu import MatmulNTT
 
-__all__ = ["EVAL_VARIANTS", "FOLD_VARIANTS", "TILE_VARIANTS", "main"]
+__all__ = ["EVAL_VARIANTS", "FOLD_VARIANTS", "MXU_VARIANTS", "TILE_VARIANTS",
+           "WIDE_VARIANTS", "main"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "tile_variants"
@@ -113,6 +119,87 @@ EVAL_VARIANTS = {
                          _ONE_LEVEL),
     "probe: loads only": ("cost probe, both", _NO_LERPS + _ONE_LEVEL),
 }
+_MXU_B = ("        b[l][1] = ds[(l * KQ + t + 4) * D_STRIDE + g];\n"
+          "    }\n")
+_MXU_ZERO_BLOCKS = (
+    "    {   // the stacked form's zero blocks: s - l outside the digits\n"
+    "        const uint32_t z[4] = {0, 0, 0, 0};\n"
+    "#pragma unroll\n"
+    "        for (int mt = 0; mt < MT; ++mt)\n"
+    "#pragma unroll\n"
+    "            for (int l = 0; l < DIGITS; ++l)\n"
+    "#pragma unroll\n"
+    "                for (int s = 0; s < BUCKETS; ++s)\n"
+    "                    if (s < l || s >= l + DIGITS)\n"
+    "                        mma_s8(acc[mt][s], z, b[l][0], b[l][1]);\n"
+    "    }\n")
+MXU_VARIANTS = {
+    "kept": ("the 100 digit products W_k x_l into 19 bucket tiles", []),
+    "stacked": ("the stacked [19R, 10C] x [10C, M] form: 190 products a "
+                "tile, the 90 zero blocks of its weights included",
+                [(_MXU_B, _MXU_B + _MXU_ZERO_BLOCKS)]),
+    "16 warps": ("512 threads, one m16 tile (16 x 8 of y) a warp: 76 "
+                 "accumulator registers",
+                 [("THREADS = 256;", "THREADS = 512;"), ("MT = 2;",
+                                                         "MT = 1;")]),
+    "2 blocks an SM": ("one m16 tile a warp, blocks of 32 x 32, at most "
+                       "128 registers: two blocks an SM",
+                       [("MT = 2;", "MT = 1;"),
+                        ("MIN_BLOCKS = 1;", "MIN_BLOCKS = 2;")]),
+    "x loaded late": (
+        "the next chunk's x loaded after the products, not before them",
+        [("            copy_w(ch + 1, smem + (buf ^ 1) * W_WORDS);\n"
+          "            load_x(ch + 1);\n        }\n"
+          "        chunk_products(acc, ws + wr * 16 * MT * W_STRIDE, "
+          "ds + wm * 8, g, t);\n",
+          "            copy_w(ch + 1, smem + (buf ^ 1) * W_WORDS);\n"
+          "        }\n"
+          "        chunk_products(acc, ws + wr * 16 * MT * W_STRIDE, "
+          "ds + wm * 8, g, t);\n"
+          "        if (ch + 1 < chunks) load_x(ch + 1);\n")]),
+    "probe: no fold": (
+        "cost probe, each output the plain sum of its 19 buckets",
+        [("y[e] = fold_buckets(v);",
+          "y[e] = 0;\n"
+          "                for (int s2 = 0; s2 < BUCKETS; ++s2)\n"
+          "                    y[e] += static_cast<uint32_t>(v[s2]);")]),
+    "probe: no tensor-core products": (
+        "cost probe, each mma.sync an integer add of its operands",
+        [('    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "\n'
+          '        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, '
+          '{%0, %1, %2, %3};"\n'
+          '        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])\n'
+          '        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), '
+          '"r"(b1));',
+          "    d[0] += a[0] ^ b0;\n    d[1] += a[1] ^ b1;\n"
+          "    d[2] += a[2];\n    d[3] += a[3];")]),
+}
+WIDE_VARIANTS = {
+    "kept": ("one (entry, group of 8 sums) a thread", []),
+    "probe: no products": (
+        "cost probe, every factor's products dropped (staging, folds, "
+        "barriers and sums kept)",
+        [("                        sc_wide_factor<F>(prod, stage[j * 2 * E "
+          "+ e],\n                                          stage[j * 2 * E "
+          "+ E + e], t0, k,\n                                          "
+          "j0 + j == 0);",
+          "                        prod[0] = stage[j * 2 * E + e];"),
+         ("                    sc_wide_factor<F>(prod, tab(j)[y], "
+          "tab(j)[y + h], t0, k,\n                                      "
+          "j == s);",
+          "                    prod[0] = tab(j)[y];")]),
+    "probe: block barriers for grid barriers": (
+        "cost probe, each grid round ended by __syncthreads",
+        [("        row0 += nb;\n        cooperative_groups::this_grid()"
+          ".sync();",
+          "        row0 += nb;\n        __syncthreads();")]),
+    "probe: no tail rounds": (
+        "cost probe, the tail's rounds skipped",
+        [("        for (int i = tail; i < rounds; ++i)\n"
+          "            sc_wide_tail_round<F>(",
+          "        for (int i = rounds; i < rounds; ++i)\n"
+          "            sc_wide_tail_round<F>(")]),
+}
 REPS = 10
 
 
@@ -173,7 +260,8 @@ def _call(fn, *args) -> None:
 
 
 def main(groups=None) -> None:
-    groups = set(groups or sys.argv[1:] or ("fold", "tile", "eval"))
+    groups = set(groups or sys.argv[1:]
+                 or ("fold", "tile", "eval", "mxu", "wide"))
     if not torch.cuda.is_available():
         raise SystemExit("tile_variants: needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -191,6 +279,10 @@ def main(groups=None) -> None:
         _tile(a, b, dev, card)
     if "eval" in groups:
         _eval(rng, dev, card)
+    if "mxu" in groups:
+        _mxu(rng, dev, card)
+    if "wide" in groups:
+        _wide(rng, dev, card)
 
 
 def _fold(a, dev, card) -> None:
@@ -284,6 +376,75 @@ def _eval(rng, dev, card) -> None:
                                          f"equal to the twin is {equal}")
             print(f"K5 nv={nv} {name} ({EVAL_VARIANTS[name][0]}): "
                   f"{_time_ms(run):.4f} ms  ({card})", flush=True)
+
+
+def _mxu(rng, dev, card) -> None:
+    """The mod-mat kernel and its stacked-form variant on MatmulNTT's
+    column matrix at the main shape (R = C = 128, 10,240 columns) through
+    ``srt_mxu_mod_mat``; the kept design is timed first and last."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    libs = _build_variants("mxu.cu", MXU_VARIANTS)
+    f = MF.MxuModMatFused(MatmulNTT(device=dev).col_mat.matrix(),
+                          device=dev)
+    x = F.rand((f.C, 80 * 128), rng, dev)
+    want = MF.mxu_mod_mat_ref(x[:, :1024].contiguous(), f.w)
+    for name in [*MXU_VARIANTS, "kept"]:
+        lib = libs[name]
+        lib.srt_mxu_mod_mat.argtypes = [p, p, p, i32, i32, i64, p]
+        out = torch.empty((f.R, x.shape[1]), dtype=torch.int64, device=dev)
+
+        def run():
+            _call(lib.srt_mxu_mod_mat, x.data_ptr(), f.wt.data_ptr(),
+                  out.data_ptr(), f.R, f.C, x.shape[1])
+
+        run()
+        torch.cuda.synchronize()
+        equal = torch.equal(out[:, :1024], want)
+        if equal == name.startswith("probe"):
+            raise AssertionError(f"mod-mat variant {name!r}: equal to the "
+                                 f"twin is {equal}")
+        print(f"mxu_mod_mat [{f.R}, {f.C}] x [{f.C}, {x.shape[1]}] {name} "
+              f"({MXU_VARIANTS[name][0]}): {_time_ms(run):.4f} ms  "
+              f"({card})", flush=True)
+
+
+def _wide(rng, dev, card) -> None:
+    """K7 beyond 8 tables (``sumcheck_wide_kernel``) and its cost probes
+    at nv = 16, k = 9 and 16 over Goldilocks, launched bare through
+    ``srt_sumcheck_prove_goldilocks``; the kept design first and last."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    libs = _build_variants("mle.cu", WIDE_VARIANTS)
+    for nv, k in ((16, 9), (16, 16)):
+        tables = [F.rand((1 << nv,), rng, dev) for _ in range(k)]
+        chal = F.rand((nv,), rng, dev)
+        want = SK.sumcheck_prove_many_ref(tables, chal)[0]
+        plan = SK.plan(nv, k, 8)
+        half = 1 << (nv - 1)
+        scratch = torch.empty((1, k, half), dtype=torch.int64, device=dev)
+        partials = torch.empty((plan.rows, k + 1), dtype=torch.int64,
+                               device=dev)
+        msgs = torch.empty((1, nv, k + 1), dtype=torch.int64, device=dev)
+        ins = (ctypes.c_void_p * k)(*[T.data_ptr() for T in tables])
+        info = (ctypes.c_int * 2)()
+        for name in [*WIDE_VARIANTS, "kept"]:
+            fn = libs[name].srt_sumcheck_prove_goldilocks
+            fn.argtypes = [p, p, p, i32, i32, i64, i32, i32, p, i64, p, p,
+                           p, p]
+
+            def run():
+                _call(fn, ins, None, scratch.data_ptr(), k, 1, half, nv,
+                      plan.tail, chal.data_ptr(), plan.rows,
+                      partials.data_ptr(), msgs.data_ptr(), info)
+
+            run()
+            torch.cuda.synchronize()
+            equal = torch.equal(msgs[0], want)
+            if equal == name.startswith("probe"):
+                raise AssertionError(f"K7 variant {name!r} nv={nv} k={k}: "
+                                     f"equal to the twin is {equal}")
+            print(f"K7 nv={nv} k={k} {name} ({WIDE_VARIANTS[name][0]}): "
+                  f"{_time_ms(run):.4f} ms, grid {info[0]} blocks "
+                  f"({info[1]}/SM)  ({card})", flush=True)
 
 
 if __name__ == "__main__":

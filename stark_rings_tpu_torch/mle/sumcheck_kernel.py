@@ -22,37 +22,43 @@ int64 for Goldilocks (canonical) and frog (Montgomery, R = 2^64), int32
 for BabyBear (Montgomery, R = 2^32).  The kernel's add, sub and mul are
 the field's own on that storage, so nothing is converted.
 
-On CUDA tensors the wrappers prove with ``csrc/mle.cu``.  Up to 8 tables
-a proof is one cooperative launch of ``sumcheck_prove_kernel``, as the
-reference's proof is one ``pallas_call``.  Its rounds run in a loop
-inside the kernel: the rounds on big tables in grid phases of up to 4
-rounds (a thread holds its 2^m entries of each table in registers and
-folds them m times; per-block partial sums; the folded tables in device
-memory) separated by grid-wide barriers, then one block per claim
-finishes the small rounds in shared memory and reduces the partials to
-the messages.  A proof of nv + 1 launches (one a round, one reduction)
-was bound by the host's launches; one launch leaves round 0's read of
-the tables, the barriers, the one-block tail and this wrapper's host
-time.  :func:`plan` is the launch plan: the chunks of claims, the grid
-phases and their blocks, and the round where the one-block tail begins.
-Beyond 8 tables a round kernel reads k at run time (the table pointers
-in device arrays) and makes one pass over the entries for each 8 of the
-k + 1 sums, one launch a round and one reduction: nv + 1 launches.  The
-claims of a batch are virtual blocks of the launch (the wide kernels'
-second grid axis), at most 65,535 a launch; a larger batch runs in
-chunks of that many claims.  The reference hands small tables to the
-generic prover (nv < 12, and the last 10 rounds: its kernel works on
-rows of 128 lanes) and batches by calling its kernel once per claim;
-here every round of every claim stays in the kernel.  Each field has its
-own C entry points, ``srt_sumcheck_prove_<field>``,
-``srt_sumcheck_round_wide_<field>`` and ``srt_sumcheck_reduce_<field>``.
-Every launch adds one to ``LAUNCHES["sumcheck_prove_many_<field>"]`` or
+On CUDA tensors the wrappers prove with ``csrc/mle.cu``, one
+cooperative launch a proof, as the reference's proof is one
+``pallas_call``.  Up to 8 tables ``sumcheck_prove_kernel`` runs the
+rounds in a loop inside the kernel: the rounds on big tables in grid
+phases of up to 4 rounds (a thread holds its 2^m entries of each table
+in registers and folds them m times; per-block partial sums; the folded
+tables in device memory) separated by grid-wide barriers, then one block
+per claim finishes the small rounds in shared memory and reduces the
+partials to the messages.  Beyond 8 tables ``sumcheck_wide_kernel``
+reads k at run time and runs the same schedule, one round a grid phase:
+each entry's k + 1 sums are split over threads 8 at a time, so a
+round's chain of dependent products is k long; a grid round first
+copies its block's entries into shared memory with every load in
+flight; after the last grid round every block of the grid sums partial
+rows into messages; and the table pointers ride in the launch
+parameters (up to 64 tables; beyond, a device array uploaded for the
+call).  A proof of nv + 1 launches (one a round, one reduction: the
+first design, at every k) was bound by the host's launches; one launch
+leaves round 0's read of the tables, the barriers, the one-block tail
+and this wrapper's host time, and beyond 8 tables the k - 1 products a
+message sum.
+:func:`plan` is the launch plan: the chunks of claims, the grid phases
+and their blocks, and the round where the one-block tail begins.  The
+claims of a batch are virtual blocks of the launch, at most 65,535 a
+launch; a larger batch runs in chunks of that many claims.  The
+reference hands small tables to the generic prover (nv < 12, and the
+last 10 rounds: its kernel works on rows of 128 lanes) and batches by
+calling its kernel once per claim; here every round of every claim
+stays in the kernel.  Each field has its own C entry point,
+``srt_sumcheck_prove_<field>``.  Every launch adds one to
+``LAUNCHES["sumcheck_prove_many_<field>"]`` or
 ``LAUNCHES["sumcheck_prove_batch_goldilocks"]``; ``LAST_GRID`` keeps the
-grid and resident blocks an SM of the last cooperative launch.  With nv
-= 0 there is no round: the proof is the empty message tensor and the
-tables' one entries, and nothing is launched.  A device that cannot
-launch cooperatively raises; there is no per-round fallback.  CPU
-tensors get the twins.
+grid and resident blocks an SM of the last launch.  With nv = 0 there is
+no round: the proof is the empty message tensor and the tables' one
+entries, and nothing is launched.  A device that cannot launch
+cooperatively raises; there is no per-round fallback.  CPU tensors get
+the twins.
 """
 
 from __future__ import annotations
@@ -72,7 +78,7 @@ __all__ = ["sumcheck_prove_many", "sumcheck_prove_many_goldilocks",
            "sumcheck_prove_goldilocks", "sumcheck_prove_batch_goldilocks",
            "sumcheck_prove_many_ref", "sumcheck_prove_batch_ref",
            "SUMCHECK_FIELDS", "LAUNCHES", "LAST_GRID", "reset_launches",
-           "plan", "Plan"]
+           "plan", "Plan", "wide_groups"]
 
 #: the fields K7 runs over
 SUMCHECK_FIELDS = ("goldilocks", "babybear", "frog")
@@ -81,18 +87,21 @@ _BATCH = "sumcheck_prove_batch_goldilocks"
 LAUNCHES = {**{f"sumcheck_prove_many_{field}": 0
                for field in SUMCHECK_FIELDS}, _BATCH: 0}
 
-#: (grid, resident blocks an SM) of the last cooperative launch, by name
+#: (grid, resident blocks an SM) of the last launch, by name
 LAST_GRID = {}
 
 # the constants of csrc/mle.cu that the plan follows
 _MAX_K = 8              # tables of the persistent kernel; more go wide
-_MAX_CLAIMS = 65535     # claims per launch (the wide kernels' grid axis)
+_MAX_CLAIMS = 65535     # SC_MAX_CLAIMS: claims per launch
 _THREADS = 256          # SC_THREADS
 _MAX_BLOCKS = 1024      # SC_MAX_BLOCKS: the most blocks a round takes
 _TAIL_BYTES = 32 * 1024  # SC_TAIL_BYTES: a tail block's tables
 _TAIL_HALF = 1024       # SC_TAIL_HALF: the largest half a tail round takes
 _PHASE_BYTES = 128      # SC_PHASE_BYTES: a thread's entries in a phase
 _MAX_PHASE = 4          # SC_MAX_PHASE: the most rounds a phase takes
+_WIDE_T = 8             # SC_WIDE_T: message sums a thread takes (k > 8)
+_WIDE_GROUPS = 32       # SC_WIDE_GROUPS: most threads an entry
+_WIDE_PTRS = 64         # SC_WIDE_PTRS: table pointers in the parameters
 
 
 def reset_launches() -> None:
@@ -147,19 +156,17 @@ def _prepare(name, f, tables, challenges, lead):
 class Plan(NamedTuple):
     """How K7 proves W claims of k tables with nv variables.
 
-    ``chunks``: (first claim, claims) of each chunk, one group of
-    launches each.  ``tail``: for k <= 8 the first round of the
-    one-block tail, None beyond 8 tables (every round on the round
-    kernel).  ``phases``: (first round, rounds) of each grid phase
-    before the tail, each ended by a grid barrier (k <= 8; beyond, one
-    launch a round).  ``blocks``: the blocks a claim takes in each
+    ``chunks``: (first claim, claims) of each chunk, one launch each.
+    ``tail``: the first round of the one-block tail (nv when no round
+    fits it).  ``phases``: (first round, rounds) of each grid phase
+    before the tail, each ended by a grid barrier (one round a phase
+    beyond 8 tables).  ``blocks``: the blocks a claim takes in each
     round before the tail, each writing one partial row: a phase's
     rounds take the blocks of its last round.  ``rows``: partial rows a
-    claim, their sum.  ``launches``: per chunk (1 for k <= 8, else
-    nv + 1)."""
+    claim, their sum.  ``launches``: per chunk, 1."""
 
     chunks: tuple
-    tail: int | None
+    tail: int
     phases: tuple
     blocks: tuple
     rows: int
@@ -170,6 +177,20 @@ def _blocks(half: int) -> int:
     return min(_MAX_BLOCKS, -(-half // _THREADS))
 
 
+def wide_groups(k: int) -> int:
+    """Threads an entry beyond 8 tables: the groups of 8 of the k + 1
+    message sums, rounded up to a power of 2, at most 32 (more groups
+    take further passes)."""
+    g, p = (k + _WIDE_T) // _WIDE_T, 1
+    while p < g and p < _WIDE_GROUPS:
+        p *= 2
+    return p
+
+
+def _wide_blocks(half: int, k: int) -> int:
+    return min(_MAX_BLOCKS, -(-half // (_THREADS // wide_groups(k))))
+
+
 @functools.lru_cache(maxsize=256)
 def plan(nv: int, k: int, word_bytes: int, W: int = 1) -> Plan:
     """The launch plan of a proof of W claims, k tables of ``word_bytes``
@@ -177,20 +198,22 @@ def plan(nv: int, k: int, word_bytes: int, W: int = 1) -> Plan:
     Round i has half = 2^(nv-1-i).  The tail begins at the first round
     whose k tables of 2*half words fit 32 KB, with half <= 1024.  A grid
     phase takes the most rounds m <= 4 whose 2^m entries of each table
-    fit 128 bytes a thread (at least one), and the last phase ends at
-    the tail."""
+    fit 128 bytes a thread (at least one; one beyond 8 tables), and the
+    last phase ends at the tail.  Up to 8 tables a round's blocks take
+    256 entries each; beyond, 256 / ``wide_groups(k)``."""
     if nv < 1 or k < 1 or W < 1:
         raise ValueError(f"plan: need nv, k, W >= 1, got {nv}, {k}, {W}")
     half0 = 1 << (nv - 1)
     chunks = tuple((w, min(_MAX_CLAIMS, W - w))
                    for w in range(0, W, _MAX_CLAIMS))
-    if k > _MAX_K:
-        blocks = tuple(_blocks(half0 >> i) for i in range(nv))
-        return Plan(chunks, None, (), blocks, sum(blocks), nv + 1)
     h = _TAIL_HALF
     while 2 * h * k * word_bytes > _TAIL_BYTES:
         h //= 2
-    tail = next(i for i in range(nv) if half0 >> i <= h)
+    tail = next((i for i in range(nv) if half0 >> i <= h), nv)
+    if k > _MAX_K:
+        blocks = tuple(_wide_blocks(half0 >> i, k) for i in range(tail))
+        return Plan(chunks, tail, tuple((i, 1) for i in range(tail)),
+                    blocks, sum(blocks), 1)
     m = 1
     while m < _MAX_PHASE and (2 << m) * k * word_bytes <= _PHASE_BYTES:
         m += 1
@@ -214,40 +237,26 @@ def _prove_on_card(name, f, tables, chal, W):
 
 def _prove_chunk(name, f, tables, chal, W, p):
     """One chunk of W <= 65,535 claims under plan ``p``: one cooperative
-    launch, or nv + 1 launches beyond 8 tables."""
+    launch."""
     k, nv = len(tables), chal.shape[0]
     half = 1 << (nv - 1)
     dev = tables[0].device
-    lib = _build.kernels()
     scratch = torch.empty((W, k, half), dtype=f.dtype, device=dev)
     partials = torch.empty((W * p.rows, k + 1), dtype=f.dtype, device=dev)
     msgs = torch.empty((W, nv, k + 1), dtype=f.dtype, device=dev)
     ins = [T.data_ptr() for T in tables]
-    if p.tail is not None:
-        info = (ctypes.c_int * 2)()
-        _build.launch(LAUNCHES, name,
-                      getattr(lib, f"srt_sumcheck_prove_{f.name}"), dev,
-                      (ctypes.c_void_p * k)(*ins), scratch.data_ptr(), k, W,
-                      half, nv, p.tail, chal.data_ptr(), p.rows,
-                      partials.data_ptr(), msgs.data_ptr(), info)
-        LAST_GRID[name] = tuple(info)
-        return msgs, scratch[:, :, 0]
-    # device arrays of table pointers, read by the wide kernel: the
-    # tables, then claim 0's half-size tables scratch[0, j]
-    step = half * scratch.element_size()
-    ptrs = (ins, [scratch.data_ptr() + j * step for j in range(k)])
-    ins, outs = (torch.tensor(x, dtype=torch.int64).pin_memory().to(
-        dev, non_blocking=True) for x in ptrs)
-    in_claim, out_claim = 2 * half, k * half   # words from claim to claim
-    round_fn = getattr(lib, f"srt_sumcheck_round_wide_{f.name}")
-    reduce_fn = getattr(lib, f"srt_sumcheck_reduce_{f.name}")
-    for i in range(nv):
-        _build.launch(LAUNCHES, name, round_fn, dev, ins.data_ptr(),
-                      outs.data_ptr(), k, W, in_claim, out_claim, half >> i,
-                      chal.data_ptr(), i, nv, partials.data_ptr())
-        ins, in_claim = outs, out_claim    # later rounds fold in place
-    _build.launch(LAUNCHES, name, reduce_fn, dev, partials.data_ptr(),
-                  msgs.data_ptr(), k + 1, nv, W, half)
+    # beyond the launch parameters' pointers, a device array of all k
+    more = None if k <= _WIDE_PTRS else torch.tensor(
+        ins, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    info = (ctypes.c_int * 2)()
+    _build.launch(LAUNCHES, name,
+                  getattr(_build.kernels(), f"srt_sumcheck_prove_{f.name}"),
+                  dev, (ctypes.c_void_p * k)(*ins),
+                  None if more is None else more.data_ptr(),
+                  scratch.data_ptr(), k, W, half, nv, p.tail,
+                  chal.data_ptr(), p.rows, partials.data_ptr(),
+                  msgs.data_ptr(), info)
+    LAST_GRID[name] = tuple(info)
     return msgs, scratch[:, :, 0]
 
 

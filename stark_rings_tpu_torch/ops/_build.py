@@ -110,6 +110,8 @@ def kernels() -> ctypes.CDLL:
     lib.srt_ntt_stage.argtypes = [p, p, p, u64, i32, i32, i32, i64, i32, p]
     lib.srt_ntt_tile.argtypes = [p, p, p, p, p, u64, i32, i32, i64, i32, p]
     lib.srt_mxu_mod_mat.argtypes = [p, p, p, i32, i32, i64, p]
+    lib.srt_mxu_mod_mat_smem.argtypes = []
+    lib.srt_mxu_mod_mat_smem.restype = ctypes.c_int
     lib.srt_bb_fold_tw.argtypes = lib.srt_fold_tw.argtypes
     lib.srt_bb_fold_end2_mul.argtypes = lib.srt_fold_end2_mul.argtypes
     lib.srt_bb_fold_end.argtypes = lib.srt_fold_end.argtypes
@@ -118,12 +120,9 @@ def kernels() -> ctypes.CDLL:
     sumcheck = []
     for field in ("goldilocks", "babybear", "frog"):
         prove = getattr(lib, f"srt_sumcheck_prove_{field}")
-        wide = getattr(lib, f"srt_sumcheck_round_wide_{field}")
-        red = getattr(lib, f"srt_sumcheck_reduce_{field}")
-        prove.argtypes = [p, p, i32, i32, i64, i32, i32, p, i64, p, p, p, p]
-        wide.argtypes = [p, p, i32, i32, i64, i64, i64, p, i32, i32, p, p]
-        red.argtypes = [p, p, i32, i32, i32, i64, p]
-        sumcheck += [prove, wide, red]
+        prove.argtypes = [p, p, p, i32, i32, i64, i32, i32, p, i64, p, p, p,
+                          p]
+        sumcheck.append(prove)
     exchange = []
     for field in ("goldilocks", "babybear"):
         fn = getattr(lib, f"srt_twiddle_exchange_{field}")

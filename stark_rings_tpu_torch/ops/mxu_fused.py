@@ -4,16 +4,26 @@
 :class:`MxuModMatFused` computes what :class:`.mxu.MxuModMat` computes,
 y = M x (mod q) for u64 x [C, cols], in one launch of the kernel of
 ``csrc/mxu.cu``: the 7-bit digits of x, the 19 int32 bucket sums of the
-digit products, their carry-packing into words and the Goldilocks fold,
-all inside the kernel, with no library GEMM and no bucket tensor in
-device memory.  Any number of columns: the kernel masks the ragged
-edge, where the reference padded to its tile.
+digit products on the int8 tensor cores (``mma.sync`` m16n8k32, the 100
+products W_k x_l into 19 accumulator tiles), their carry-packing into
+words and the Goldilocks fold, all inside the kernel, with no library
+GEMM and no digit plane or bucket tensor in device memory.  Any number
+of columns, rows and matrix columns: the kernel masks the ragged edges,
+where the reference padded to its tile.
 
 =================  ======================  ======================
 wrapper            twin                    reference
 =================  ======================  ======================
 ``mxu_mod_mat``    ``mxu_mod_mat_ref``     ``MxuModMatPallas.apply``
 =================  ======================  ======================
+
+Two weight tables describe M.  ``w`` (:func:`kernel_weights`, int8
+[R, C, 16]: the ten digits of M[r, c] at bytes 0..9) is what the wrapper
+and the twin take.  The kernel reads :func:`tc_weights` of it, int8
+[10, Rp, Cp]: digit plane k as rows of bytes, the A operand's layout,
+zero-padded to the kernel's 64-row block and 32-column chunk.
+:class:`MxuModMatFused` builds both once; :func:`mxu_mod_mat` given only
+``w`` builds the plane table on each call.
 
 The twin repeats the reference kernel's arithmetic in plain torch: the
 digit products as int64 broadcasts, summed by bucket, and the word
@@ -41,11 +51,14 @@ from .mxu import (DBITS, DIGITS, NBUCKETS, MxuModMat, check_bound,
                   data_digits)
 
 __all__ = ["MxuModMatFused", "mxu_mod_mat", "mxu_mod_mat_ref", "LAUNCHES",
-           "reset_launches", "kernel_weights"]
+           "reset_launches", "kernel_weights", "tc_weights"]
 
 LAUNCHES = {"mxu_mod_mat": 0}
 _N_WORDS = (DBITS * (NBUCKETS - 1) + 31) // 32 + 2
-_W_BYTES = 16        # weight digits per (r, c), padded for one 16-byte load
+_W_BYTES = 16        # weight digits per (r, c) in ``w``
+_BLOCK_ROWS = 64     # the kernel's rows a block (csrc/mxu.cu BR) ...
+_BLOCK_COLS = 32     # ... columns a block (BM) ...
+_CHUNK = 32          # ... and matrix columns a chunk (KC)
 
 
 def reset_launches() -> None:
@@ -60,6 +73,18 @@ def kernel_weights(planes: np.ndarray, device) -> torch.Tensor:
     w = np.zeros((R, C, _W_BYTES), dtype=np.int8)
     w[:, :, :DIGITS] = planes.transpose(1, 2, 0)
     return torch.from_numpy(w).to(get_device(device))
+
+
+def tc_weights(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's weights [R, C, 16] -> its digit-plane table int8
+    [DIGITS, Rp, Cp] on w's device: plane k holds digit k of M, rows
+    padded to a multiple of 64 and columns to a multiple of 32 with
+    zeros."""
+    R, C, _ = w.shape
+    wt = torch.zeros(_tc_shape(R, C), dtype=torch.int8,
+                     device=w.device)
+    wt[:, :R, :C] = w[:, :, :DIGITS].permute(2, 0, 1)
+    return wt
 
 
 # ---------------------------------------------------------------------------
@@ -128,10 +153,11 @@ def mxu_mod_mat_ref(x, w):
 # ---------------------------------------------------------------------------
 
 
-def mxu_mod_mat(x, w):
+def mxu_mod_mat(x, w, wt=None):
     """y = M x (mod q): x int64 [C, cols] (u64 bits, any value), w the
     kernel weights int8 [R, C, 16] of M (:func:`kernel_weights`) ->
-    canonical int64 [R, cols]."""
+    canonical int64 [R, cols].  ``wt``: :func:`tc_weights` of ``w``
+    where the caller keeps it (built here when not given)."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.int64 \
             or x.dim() != 2:
         raise TypeError("mxu_mod_mat: x must be a 2-D int64 tensor")
@@ -147,17 +173,32 @@ def mxu_mod_mat(x, w):
                          f"matrix {C} columns")
     check_bound(C)
     cols = x.shape[1]
-    if R == 0 or (cols + 127) // 128 >= 2**31 or (R + 3) // 4 > 65535:
+    if R == 0 or -(-cols // _BLOCK_COLS) >= 2**31 \
+            or -(-R // _BLOCK_ROWS) > 65535:
         raise ValueError(f"mxu_mod_mat: R={R}, cols={cols} outside the "
                          "kernel's grid")
     if not _build.on_cuda("mxu_mod_mat", x, w):
         return mxu_mod_mat_ref(x, w)
+    if wt is None:
+        wt = tc_weights(w)
+    elif wt.dtype != torch.int8 or wt.device != w.device \
+            or tuple(wt.shape) != tuple(_tc_shape(R, C)) \
+            or not wt.is_contiguous():
+        raise ValueError(f"mxu_mod_mat: wt must be the contiguous int8 "
+                         f"{list(_tc_shape(R, C))} table of w")
     out = torch.empty((R, cols), dtype=torch.int64, device=x.device)
     if cols:
         _build.launch(LAUNCHES, "mxu_mod_mat",
                       _build.kernels().srt_mxu_mod_mat, x.device,
-                      x.data_ptr(), w.data_ptr(), out.data_ptr(), R, C, cols)
+                      x.data_ptr(), wt.data_ptr(), out.data_ptr(), R, C,
+                      cols)
     return out
+
+
+def _tc_shape(R: int, C: int) -> tuple:
+    """The shape of :func:`tc_weights` for an [R, C] matrix."""
+    return (DIGITS, -(-R // _BLOCK_ROWS) * _BLOCK_ROWS,
+            -(-C // _CHUNK) * _CHUNK)
 
 
 class MxuModMatFused(MxuModMat):
@@ -165,13 +206,14 @@ class MxuModMatFused(MxuModMat):
     kernel launch per call (the reference's ``MxuModMatPallas``).
 
     ``planes`` and ``big`` (the stacked weights, the reference's
-    ``big_planes``) are :class:`.mxu.MxuModMat`'s; ``w`` is the kernel's
-    device table."""
+    ``big_planes``) are :class:`.mxu.MxuModMat`'s; ``w`` is the
+    wrapper's device table and ``wt`` the kernel's digit planes."""
 
     def __init__(self, m_ints, device="cuda"):
         super().__init__(m_ints, device)
         self.w = kernel_weights(self.planes, self.device)
+        self.wt = tc_weights(self.w)
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         """x u64 [C, cols] -> u64 [R, cols]."""
-        return mxu_mod_mat(x.contiguous(), self.w)
+        return mxu_mod_mat(x.contiguous(), self.w, self.wt)

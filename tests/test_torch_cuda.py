@@ -579,17 +579,14 @@ def test_sumcheck_refused_launch_raises(dev, monkeypatch):
     def refused(*args):
         return 720        # cudaErrorCooperativeLaunchTooLarge
 
-    def no_round(*args):
-        raise AssertionError("a per-round kernel ran")
-
     monkeypatch.setattr(lib, "srt_sumcheck_prove_goldilocks", refused)
-    monkeypatch.setattr(lib, "srt_sumcheck_round_wide_goldilocks", no_round)
     f = get_field("goldilocks")
     rng = np.random.default_rng(720)
-    tables = [f.rand((1 << 12,), rng, dev) for _ in range(2)]
     before = dict(SK.LAUNCHES)
-    with pytest.raises(RuntimeError, match="cooperative"):
-        SK.sumcheck_prove_many(tables, f.rand((12,), rng, dev))
+    for k in (2, 9):
+        tables = [f.rand((1 << 12,), rng, dev) for _ in range(k)]
+        with pytest.raises(RuntimeError, match="cooperative"):
+            SK.sumcheck_prove_many(tables, f.rand((12,), rng, dev))
     assert SK.LAUNCHES == before
 
 
@@ -641,8 +638,8 @@ def test_sumcheck_partials_hold_only_the_blocks_used(dev, nv):
         assert p.rows == per_claim and p.launches == 1
         for tail, rows in ((p.tail, p.rows + 1), (p.tail + 1, p.rows),
                            *(((p.tail, p.rows - 1),) if p.rows else ())):
-            err = fn(ins, None, 2, W, half, nv, tail, None, rows, None,
-                     None, info, None)
+            err = fn(ins, None, None, 2, W, half, nv, tail, None, rows,
+                     None, None, info, None)
             assert err == 1, (tail, rows)      # cudaErrorInvalidValue
         tables = [f.rand((W, 1 << nv), rng, dev) for _ in range(2)]
         chal = f.rand((nv,), rng, dev)
@@ -679,7 +676,7 @@ def test_sumcheck_batch_many_claims(dev):
 @pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
 def test_sumcheck_nine_tables_on_card(dev, field):
     """k = 9 tables at nv = 12, beyond the register kernel's 8: the
-    run-time-k round kernel, nv + 1 launches, equal to the twin."""
+    run-time-k kernel, one launch, equal to the twin."""
     f = get_field(field)
     rng = np.random.default_rng(9)
     tables = [f.rand((1 << 12,), rng, dev) for _ in range(9)]
@@ -688,20 +685,33 @@ def test_sumcheck_nine_tables_on_card(dev, field):
     before = SK.LAUNCHES[name]
     msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES[name] == before + 12 + 1
+    assert SK.LAUNCHES[name] == before + 1
+    grid, per_sm = SK.LAST_GRID[name]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 1 <= grid <= sms * per_sm
     want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
     assert msgs.is_cuda and torch.equal(msgs, want_m)
     assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
 
 
-@pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
-@pytest.mark.parametrize("nv,k,W", [(1, 9, 1), (4, 16, 3), (11, 17, 1),
-                                    (13, 24, 2)])
+_WIDE_CASES = [(1, 9, 1), (1, 24, 3), (4, 16, 3), (11, 17, 1), (12, 9, 2),
+               (12, 16, 1), (12, 17, 2), (12, 24, 1)]
+# nv = 16 (grid rounds of 256 blocks and more) and k = 65, random tables
+# only: the twin's generic prover takes seconds a claim there
+_WIDE_CASES_16 = [(4, 65, 1, "random"), (16, 9, 3, "random"),
+                  (16, 16, 2, "random"), (16, 17, 1, "random"),
+                  (16, 24, 1, "random")]
+
+
+@pytest.mark.parametrize("nv,k,W,kind", [
+    (nv, k, W, kind) for nv, k, W in _WIDE_CASES
+    for kind in ("random", "zeros", "q-1")] + _WIDE_CASES_16)
 @pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
 def test_sumcheck_wide_kernel_matches_twin(dev, field, nv, k, W, kind):
-    """The run-time-k round kernel at k = 9, 16, 17 and 24 (one, two and
-    four passes of 8 sums; k + 1 = 17 leaves a pass with one sum), W
-    claims on the grid's second axis, against the twin."""
+    """The run-time-k kernel at k = 9, 16, 17 and 24 (two and four groups
+    of 8 sums an entry; k + 1 = 17 leaves a group with one sum) and 65
+    (table pointers from a device array), nv = 1, 4, 11, 12 and 16, W
+    claims as virtual blocks, one launch a proof, against the twin."""
     f = get_field(field)
     rng = np.random.default_rng(nv * 100 + k)
     tables = [_field_tables(f, rng, (W, 1 << nv), kind, dev)
@@ -711,7 +721,7 @@ def test_sumcheck_wide_kernel_matches_twin(dev, field, nv, k, W, kind):
     before = SK.LAUNCHES[name]
     msgs, finals = _claims(f, tables, chal)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES[name] == before + nv + 1
+    assert SK.LAUNCHES[name] == before + 1
     for w in range(W):
         want_m, want_f = SK.sumcheck_prove_many_ref([T[w] for T in tables],
                                                     chal, field)
@@ -976,12 +986,16 @@ def test_radix_engine_matches_ntt_context(dev, logN):
     assert torch.equal(e.inverse(e.forward(a)), a)
 
 
-@pytest.mark.parametrize("R,C,M", [(4, 128, 3), (5, 9, 130),
-                                   (128, 128, 1000), (128, 128, 10240 + 37)])
+@pytest.mark.parametrize("R,C,M", [(4, 128, 3), (5, 9, 130), (1, 1, 1),
+                                   (65, 33, 31), (2, 13314, 5),
+                                   (128, 128, 1000), (128, 128, 10240),
+                                   (128, 128, 10240 + 37)])
 def test_mxu_mod_mat_matches_twin(dev, R, C, M):
-    """The fused kernel against its twin (small M) and MxuModMat's
+    """The tensor-core kernel against its twin (small M) and MxuModMat's
     _int_mm path, with the bound inputs: digits all 127 in a weight row,
-    2^64 - 1, q - 1, 0 and 1 as data columns; a ragged M."""
+    2^64 - 1, q - 1, 0 and 1 as data columns; R, C and M off the 64 x 32
+    tile and its 32-column chunk, C at the bucket bound; one launch, with
+    the plane table given or built by the wrapper."""
     from stark_rings_tpu_torch.ops import mxu_fused as MF
     from stark_rings_tpu_torch.ops.mxu import MxuModMat
 
@@ -998,6 +1012,7 @@ def test_mxu_mod_mat_matches_twin(dev, R, C, M):
     torch.cuda.synchronize()
     assert MF.LAUNCHES["mxu_mod_mat"] == before + 1
     assert torch.equal(got, MxuModMat(m, device=dev).apply(x))
+    assert torch.equal(MF.mxu_mod_mat(x, f.w), got)
     if M <= 1024:
         assert torch.equal(got, MF.mxu_mod_mat_ref(x, f.w))
 
@@ -1055,6 +1070,8 @@ def test_new_wrappers_raise_on_refused_inputs(dev, monkeypatch):
         (TypeError, lambda: MF.mxu_mod_mat(x[:2, :5].int(), f.w)),
         (ValueError, lambda: MF.mxu_mod_mat(x[:, :4].t(), f.w)),
         (ValueError, lambda: MF.mxu_mod_mat(x[:1, :4].contiguous(), f.w)),
+        (ValueError, lambda: MF.mxu_mod_mat(x[:2, :4].contiguous(), f.w,
+                                            f.wt[:, :32])),
     ]
     for exc, call in cases:
         with pytest.raises(exc):
