@@ -38,6 +38,14 @@ launch of the twiddle-fused exchange kernel K8 (``twiddle_exchange_fwd``
 and ``twiddle_exchange_inv``, over Goldilocks and BabyBear), and the
 single-device ``PowerRing.fourstep_ctx()``.
 
+The ring models are the batch-trailing model-CRT multiply
+``TModelMul.mul_t`` over goldilocks (B = 65,536), babybear (B = 16,384)
+and frog (B = 65,536), the reference bench's batches: each CRT and ICRT
+is one digit GEMM (``torch._int_mm``) and one bucket fold, K3
+(``fold_end``) at R = 24 for goldilocks and K4's ``bb_fold_end`` at R =
+72 for babybear (frog folds in torch ops); and the Ajtai commit
+``matvec_t`` at n = 8, m = 1,024, W = 16, unblocked and blocked.
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -207,6 +215,27 @@ Phases, one line each:
      turns; make_phase_fns' three phases;
  33. profile: device busy time against wall time of one sharded mul.
 
+ 34. model parity: K3 at R = 24, B = 65,536 and bb_fold_end at R = 72,
+     B = 16,384 against their twins on the model CRT GEMM's buckets, at
+     the bucket bound, zero and full-range int32; mul_t of the three
+     models at a ragged B = 13 on the card against the CPU twin path;
+ 35. model path, launches counted: mul_t of the three models at their
+     batches and the commit (unblocked and block = 128); each mul_t
+     equal to the integer spec on 64 rows and to coeff_mul on the card
+     over the whole batch, the blocked commit to the unblocked one, and
+     one commitment to the spec's slot products summed in Python ints;
+ 36. launch counts of phase 35 (3 K3 launches a goldilocks mul_t, 3
+     bb_fold_end a babybear one, none for frog);
+ 37. timings (CUDA events, median of 10 after warm-up): K3 and
+     bb_fold_end at the model shapes against their twins and memory
+     floors; mults/s of each mul_t with the stages of one CRT GEMM
+     (planes, _int_mm, offset terms, fold) and the slot product; the
+     commit's rate and time per commitment, unblocked and blocked;
+ 38. profile: device busy time against wall time of one mul_t per
+     model, split into the fold kernel (and its time a launch),
+     _int_mm and torch's elementwise kernels, with the slot product
+     profiled alone (torch.profiler).
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -335,6 +364,20 @@ EXCHANGE_KERNELS = {  # record name -> reference kernel (file:line)
         f"stark_rings_tpu/parallel/pallas_exchange.py:{line}"
     for field in ("goldilocks", "babybear")
     for d, line in (("fwd", 241), ("inv", 268))}
+# the reference bench's model-CRT multiply batches (bench.py:614-617)
+MODEL_B = {"goldilocks": 65536, "babybear": 16384, "frog": 65536}
+MODEL_SPEC_ROWS = 64    # rows held to the integer spec
+MODEL_CHUNK = 4096      # columns a coeff_mul oracle call on the card
+MODEL_RAGGED = 13       # a batch that is not a multiple of 8
+# the Ajtai commit: n rows, m columns, W vectors, the blocked path's
+# block (benchmarks/bench_protocol.py:88-108)
+COMMIT = (8, 1024, 16, 128)
+MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
+    "fold_end[model crt goldilocks]": (
+        SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
+    "bb_fold_end[model crt babybear]": (
+        BB_SOURCE, "stark_rings_tpu/ops/pallas_fold_bb.py:226", "babybear"),
+}
 
 
 def phase(name, msg):
@@ -403,10 +446,12 @@ def shape(*ts) -> str:
     return " x ".join(str(list(t.shape)) for t in ts)
 
 
-def device_profile(fn, n, dev, top, skip=()):
+def device_profile(fn, n, dev, top, skip=(), rows_out=None):
     """Per call of ``fn`` over ``n`` calls under torch.profiler: (device
     busy ms, wall ms, the ``top`` kernels by device time as text).
-    Kernels whose name holds a string of ``skip`` are left out."""
+    Kernels whose name holds a string of ``skip`` are left out.  A list
+    ``rows_out`` receives every kernel's (name, launches a call, ms a
+    call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,6 +473,9 @@ def device_profile(fn, n, dev, top, skip=()):
     text = "; ".join(f"{r.key[:48]} x{r.count // n} "
                      f"{r.self_device_time_total / 1e3 / n:.4f} ms"
                      for r in rows[:top])
+    if rows_out is not None:
+        rows_out.extend((r.key, r.count / n, r.self_device_time_total
+                         / 1e3 / n) for r in rows)
     return busy_ms, wall_ms, text
 
 
@@ -2256,6 +2304,262 @@ def slice_sharded(dev, smi, rng) -> list:
             for name, ref in EXCHANGE_KERNELS.items()]
 
 
+def model_stages(tm, at, bt) -> dict:
+    """ms of each stage of one ``mul_t`` on [D, B] operands: of one CRT
+    GEMM the digit planes, ``_int_mm``, the offset terms and the whole
+    ``dot``, then the fold on its buckets; and the slot product (CUDA
+    events, as ``time_ms``)."""
+    import torch
+
+    from stark_rings_tpu_torch.ops.mxu_dense import fold_buckets
+
+    m = tm._crt
+    core = m.core
+    s8 = core._planes(at, 0x80).view(torch.int8)
+    V = torch._int_mm(m.w, s8)
+    KR = core.K * core.R
+    Vd = core.dot(at, m.w, m.w_corr)
+    fa, fb = tm.crt_t(at), tm.crt_t(bt)
+
+    def offsets():
+        Vo = V[:KR].clone()
+        Vo += m.w_corr
+        Vo += 128 * V[KR]
+
+    return {"planes": time_ms(lambda: core._planes(at, 0x80)),
+            "_int_mm": time_ms(lambda: torch._int_mm(m.w, s8)),
+            "offsets (with a copy)": time_ms(offsets),
+            "dot": time_ms(lambda: core.dot(at, m.w, m.w_corr)),
+            "fold": time_ms(lambda: fold_buckets(core, Vd)),
+            "slot product": time_ms(lambda: tm.ntt_mul_t(fa, fb))}
+
+
+def model_profile(tm, at, bt, dev, n=5) -> str:
+    """``n`` profiled ``mul_t`` calls split by kernel: the fold kernel (K3
+    or bb_fold_end; its device time a launch over the launches the
+    window recorded), the ``_int_mm`` GEMM (cutlass), torch's
+    elementwise kernels (the digit planes, the offset terms and the slot
+    product, which is also profiled alone) and any other kernel.  As
+    text, per ``mul_t``."""
+    rows = []
+    busy_ms, wall_ms, _ = device_profile(lambda: tm.mul_t(at, bt), n, dev,
+                                         0, rows_out=rows)
+    rows = [(k, c * n, ms) for k, c, ms in rows if ms > 0]   # device rows
+
+    def cls(pred):
+        sel = [(c, ms) for key, c, ms in rows if pred(key)]
+        return sum(c for c, _ in sel) / n, sum(ms for _, ms in sel)
+
+    parts = {"fold kernel": cls(lambda k: "fold_end" in k),
+             "_int_mm": cls(lambda k: "cutlass" in k or "gemm" in k),
+             "torch elementwise": cls(lambda k: "at::native" in k)}
+    known = ("fold_end", "cutlass", "gemm", "at::native")
+    parts["other"] = cls(lambda k: not any(s in k for s in known))
+    fa, fb = tm.crt_t(at), tm.crt_t(bt)
+    slot_ms = device_profile(lambda: tm.ntt_mul_t(fa, fb), n, dev, 0)[0]
+    c, ms = parts["fold kernel"]
+    a_launch = f"{ms / c:.4f} ms" if c else "not measured"
+    return (f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
+            f"(profiled), idle share {1 - busy_ms / wall_ms:.3f}; per mul_t "
+            + ", ".join(f"{k} {ms:.4f} ms in {c:.1f} launches"
+                        for k, (c, ms) in parts.items())
+            + f"; the fold kernel {a_launch} a launch; the slot product "
+            f"profiled alone {slot_ms:.4f} ms")
+
+
+def slice_models(dev, smi, rng) -> list:
+    """Phases 34-38: the ring models' batch-trailing CRT multiply
+    ``TModelMul.mul_t`` over goldilocks, babybear and frog at the
+    reference bench's batches, and the Ajtai commit ``matvec_t``.
+    Returns the kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.rings import get_ring
+
+    t0 = time.perf_counter()
+    rings = {n: get_ring(n, device=dev) for n in MODEL_B}
+    tms = {n: TModelMul(r) for n, r in rings.items()}
+    cpu = {n: TModelMul(get_ring(n, device="cpu")) for n in MODEL_B}
+    phase("model tables", "goldilocks (D = 24, N = 8, E = 3), babybear "
+          "(72, 8, 9) and frog (16, 4, 4) rings, their CRT/ICRT digit "
+          f"tables on the card, built in {time.perf_counter() - t0:.1f} s")
+    ops = {}
+    for name, Bn in MODEL_B.items():
+        f = rings[name].field
+        ops[name] = tuple(f.rand((rings[name].D, Bn), rng, dev)
+                          for _ in range(2))
+
+    # -- 34. the folds at the models' shapes ---------------------------------
+    max_err = {}
+    t0 = time.perf_counter()
+    folds = {}
+    for rec, (_, _, name) in MODEL_KERNELS.items():
+        mod, fold = (K, "fold_end") if name == "goldilocks" else (
+            KB, "bb_fold_end")
+        core, m = tms[name]._crt.core, tms[name]._crt
+        at = ops[name][0]
+        V = core.dot(at, m.w, m.w_corr)
+        folds[rec] = (mod, fold, V, core.R)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for what, Vc in (("GEMM", V), ("bound", torch.full_like(V, (1 << 27)
+                                                                 - 1)),
+                         ("zero", torch.zeros_like(V)),
+                         ("int32", torch.randint(-2**31, 2**31, V.shape,
+                                                 generator=gen,
+                                                 dtype=torch.int32,
+                                                 device=dev))):
+            check(max_err, rec, getattr(mod, fold)(Vc, core.R, signed=False),
+                  getattr(mod, fold + "_ref")(Vc, core.R, signed=False),
+                  f"R={core.R} B={at.shape[1]} {what}")
+    for name, tm in tms.items():
+        f = rings[name].field
+        a, b = (f.rand((rings[name].D, MODEL_RAGGED), rng, dev)
+                for _ in range(2))
+        got = tm.mul_t(a, b)
+        want = cpu[name].mul_t(a.cpu(), b.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{name}: mul_t at B={MODEL_RAGGED} on the "
+                                 "card differs from the CPU twin path")
+    torch.cuda.synchronize()
+    phase("model parity", f"K3 at R = 24, B = {MODEL_B['goldilocks']} and "
+          f"bb_fold_end at R = 72, B = {MODEL_B['babybear']} bit-equal to "
+          "their twins on the CRT GEMM's buckets, at the bound, zero and "
+          f"full-range int32; mul_t at a ragged B = {MODEL_RAGGED} on the "
+          "card equal to the CPU twin path for the three models "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 35. the path, launches counted ---------------------------------------
+    n_rows, m_cols, W, block = COMMIT
+    gl, gtm = rings["goldilocks"], tms["goldilocks"]
+    A = gl.field.rand((gl.D, n_rows, m_cols), rng, dev)
+    s = gl.field.rand((gl.D, W, m_cols), rng, dev)
+
+    def counts():
+        return {k: {**K.LAUNCHES, **KB.LAUNCHES}[k]
+                for k in ("fold_end", "bb_fold_end")}
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    results, per_run = {}, {}
+    runs = {f"{n} mul_t": (lambda n=n: tms[n].mul_t(*ops[n]))
+            for n in MODEL_B}
+    runs["commit"] = lambda: gtm.matvec_t(A, s)
+    runs["commit blocked"] = lambda: gtm.matvec_t(A, s, block=block)
+    for name, fn in runs.items():
+        before = counts()
+        results[name] = fn()
+        per_run[name] = {k: v - before[k] for k, v in counts().items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    phase("model path", f"mul_t at goldilocks B={MODEL_B['goldilocks']}, "
+          f"babybear B={MODEL_B['babybear']}, frog B={MODEL_B['frog']} and "
+          f"the commit at n={n_rows}, m={m_cols}, W={W} (unblocked and "
+          f"block={block}) in {time.perf_counter() - t0:.2f} s; launches "
+          f"{per_run}")
+
+    t0 = time.perf_counter()
+    for name, (at, bt) in ops.items():
+        ring = rings[name]
+        got = results[f"{name} mul_t"]
+        if got.shape != at.shape or got.dtype != at.dtype:
+            raise AssertionError(f"{name} mul_t: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        canon = ring.field.canon(got)
+        if not bool(ring.field.geq(ring.field.canon_const(-1), canon).all()):
+            raise AssertionError(f"{name} mul_t: non-canonical output")
+        # the integer spec on the first rows
+        ai = ring.decode(at[:, :MODEL_SPEC_ROWS].t())
+        bi = ring.decode(bt[:, :MODEL_SPEC_ROWS].t())
+        gi = ring.decode(got[:, :MODEL_SPEC_ROWS].t())
+        for r in range(MODEL_SPEC_ROWS):
+            want = ring.spec.coeff_mul([int(v) for v in ai[r]],
+                                       [int(v) for v in bi[r]])
+            if [int(v) for v in gi[r]] != want:
+                raise AssertionError(f"{name} mul_t row {r} differs from "
+                                     "the integer spec")
+        # the whole batch against the schoolbook coeff_mul on the card
+        for c0 in range(0, at.shape[1], MODEL_CHUNK):
+            sl = slice(c0, c0 + MODEL_CHUNK)
+            want = ring.coeff_mul(at[:, sl].t(), bt[:, sl].t())
+            if not torch.equal(got[:, sl].t(), want):
+                raise AssertionError(f"{name} mul_t columns {c0}.. differ "
+                                     "from coeff_mul on the card")
+    full, blk = results["commit"], results["commit blocked"]
+    if full.shape != (gl.D, W, n_rows) or not torch.equal(full, blk):
+        raise AssertionError("commit: blocked and unblocked matvec_t differ")
+    # one commitment row in Python ints through the spec's slot product
+    Ai, si = gl.decode(A[:, 0].t()), gl.decode(s[:, 0].t())
+    acc = [0] * gl.D
+    for j in range(m_cols):
+        p = gl.spec.ntt_mul([int(v) for v in Ai[j]], [int(v) for v in si[j]])
+        acc = [(x + y) % gl.q for x, y in zip(acc, p)]
+    if gl.decode(full[:, 0, 0]).tolist() != acc:
+        raise AssertionError("commit: c[0, 0] differs from the spec's sum")
+    phase("model path", f"mul_t of the three models equals the integer spec "
+          f"on {MODEL_SPEC_ROWS} rows and coeff_mul on the card over the "
+          f"whole batch (chunks of {MODEL_CHUNK}); the commit blocked equals "
+          "unblocked and, for c[0, 0], the spec's slot products summed in "
+          f"Python ints ({time.perf_counter() - t0:.1f} s)")
+
+    # -- 36. launch counts ----------------------------------------------------
+    phase("model launches", json.dumps(launches))
+    for name, want in (("goldilocks", {"fold_end": 3, "bb_fold_end": 0}),
+                       ("babybear", {"fold_end": 0, "bb_fold_end": 3}),
+                       ("frog", {"fold_end": 0, "bb_fold_end": 0})):
+        if per_run[f"{name} mul_t"] != want:
+            raise AssertionError(f"{name} mul_t launched "
+                                 f"{per_run[f'{name} mul_t']}, expected "
+                                 f"{want}")
+    rec_launches = {rec: launches[folds[rec][1]] for rec in MODEL_KERNELS}
+    for rec, n in rec_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{rec} was never launched on the model "
+                                 "path")
+
+    # -- 37. timings --------------------------------------------------------
+    times = {}
+    for rec, (mod, fold, V, R) in folds.items():
+        kern = getattr(mod, fold)
+        twin = getattr(mod, fold + "_ref")
+        moved = nbytes(V, kern(V, R, signed=False))
+        ms = time_ms(lambda: kern(V, R, signed=False), inner=10)
+        plain_ms = time_ms(lambda: twin(V, R, signed=False))
+        times[rec] = (ms, plain_ms, moved)
+        floor = moved / HBM_BYTES_PER_S * 1e3
+        phase("model time", f"{rec} {shape(V)}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, memory floor {floor:.4f} ms ({moved} B; "
+              f"{floor / ms:.0%} of the rate)  ({smi})")
+    for name, (at, bt) in ops.items():
+        tm = tms[name]
+        ms = time_ms(lambda: tm.mul_t(at, bt))
+        st = model_stages(tm, at, bt)
+        phase("model time", f"{name} mul_t B={at.shape[1]}: {ms:.4f} ms = "
+              f"{at.shape[1] / ms * 1e3:.1f} mults/s; one CRT GEMM: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in st.items())
+              + f"  ({smi})")
+    commit_ms = time_ms(lambda: gtm.matvec_t(A, s))
+    blocked_ms = time_ms(lambda: gtm.matvec_t(A, s, block=block))
+    phase("model time", f"commit matvec_t n={n_rows} m={m_cols} W={W}: "
+          f"unblocked {commit_ms:.4f} ms = {W / commit_ms * 1e3:.1f} "
+          f"commits/s ({commit_ms / W:.4f} ms a commit); block={block} "
+          f"{blocked_ms:.4f} ms = {W / blocked_ms * 1e3:.1f} commits/s "
+          f"({blocked_ms / W:.4f} ms a commit)  ({smi})")
+
+    # -- 38. where the device time of one mul_t goes ------------------------
+    for name, (at, bt) in ops.items():
+        phase("model profile", f"{name} mul_t B={at.shape[1]}: "
+              + model_profile(tms[name], at, bt, dev) + f"  ({smi})")
+
+    return [record(rec, src, ref, rec_launches[rec], max_err[rec],
+                   *times[rec])
+            for rec, (src, ref, _) in MODEL_KERNELS.items()]
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -2570,6 +2874,7 @@ def main() -> None:
     records += slice_c(dev, smi, rng)
     records += slice_ntt(dev, smi, rng, gl)
     records += slice_sharded(dev, smi, rng)
+    records += slice_models(dev, smi, rng)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,25 @@
 
 The JAX package ``stark_rings_tpu`` is the reference; this package
 mirrors its module layout and imports ``torch`` and numpy, never JAX.
-So far it holds the Goldilocks, BabyBear and frog fields, the
-power-of-two negacyclic rings over the first two (deg 2^16 Goldilocks
-and deg 2^12 BabyBear on the main paths), the Goldilocks MLE and
+So far it holds the Goldilocks, BabyBear and frog fields, the three
+cyclotomic ring models over them (``RingModel``, ``Rq``, the
+batch-trailing multiply ``TModelMul``), the power-of-two negacyclic
+rings (deg 2^16 Goldilocks and deg 2^12 BabyBear on the main paths;
+frog at deg 2 and 4), the Goldilocks MLE and
 sumcheck path, sumcheck over BabyBear and frog and over batched
 claims, the single-device Goldilocks NTT engines (radix-2 and the
 deg-2^14 digit-product four-step), and the sharded four-step NTT with
 its exchange kernel K8 (deg 2^20 on P shards of one card):
 
+    spec/         the integer spec of the four ring models (a copy of
+                  the reference's pure-Python spec/)
     fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
                   Montgomery), frog (int64 u64 Montgomery), get_field
+    ops/stages.py, ops/dense_linear.py  the models' CRT as probed stage
+                  tables and dense matrices (the oracles)
+    ops/mxu_dense.py the models' CRT as one digit GEMM and a fold (K3,
+                  K4's bb_fold_end, frog's REDC); Mont64PrescaledMat
+    ops/model_mul.py TModelMul, the batch-trailing model multiply
     ops/ntt.py    the radix-2/4 NTTContext, find_primitive_root
     ops/mxu2.py   digit tables, digit GEMM, plain Mxu2NTT
     ops/mxu_bb.py BabyBear digit tables and the plain MxuBBNTT
@@ -24,14 +33,17 @@ its exchange kernel K8 (deg 2^20 on P shards of one card):
     ops/mxu.py    7-bit digit MxuModMat and the deg-2^14 MatmulNTT
     ops/mxu_fused.py the fused mod-mat kernel, MxuModMatFused
     ops/_build.py builds and loads csrc/, the wrappers' launch rule
-    linalg/       the field-element adapter FieldElems
+    linalg/       the element adapters FieldElems, RingElems,
+                  RingCoeffElems
     mle/          DenseMLE and helpers; the generic sumcheck prover
                   (sumcheck.py); kernels K5 evaluate / K6 fix-last
                   (fix.py) and the one-pass prover K7 over all three
                   fields, one claim or a batch (sumcheck_kernel.py);
                   digit-GEMM evaluation (mxu_eval)
-    rings/        PowerRing / get_power_ring (mxu_ctx, fourstep_ctx); the
+    rings/        RingModel / get_ring, Rq, monomial, sampling;
+                  PowerRing / get_power_ring (mxu_ctx, fourstep_ctx); the
                   SHAKE-256 Fiat-Shamir Transcript
+    models/       the lazy registry alias of rings
     parallel/     make_mesh (P shards on one card or one per card), the
                   sharded four-step ShardedNTT and K8, the twiddle-fused
                   exchange (wrappers + plain twins)
@@ -54,8 +66,10 @@ from .ops.mxu import MatmulNTT, MxuModMat
 from .ops.mxu_fused import MxuModMatFused
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
 from .ops.mxu_bb import MxuBBNTT
+from .ops.model_mul import TModelMul
 from .ops.ntt import NTTContext, get_ntt
 from .parallel import Mesh, ShardedNTT, make_mesh
+from .rings import RingModel, Rq, get_ring
 from .rings.power import PowerRing, get_power_ring
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
@@ -65,4 +79,5 @@ __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
            "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
            "GoldilocksKernelNTT", "MatmulNTT", "MxuModMat", "MxuModMatFused",
            "NTTContext", "get_ntt", "PowerRing", "get_power_ring",
-           "Mesh", "make_mesh", "ShardedNTT"]
+           "Mesh", "make_mesh", "ShardedNTT", "RingModel", "Rq", "get_ring",
+           "TModelMul"]

@@ -143,6 +143,103 @@ class _PrimeField:
         """Elementwise inverse via Fermat (x != 0)."""
         return self.pow_const(x, self.q - 2)
 
+    def square_table(self, g) -> list:
+        """[g^(2^i) for i < bits] (Ring::pow_with_table's precompute,
+        ring.rs:13-117)."""
+        out = [g]
+        for _ in range(self.bits - 1):
+            out.append(self.mul(out[-1], out[-1]))
+        return out
+
+    def pow_with_table(self, table, e: int) -> torch.Tensor:
+        """g^e from :meth:`square_table`'s table (static exponent)."""
+        acc = None
+        i = 0
+        while e:
+            if e & 1:
+                acc = table[i] if acc is None else self.mul(acc, table[i])
+            e >>= 1
+            i += 1
+        return acc if acc is not None else torch.full_like(
+            table[0], self._scalar(1))
+
+    # -- host draws and bytes -------------------------------------------------
+    def rand_ints(self, shape, rng: np.random.Generator):
+        """Uniform canonical python ints drawn from the numpy Generator:
+        an object array of ``shape`` (a python int for ``()``)."""
+        draw = rng.integers(0, self.q, size=shape, dtype=np.uint64)
+        if not shape:
+            return int(draw)
+        out = np.empty(draw.shape, dtype=object)
+        out.reshape(-1)[:] = [int(v) for v in draw.reshape(-1)]
+        return out
+
+    def from_random_bytes(self, data: bytes):
+        """FromRandomBytes semantics (ring.rs:119-135): the first
+        ceil(bits / 8) bytes little-endian; None if the value is >= q."""
+        nb = (self.bits + 7) // 8
+        if len(data) < nb:
+            return None
+        v = int.from_bytes(data[:nb], "little")
+        return v if v < self.q else None
+
+    # -- coefficient axis and predicates --------------------------------------
+    coeff_axis = -1
+
+    def take_coeff(self, x: torch.Tensor, idx) -> torch.Tensor:
+        """Gather along the coefficient axis: ``x[..., idx]`` for an
+        integer index array of any shape (a 0-d index drops the axis)."""
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                  device=x.device)
+        return x[..., idx]
+
+    @staticmethod
+    def select(cond, a, b) -> torch.Tensor:
+        return torch.where(cond, a, b)
+
+    @staticmethod
+    def is_zero(x) -> torch.Tensor:
+        return x == 0
+
+    def canon_const(self, v: int) -> int:
+        """The canonical value ``v mod q`` as it is stored by
+        :meth:`canon` (NOT in Montgomery form), for comparisons with
+        ``canon`` output."""
+        return self._raw(v % self.q)
+
+    # -- widened accumulation -------------------------------------------------
+    # Big modular sums widen storage to base-2^32 words (int64 tensors
+    # holding u64 sums), add them with plain integer adds (exact for up to
+    # 2^32 addends) and fold back mod q once: sum_j d_j 2^(32 j) mod q.
+    @property
+    def n_words(self) -> int:
+        return 1 if self.bits <= 32 else 2
+
+    def reduce_words(self, words: torch.Tensor) -> torch.Tensor:
+        """int64 [..., W] of unnormalized base-2^32 words (u64 bits) ->
+        storage mod q.  The words are normalized to digits below 2^32,
+        and digit j is multiplied by 2^(32 j) S mod q, S being the
+        Montgomery factor (1 for Goldilocks): the product of the raw
+        digit and that constant is the raw value d_j 2^(32 j) mod q."""
+        digits = []
+        carry = torch.zeros_like(words[..., 0])
+        for j in range(words.shape[-1]):
+            s = words[..., j] + carry
+            digits.append(s & MASK32)
+            carry = shr(s, 32)
+        for _ in range(2):
+            digits.append(carry & MASK32)
+            carry = shr(carry, 32)
+        S = getattr(self, "R", 1) % self.q
+        acc = None
+        for j, d in enumerate(digits):
+            c = torch.tensor(self._raw((1 << (32 * j)) * S % self.q),
+                             dtype=self.dtype, device=d.device)
+            term = self.mul(d.to(self.dtype), c)
+            acc = term if acc is None else self.add(acc, term)
+        return acc
+
 
 class _U64Field(_PrimeField):
     """What Goldilocks and frog share: u64 bit patterns in ``int64``
@@ -156,6 +253,19 @@ class _U64Field(_PrimeField):
     @staticmethod
     def _codec(arr, device):
         return to_torch(arr, device)
+
+    @staticmethod
+    def _raw(v: int) -> int:
+        """The storage word whose u64 bits are ``v`` (an int64 int)."""
+        return i64(v)
+
+    def geq(self, a, b) -> torch.Tensor:
+        """Unsigned a >= b on canonical values (u64 bits)."""
+        return ~u64_lt(a, b)
+
+    def widen(self, x: torch.Tensor) -> torch.Tensor:
+        """storage -> int64 [..., 2] base-2^32 words of the u64 bits."""
+        return torch.stack([x & MASK32, shr(x, 32)], dim=-1)
 
     def decode(self, x: torch.Tensor) -> np.ndarray:
         """storage -> numpy object array of canonical python ints."""
@@ -215,6 +325,10 @@ class Goldilocks(_U64Field):
     def from_canon(self, u):
         return u
 
+    def reduce_u64(self, x):
+        """Any u64 bits -> canonical (for lazy accumulations)."""
+        return torch.where(u64_lt(x, self._Q), x, x - self._Q)
+
     # -- multiplication ------------------------------------------------------
     def _reduce128(self, hi, lo):
         """(hi*2^64 + lo) mod q via 2^64 = 2^32 - 1, 2^96 = -1."""
@@ -252,6 +366,20 @@ class BabyBear(_PrimeField):
     @staticmethod
     def _codec(arr, device):
         return to_torch_u32(arr, device)
+
+    @staticmethod
+    def _raw(v: int) -> int:
+        """The storage word whose bits are ``v`` (< q < 2^31)."""
+        return v
+
+    @staticmethod
+    def geq(a, b) -> torch.Tensor:
+        """a >= b on canonical values (below 2^31: signed compare)."""
+        return a >= b
+
+    def widen(self, x: torch.Tensor) -> torch.Tensor:
+        """storage -> int64 [..., 1]: the u32 word."""
+        return (x.to(torch.int64) & MASK32)[..., None]
 
     def storage_np(self, ints) -> np.ndarray:
         """python ints / object array -> numpy uint32 Montgomery storage,

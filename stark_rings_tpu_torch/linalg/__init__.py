@@ -1,6 +1,6 @@
-"""Linear-algebra layer of the PyTorch port: the base-field element
-adapter so far."""
+"""Linear-algebra layer of the PyTorch port: the element adapters so
+far."""
 
-from .elems import FieldElems
+from .elems import FieldElems, RingCoeffElems, RingElems
 
-__all__ = ["FieldElems"]
+__all__ = ["FieldElems", "RingElems", "RingCoeffElems"]

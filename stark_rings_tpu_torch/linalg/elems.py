@@ -1,17 +1,23 @@
 """Element-ops adapter: one protocol for 'a vector of THINGS' (counterpart
 of ``stark_rings_tpu/linalg/elems.py``).
 
-Only :class:`FieldElems`, the base-field adapter that ``DenseMLE`` takes,
-is ported so far; the ring-element adapters come with the ring models.
-The adapter carries the device on which it creates tensors: the CUDA
-card unless the caller passes ``device="cpu"``.
+The same code runs over
+
+* base-field scalars            (``FieldElems(field)``, what ``DenseMLE``
+  takes),
+* NTT-form ring elements        (``RingElems(ring)``: slot-wise product),
+* coeff-form ring elements      (``RingCoeffElems(ring)``: schoolbook).
+
+An adapter carries the device on which it creates tensors: the CUDA card
+unless the caller passes ``device="cpu"``; the ring adapters take the
+ring's device.
 """
 
 from __future__ import annotations
 
 from ..device import get_device
 
-__all__ = ["FieldElems"]
+__all__ = ["FieldElems", "RingElems", "RingCoeffElems"]
 
 
 class FieldElems:
@@ -51,3 +57,38 @@ class FieldElems:
     def rand(self, shape, rng):
         """Uniform elements drawn from the numpy Generator ``rng``."""
         return self.f.rand(shape, rng, self.device)
+
+
+class RingElems(FieldElems):
+    """NTT-form ring elements: shape [..., D], slot-wise product."""
+
+    def __init__(self, ring):
+        super().__init__(ring.field, ring.device)
+        self.ring = ring
+        self.elem_ndim = 1
+        self.elem_shape = (ring.D,)
+
+    def mul(self, a, b):
+        return self.ring.ntt_mul(a, b)
+
+    def zeros(self, shape):
+        return self.ring.zeros(shape)
+
+    def one(self):
+        return self.ring.from_scalar_ntt(1)
+
+    def rand(self, shape, rng):
+        return self.ring.rand_ntt(shape, rng)
+
+
+class RingCoeffElems(RingElems):
+    """Coefficient-form ring elements: schoolbook product."""
+
+    def mul(self, a, b):
+        return self.ring.coeff_mul(a, b)
+
+    def one(self):
+        return self.ring.from_scalar_coeff(1)
+
+    def rand(self, shape, rng):
+        return self.ring.rand_coeff(shape, rng)

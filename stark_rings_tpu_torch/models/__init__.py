@@ -1,0 +1,29 @@
+"""Model registry: the alias of :mod:`..rings` (counterpart of
+``stark_rings_tpu/models/__init__.py``).
+
+    >>> from stark_rings_tpu_torch.models import goldilocks
+    >>> goldilocks.D, goldilocks.N, goldilocks.E
+    (24, 8, 3)
+
+The model names resolve on first access, through ``get_ring(name)`` on
+the default device, the CUDA card: building a ring at import would need
+a card.  ``MODELS`` maps each ported model's name to its ring;
+``stark_prime`` raises until its field is ported (ROADMAP queue 1 step
+3).
+"""
+
+from ..rings import PowerRing, RingModel, get_power_ring, get_ring
+
+_NAMES = ("goldilocks", "babybear", "frog", "stark_prime")
+_PORTED = ("goldilocks", "babybear", "frog")
+
+__all__ = [*_NAMES, "MODELS", "RingModel", "PowerRing", "get_ring",
+           "get_power_ring"]
+
+
+def __getattr__(name):
+    if name in _NAMES:
+        return get_ring(name)
+    if name == "MODELS":
+        return {n: get_ring(n) for n in _PORTED}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

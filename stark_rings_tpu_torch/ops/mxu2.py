@@ -61,8 +61,6 @@ K_BUCKETS_U8 = 8
 # constant (sum_k 2^26 2^(8k) mod q) is subtracted afterwards
 BIAS_MOD_Q = sum((1 << 26) << (B_BITS * k) for k in range(K_BUCKETS)) % _Q
 
-_WEIGHT_KEYS = ("w1", "w2", "w2i", "w1i")
-
 
 def _pow_table(base: int, n: int, q: int) -> np.ndarray:
     """[base^0, ..., base^(n-1)] mod q as an object array of ints."""
@@ -92,11 +90,12 @@ def _mm(a, b):
 
 def _mulmod(m: np.ndarray, c: int, q: int) -> np.ndarray:
     """(m * c) mod q for a uint64 array m of values below q: numpy words
-    for q < 2^32, the Goldilocks field's product otherwise."""
+    for q < 2^32, the Goldilocks field's product for its q, python ints
+    for any other 64-bit q (frog's small model matrices)."""
     if q < 1 << 32:
         return m * np.uint64(c) % np.uint64(q)
     if q != _Q:
-        raise ValueError(f"no 64-bit product mod {q}")
+        return (m.astype(object) * c % q).astype(np.uint64)
     return to_numpy_u64(_f.mul(to_torch(m, "cpu"), _f.const(c, "cpu")))
 
 
@@ -268,36 +267,38 @@ def digit_table(big, device, what: str = "digit table"):
 
 
 def from_jax_consts(consts: dict, device) -> dict[str, torch.Tensor]:
-    """The reference's (or :meth:`Mxu2NTT.consts`') numpy tables ->
-    the port's device tables.
+    """The reference's (or the port's own) numpy tables -> the port's
+    device tables, key by key:
 
-    * ``w1``/``w2``/``w2i``/``w1i``: int8 [K*R, P*C], the form
-      ``_int_mm`` takes.  A uint8 (unsigned-scheme) table is stored as
-      ``W ^ 0x80`` viewed as int8 (``W - 128``), followed by a row of
+    * a uint8 or int8 digit table (``w1``/``w2``/``w2i``/``w1i`` of the
+      engines, ``crt``/``icrt`` of the ring models): int8 [K*R, P*C], the
+      form ``_int_mm`` takes.  A uint8 (unsigned-scheme) table is stored
+      as ``W ^ 0x80`` viewed as int8 (``W - 128``), followed by a row of
       ones and 7 rows of zeros ([K*R + 8, P*C]), so that the GEMM also
       returns the data digits' column sums.  It gets a second entry
       ``<key>_corr``: int32 [K*R, 1] = 128 sum_c (W - 128)[r, c]
       + 128^2 (P*C), the row-constant part of the offset identity.
-    * ``tw``/``twi``: the twiddles in the field's storage: int64 tensors
-      of u64 bits for a uint64 table (Goldilocks), int32 tensors of u32
-      Montgomery words for a uint32 table (BabyBear).
+    * a uint64 or uint32 table (the twiddles ``tw``/``twi``): the field's
+      storage, int64 tensors of u64 bits (Goldilocks) or int32 tensors of
+      u32 Montgomery words (BabyBear).
     """
     dev = get_device(device)
     out = {}
-    for key in _WEIGHT_KEYS:
-        w, corr = digit_table(consts[key], dev, key)
-        out[key] = w
-        if corr is not None:
-            out[key + "_corr"] = corr
-    for key in ("tw", "twi"):
-        tab = np.asarray(consts[key])
-        if tab.dtype == np.uint64:
+    for key, tab in consts.items():
+        tab = np.asarray(tab)
+        if tab.dtype in (np.uint8, np.int8):
+            w, corr = digit_table(tab, dev, key)
+            out[key] = w
+            if corr is not None:
+                out[key + "_corr"] = corr
+        elif tab.dtype == np.uint64:
             out[key] = to_torch(tab, dev)
         elif tab.dtype == np.uint32:
             out[key] = to_torch_u32(tab, dev)
         else:
-            raise TypeError(f"{key}: expected a uint64 or uint32 twiddle "
-                            f"table, got {tab.dtype}")
+            raise TypeError(f"{key}: expected a uint8/int8 digit table or "
+                            f"a uint64/uint32 storage table, got "
+                            f"{tab.dtype}")
     return out
 
 

@@ -89,3 +89,9 @@ class Transcript:
                 if v < f.q:
                     out.append(v)
         return f.encode(np.array(out, dtype=object), device)
+
+    def squeeze_ring_element(self, ring, form: str = "coeff"):
+        """One uniform ring element: D squeezed field elements as storage
+        [D] on the ring's device (either form: the draw is uniform in
+        both)."""
+        return self.squeeze_field_elements(ring.field, ring.D, ring.device)

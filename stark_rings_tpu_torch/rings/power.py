@@ -1,5 +1,7 @@
-"""Power-of-two negacyclic rings F_q[X]/(X^N + 1), deg 2^4 .. 2^20, over
-Goldilocks and BabyBear (counterpart of ``stark_rings_tpu/rings/power.py``).
+"""Power-of-two negacyclic rings F_q[X]/(X^N + 1) over Goldilocks and
+BabyBear (deg 2^1 .. 2^20 and beyond, to the fields' 2-adicity) and frog
+(deg 2 and 4: its q - 1 has 2-adicity 3) (counterpart of
+``stark_rings_tpu/rings/power.py``).
 
 A :class:`PowerRing` is fully splitting: its NTT form is the N
 leaf-order evaluations of ``ops/ntt.py`` (slot field F_q, E = 1).
@@ -41,12 +43,19 @@ class PowerRing:
     slot field = F_q (E = 1, N slots = D)."""
 
     def __init__(self, field_name: str, logN: int, device="cuda"):
-        if field_name not in ("goldilocks", "babybear"):
+        if field_name == "stark_prime":
             raise NotImplementedError(
-                f"power rings over {field_name!r} are not ported yet: the "
+                "stark_prime power rings are not ported yet: the limbed "
                 "field is ROADMAP Slice C item 9, its MXU engine Slice F "
-                "item 15")
+                "item 15 (queue 1 step 3)")
         self.field = get_field(field_name)
+        two_adicity = ((self.field.q - 1)
+                       & -(self.field.q - 1)).bit_length() - 1
+        if not 1 <= logN < two_adicity:
+            raise ValueError(
+                f"{field_name}: logN={logN} is out of range: q - 1 has "
+                f"2-adicity {two_adicity} and 2N must divide it, so logN is "
+                f"in [1, {two_adicity - 1}]")
         self.device = get_device(device)
         self.name = f"{field_name}_pow2_{logN}"
         self.q = self.field.q
@@ -137,7 +146,11 @@ class PowerRing:
         Goldilocks :class:`~..ops.fold.Mxu2KernelNTT` (K1 untransposed,
         K3 and the pointwise kernel).  ``pallas=False``: the plain
         :class:`~..ops.mxu_bb.MxuBBNTT` / :class:`~..ops.mxu2.Mxu2NTT`.
-        On CPU tensors the kernel wrappers run their plain twins."""
+        On CPU tensors the kernel wrappers run their plain twins.  frog
+        has no digit-GEMM engine (as in the reference): it raises."""
+        if self.field.name not in ("goldilocks", "babybear"):
+            raise ValueError(f"no digit-GEMM engine over {self.field.name}: "
+                             "MXU weights exist for goldilocks and babybear")
         if pallas not in self._mxu:
             if self.field.name == "babybear":
                 if pallas:

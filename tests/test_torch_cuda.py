@@ -7,7 +7,9 @@ points in every form, unaligned tables), and the sumcheck prover K7
 over Goldilocks, BabyBear and frog, for one claim and for a batch; the
 radix NTT kernels (the tile kernel in every mode at every log_tile, and
 the engine against NTTContext from N = 2 to 2^16), the fused mod-mat
-kernel and the chain kernel, and the engines on them.  Marked ``cuda``:
+kernel and the chain kernel, and the engines on them; the ring models'
+CRT folds (K3 at R = 24, K4's bb_fold_end at R = 72) and TModelMul on
+the card against the CPU twin path.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -1168,3 +1170,82 @@ def test_sharded_mul_on_card(dev, field):
     assert torch.equal(outs["pallas"][2], ring.coeff_square(a))
     for got, ref in zip(outs["pallas"], outs["xla"]):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
+@pytest.mark.parametrize("name", ["goldilocks", "babybear"])
+def test_model_crt_folds_match_twins(dev, name, signed):
+    """K3 (R = 24) and K4's bb_fold_end (R = 72) at the ring models'
+    shapes: on buckets from the model CRT's GEMM (a ragged batch padded
+    to 16 columns, and 1,000 columns), at the bucket bound, zero and the
+    whole int32 range, against their twins."""
+    from stark_rings_tpu_torch.ops import mxu_dense
+    from stark_rings_tpu_torch.ops.dense_linear import probe_dense_matrix
+    from stark_rings_tpu_torch.ops.mxu2 import PrescaledMat, digit_table
+    from stark_rings_tpu_torch.ops.mxu_bb import BBPrescaledMat
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring = get_ring(name, device=dev)
+    mod, fold = (K, "fold_end") if name == "goldilocks" else (KB,
+                                                             "bb_fold_end")
+    crt = probe_dense_matrix(ring.spec.crt, ring.D, ring.D, ring.q)
+    core = (PrescaledMat if name == "goldilocks" else BBPrescaledMat)(
+        crt, unsigned=not signed)
+    w, corr = digit_table(core.big, dev)
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for cols in (16, 1000):
+        x = ring.field.rand((ring.D, cols), rng, dev)
+        V = core.dot(x, w, corr)
+        assert V.shape == (core.K * ring.D, cols) and V.is_contiguous()
+        bound = (1 << 26) - 1 if signed else (1 << 27) - 1
+        for Vc in (V, torch.full_like(V, bound), torch.zeros_like(V),
+                   torch.randint(-2**31, 2**31, V.shape, generator=gen,
+                                 dtype=torch.int32, device=dev)):
+            before = mod.LAUNCHES[fold]
+            got = getattr(mod, fold)(Vc, ring.D, signed=signed)
+            assert mod.LAUNCHES[fold] == before + 1
+            assert torch.equal(got, getattr(mod, fold + "_ref")(
+                Vc, ring.D, signed=signed))
+        assert torch.equal(mxu_dense.fold_buckets(core, V), core.fold(V))
+
+
+@pytest.mark.parametrize("B", [1, 13, 1000])
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
+def test_model_mul_on_card(dev, name, B):
+    """TModelMul.mul_t and RingModel crt / icrt / coeff_mul on the card
+    equal the CPU twin path bit for bit, with a ragged batch; K3 or
+    bb_fold_end runs 3 times a mul_t, 2 a square_t."""
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, cpu = get_ring(name, device=dev), get_ring(name, device="cpu")
+    rng = np.random.default_rng(B)
+    a, b = (ring.field.rand((B, ring.D), rng, dev) for _ in range(2))
+    tm, tc = TModelMul(ring), TModelMul(cpu)
+    counts = {"goldilocks": (K.LAUNCHES, "fold_end"),
+              "babybear": (KB.LAUNCHES, "bb_fold_end")}.get(name)
+    before = counts[0][counts[1]] if counts else 0
+    got = tm.mul_t(tm.to_t(a), tm.to_t(b))
+    sq = tm.square_t(tm.to_t(a))
+    torch.cuda.synchronize()
+    if counts:
+        assert counts[0][counts[1]] - before == 5
+    want = tc.mul_t(tc.to_t(a.cpu()), tc.to_t(b.cpu()))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert torch.equal(sq.cpu(), tc.square_t(tc.to_t(a.cpu())))
+    assert torch.equal(ring.crt(a).cpu(), cpu.crt(a.cpu()))
+    assert torch.equal(ring.crt(a).cpu(), cpu.crt_staged(a.cpu()))
+    assert torch.equal(ring.icrt(ring.crt(a)), a)
+    assert torch.equal(tm.from_t(got).cpu(), cpu.coeff_mul(a.cpu(), b.cpu()))
+    f1 = tm.precompute_t(tm.to_t(b[:1]))
+    assert torch.equal(tm.mul_cached_t(tm.to_t(a), f1).cpu(),
+                       tc.mul_cached_t(tc.to_t(a.cpu()),
+                                       tc.precompute_t(tc.to_t(b[:1].cpu()))))
+    if B >= 13:
+        n, m = 3, B
+        A = ring.field.rand((ring.D, n, m), rng, dev)
+        x = ring.field.rand((ring.D, 2, m), rng, dev)
+        full = tm.matvec_t(A, x)
+        assert torch.equal(tm.matvec_t(A, x, block=4), full)
+        assert torch.equal(full.cpu(), tc.matvec_t(A.cpu(), x.cpu()))

@@ -49,6 +49,28 @@ import stark_rings_tpu_torch.mle.sumcheck_kernel
 import stark_rings_tpu_torch.rings.absorb
 import stark_rings_tpu_torch.examples.sumcheck
 import stark_rings_tpu_torch.examples.tile_variants
+import stark_rings_tpu_torch.spec
+import stark_rings_tpu_torch.spec.decomp
+import stark_rings_tpu_torch.rings.ring
+import stark_rings_tpu_torch.rings.element
+import stark_rings_tpu_torch.rings.monomial
+import stark_rings_tpu_torch.rings.sampling
+import stark_rings_tpu_torch.ops.stages
+import stark_rings_tpu_torch.ops.dense_linear
+import stark_rings_tpu_torch.ops.mxu_dense
+import stark_rings_tpu_torch.ops.model_mul
+import stark_rings_tpu_torch.models
+R = stark_rings_tpu_torch.rings
+for name in ("goldilocks", "babybear", "frog"):
+    ring = R.get_ring(name, device="cpu")
+    x = ring.rand_coeff((3,), np.random.default_rng(0))
+    tm = stark_rings_tpu_torch.ops.model_mul.TModelMul(ring)
+    assert (tm.mul(x, x) == ring.coeff_mul(x, x)).all()
+    assert (ring.crt(x) == ring.crt_staged(x)).all()
+    a = R.Rq.coeff(ring, x)
+    assert (a * a).crt() == a.crt() * a.crt()
+    assert R.monomial.psi_range_check_batched(ring, x[0, :4]).shape == (4,)
+    assert R.sampling.is_invertible(ring, x).shape == (3,)
 for field in ("goldilocks", "babybear", "frog"):
     stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu",
                                                  field=field)
