@@ -236,6 +236,33 @@ Phases, one line each:
      _int_mm and torch's elementwise kernels, with the slot product
      profiled alone (torch.profiler).
 
+The folding protocol (``FoldingStep``, ``FoldingTree``) at the reference
+bench's width, goldilocks n = 8, L = 1,024, base 256 (k = 8, M = 8,192):
+
+ 39. protocol path, launches counted: the step over {W = 8, W = 16} x
+     {psi on, psi off}, the goldilocks tree (16 leaves, L = 256), the
+     frog tree of the example with psi live, one babybear step (n = 8,
+     L = 1,024, W = 16);
+ 40. each step's outputs held to independent paths on the card: s and c
+     to the batch-leading ntt_mul with the broadcast challenge, the
+     digits to gadget_decompose of ring.icrt(s) over the whole batch; for
+     two witnesses the digits recompose in Python ints to the decoded
+     ICRT coefficients, ok_l2 equals the exact Python-int norm against
+     the bound, cd equals Matrix.mul_vec and row 0 the spec's slot
+     products summed in Python ints, ok_psi the host psi check of every
+     digit value; the blocked commit equals the unblocked one; the
+     trees verify and reject a tampered digit commitment;
+ 41. launch counts of phase 39 (K3 twice a goldilocks step, bb_fold_end
+     twice a babybear step), and K3 / bb_fold_end against their twins on
+     a step's digit-CRT buckets;
+ 42. timings (CUDA events, median of 10 after warm-up, whole calls):
+     steps/s and witnesses/s of the four grid points and the babybear
+     step, leaves/s of the tree, each stage of one W = 16 step alone,
+     the peak device memory of a step;
+ 43. profile: device busy time against wall time of one W = 16 step
+     and of one tree prove (with its host time and its torch operator
+     calls), with their top kernels.
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -372,6 +399,21 @@ MODEL_RAGGED = 13       # a batch that is not a multiple of 8
 # the Ajtai commit: n rows, m columns, W vectors, the blocked path's
 # block (benchmarks/bench_protocol.py:88-108)
 COMMIT = (8, 1024, 16, 128)
+# the composed folding step: n rows, witness length L, base
+# (benchmarks/bench_protocol.py:416-423), the witness batches of its grid,
+# and the witnesses held in Python ints
+PROTO = (8, 1024, 256)
+PROTO_WS = (8, 16)
+PROTO_INT_WITNESSES = 2
+PROTO_BLOCK = 1000      # a forced commit block (M = 8,192 is 8 and a tail)
+PROTO_TREE = (16, 256)  # leaves and L of the tree (bench_protocol.py:486-487)
+PROTO_FROG_TREE = (2, 2, 3, 8)  # t, n, L, base (examples/folding_tree.py)
+PROTO_KERNELS = {  # record -> (source, reference kernel file:line, model)
+    "fold_end[folding step goldilocks]": (
+        SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
+    "bb_fold_end[folding step babybear]": (
+        BB_SOURCE, "stark_rings_tpu/ops/pallas_fold_bb.py:226", "babybear"),
+}
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -2560,6 +2602,352 @@ def slice_models(dev, smi, rng) -> list:
             for rec, (src, ref, _) in MODEL_KERNELS.items()]
 
 
+def torch_ops(fn) -> int:
+    """The torch operator calls (aten ops as dispatched, each at least
+    one launch's worth of host time) one call of ``fn`` makes; the
+    hand kernels' ctypes launches are not among them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def step_stages(fs, c, ins) -> dict:
+    """ms of each stage of one ``FoldingStep.step`` timed alone, on the
+    inputs the stage gets inside the step (CUDA events, as ``time_ms``)."""
+    from stark_rings_tpu_torch.decomp import decompose
+    from stark_rings_tpu_torch.decomp.norms import l2_check
+    from stark_rings_tpu_torch.rings.monomial import psi_range_check_batched
+
+    f, tm = fs.f, fs.tm
+    s0, s1, c0, c1, rt = ins
+    tmc = c.get("tm")
+    st = f.add(s0, tm.ntt_mul_bt(s1, rt))
+    coeff = tm.icrt_t(st, tmc)
+    D, W = coeff.shape[0], coeff.shape[1]
+    dt = decompose(f, coeff, fs.base, fs.k).reshape(D, W, fs.M)
+    d_ntt = tm.crt_t(dt, tmc)
+    return {
+        "challenge fold": time_ms(lambda: (f.add(s0, tm.ntt_mul_bt(s1, rt)),
+                                           f.add(c0, tm.ntt_mul_bt(c1, rt)))),
+        "ICRT": time_ms(lambda: tm.icrt_t(st, tmc)),
+        "decompose": time_ms(lambda: decompose(f, coeff, fs.base, fs.k)),
+        "L2 check": time_ms(lambda: l2_check(f, dt, fs.l2_bound_sq,
+                                             axis=(0, 2))),
+        "CRT": time_ms(lambda: tm.crt_t(dt, tmc)),
+        "commit": time_ms(lambda: fs.commit(c, d_ntt)),
+        "psi": time_ms(lambda: psi_range_check_batched(fs.ring, dt)
+                       .all(dim=2).all(dim=0)),
+    }
+
+
+def hold_step(fs, c, ins, out, witnesses) -> str:
+    """Raise unless the step's outputs ``out`` equal independent paths on
+    the card: s and c the batch-leading ``ntt_mul`` with the broadcast
+    challenge, the digits ``gadget_decompose`` of ``ring.icrt(s)`` over
+    the whole batch; and for each of ``witnesses``: the digits recompose
+    in Python ints to the decoded ICRT coefficients, ``ok_l2`` is the
+    exact Python-int norm against the bound, ``cd`` equals
+    ``Matrix.mul_vec`` and its row 0 the spec's slot products summed in
+    Python ints, ``ok_psi`` the host psi check of the witness's digit
+    values.  Returns a summary."""
+    import torch
+
+    from stark_rings_tpu_torch.decomp import gadget_decompose
+    from stark_rings_tpu_torch.decomp.norms import l2_norm_squared
+    from stark_rings_tpu_torch.linalg import Matrix, RingElems
+    from stark_rings_tpu_torch.rings.monomial import psi_range_check
+    from stark_rings_tpu_torch.spec.decomp import recompose_ints
+    from stark_rings_tpu_torch.spec.field import to_signed
+
+    ring, f, tm = fs.ring, fs.f, fs.tm
+    s0, s1, c0, c1, rt = (tm.from_t(x) for x in ins)
+    W = s0.shape[0]
+    r_ntt = rt.reshape(ring.D)
+    for key, x0, x1 in (("s", s0, s1), ("c", c0, c1)):
+        want = ring.add(x0, ring.ntt_mul(x1, r_ntt.expand(x1.shape)))
+        if not torch.equal(tm.from_t(out[key]), want):
+            raise AssertionError(f"step {key}: differs from the "
+                                 "batch-leading ntt_mul fold")
+    s_lead = tm.from_t(out["s"])
+    coeff = ring.icrt(s_lead)                             # [W, L, D]
+    dig = tm.from_t(out["digits"])                        # [W, M, D]
+    if not torch.equal(dig, gadget_decompose(f, coeff, fs.base, fs.k)):
+        raise AssertionError("step digits: differ from gadget_decompose of "
+                             "ring.icrt(s) over the batch")
+    Ag = Matrix(RingElems(ring), torch.movedim(c["Agt"], 0, -1))  # [n, M, D]
+    cd = tm.from_t(out["cd"])
+    A0 = ring.decode(Ag.vals[0])                          # [M, D]
+    psi_values = {}
+    for w in witnesses:
+        di = ring.decode(dig[w]).reshape(fs.L, fs.k, ring.D)
+        ci = ring.decode(coeff[w])
+        for l in range(fs.L):
+            for i in range(ring.D):
+                v = recompose_ints([to_signed(int(x), ring.q)
+                                    for x in di[l, :, i]], fs.base)
+                if v % ring.q != int(ci[l, i]):
+                    raise AssertionError(f"step digits of witness {w}, "
+                                         f"column {l}, coefficient {i}: "
+                                         "recompose to another value")
+        norm = l2_norm_squared(f, dig[w])
+        if bool(out["ok_l2"][w]) != (norm <= fs.l2_bound_sq):
+            raise AssertionError(f"step ok_l2[{w}] against the exact norm "
+                                 f"{norm} and the bound {fs.l2_bound_sq}")
+        dn = ring.crt(dig[w])
+        if not torch.equal(cd[w], Ag.mul_vec(dn)):
+            raise AssertionError(f"step cd of witness {w}: differs from "
+                                 "Matrix.mul_vec")
+        dni = ring.decode(dn)
+        acc = [0] * ring.D
+        for j in range(fs.M):
+            p = ring.spec.ntt_mul([int(v) for v in A0[j]],
+                                  [int(v) for v in dni[j]])
+            acc = [(x + y) % ring.q for x, y in zip(acc, p)]
+        if ring.decode(cd[w, 0]).tolist() != acc:
+            raise AssertionError(f"step cd[{w}, 0]: differs from the spec's "
+                                 "slot products summed in Python ints")
+        if "ok_psi" in out:
+            vals = set(int(v) for v in ring.decode(dig[w]).reshape(-1))
+            for v in vals - psi_values.keys():
+                psi_values[v] = psi_range_check(ring, v)
+            if bool(out["ok_psi"][w]) != all(psi_values[v] for v in vals):
+                raise AssertionError(f"step ok_psi[{w}]: differs from the "
+                                     "host psi check of its digit values")
+    return (f"W={W}: s, c, digits held over the batch; witnesses "
+            f"{list(witnesses)} in Python ints (ok_l2 "
+            f"{out['ok_l2'].tolist()}"
+            + (f", ok_psi {out['ok_psi'].tolist()}" if "ok_psi" in out
+               else "") + ")")
+
+
+def slice_protocol(dev, smi, rng) -> list:
+    """Phases 39-43: the folding protocol, ``FoldingStep`` and
+    ``FoldingTree``, at the reference bench's width.  Returns the
+    kernels' JSON records."""
+    import torch
+
+    from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree
+    from stark_rings_tpu_torch.rings import get_ring
+
+    n_rows, L, base = PROTO
+    gl, bb = get_ring("goldilocks", device=dev), get_ring("babybear",
+                                                          device=dev)
+    frog = get_ring("frog", device=dev)
+    t0 = time.perf_counter()
+    steps = {(W, psi): FoldingStep(gl, n_rows, L, base, psi_check=psi)
+             for W in PROTO_WS for psi in (False, True)}
+    fs = steps[(PROTO_WS[-1], True)]
+    c = fs.init_tables(rng)
+    rt = fs.precompute_challenge(gl.rand_coeff((), rng))
+    ins = {}
+    for W in PROTO_WS:
+        ins[W] = (fs.rand_witness(W, rng), fs.rand_witness(W, rng),
+                  *(fs.tm.to_t(gl.rand_ntt((W, n_rows), rng)).contiguous()
+                    for _ in range(2)), rt)
+    Wt, Lt = PROTO_TREE
+    ft = FoldingTree(gl, n_rows, Lt, base=base)
+    ct_tables = ft.init_tables(rng)
+    wt = ft.rand_witnesses(Wt, rng)
+    cw = ft.commit_witnesses(ct_tables, wt)
+    rts = ft.precompute_challenges([gl.rand_coeff((), rng)
+                                    for _ in range(Wt.bit_length() - 1)])
+    tf, nf, Lf, bf = PROTO_FROG_TREE
+    fft = FoldingTree(frog, nf, Lf, base=bf)
+    fc = fft.init_tables(rng)
+    fwt = fft.rand_witnesses(1 << tf, rng)
+    fcw = fft.commit_witnesses(fc, fwt)
+    frts = fft.precompute_challenges([frog.rand_coeff((), rng)
+                                      for _ in range(tf)])
+    bfs = FoldingStep(bb, n_rows, L, base)
+    bc = bfs.init_tables(rng)
+    Wb = PROTO_WS[-1]
+    bins = (bfs.rand_witness(Wb, rng), bfs.rand_witness(Wb, rng),
+            *(bfs.tm.to_t(bb.rand_ntt((Wb, n_rows), rng)).contiguous()
+              for _ in range(2)), bfs.precompute_challenge(
+                bb.rand_coeff((), rng)))
+    torch.cuda.synchronize()
+    phase("protocol tables", f"goldilocks step n={n_rows}, L={L}, base="
+          f"{base}: k={fs.k}, M={fs.M}, the default commit block at W=16 "
+          f"{fs.commit_block(16)} (>= M: unblocked), babybear's "
+          f"{bfs.commit_block(Wb)} of M={bfs.M}; tables, witnesses and "
+          f"challenges drawn in {time.perf_counter() - t0:.1f} s")
+
+    # -- 39. the path, launches counted ---------------------------------------
+    def counts():
+        return {"fold_end": K.LAUNCHES["fold_end"],
+                "bb_fold_end": KB.LAUNCHES["bb_fold_end"]}
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    KB.reset_launches()
+    t0 = time.perf_counter()
+    outs, per_run = {}, {}
+    runs = {f"step W={W} psi={psi}": (lambda W=W, psi=psi: steps[(W, psi)]
+                                      .step(c, *ins[W]))
+            for W, psi in steps}
+    runs["tree"] = lambda: ft.prove(ct_tables, wt, cw, rts)
+    runs["frog tree"] = lambda: fft.prove(fc, fwt, fcw, frts)
+    runs["babybear step"] = lambda: bfs.step(bc, *bins)
+    for name, fn in runs.items():
+        before = counts()
+        outs[name] = fn()
+        per_run[name] = {k: v - before[k] for k, v in counts().items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    phase("protocol path", f"{len(steps)} goldilocks steps, the {Wt}-leaf "
+          "tree, the frog tree and the babybear step in "
+          f"{time.perf_counter() - t0:.2f} s; launches {per_run}")
+
+    # -- 40. each output held to independent paths ----------------------------
+    t0 = time.perf_counter()
+    for W in PROTO_WS:
+        o_off, o_on = (outs[f"step W={W} psi={p}"] for p in (False, True))
+        for key in ("s", "c", "digits", "cd", "ok_l2"):
+            if not torch.equal(o_off[key], o_on[key]):
+                raise AssertionError(f"step W={W} {key}: psi on and off "
+                                     "differ")
+        text = hold_step(steps[(W, True)], c, ins[W], o_on,
+                         (0, W - 1)[:PROTO_INT_WITNESSES])
+        d_ntt = fs.tm.crt_t(o_on["digits"])
+        if not torch.equal(fs.commit(c, d_ntt, block=PROTO_BLOCK),
+                           o_on["cd"]):
+            raise AssertionError(f"step W={W}: the commit at block="
+                                 f"{PROTO_BLOCK} differs from the unblocked")
+        phase("protocol check", text + f"; block={PROTO_BLOCK} commit equal "
+              "to the unblocked")
+    levels, rw, rc = outs["tree"]
+    if rw.shape != (gl.D, 1, Lt) or not ft.verify(ct_tables, wt, cw, levels,
+                                                  rts):
+        raise AssertionError("the goldilocks tree was not accepted")
+    flevels, _, _ = outs["frog tree"]
+    if not (fft.fs.psi_check and all(bool(o["ok_psi"].all())
+                                     for o in flevels)):
+        raise AssertionError("the frog tree's psi check is not live or "
+                             "failed")
+    if not fft.verify(fc, fwt, fcw, flevels, frts):
+        raise AssertionError("the frog tree was not accepted")
+    for tree, tc, tw, tcw, lv, tr in ((ft, ct_tables, wt, cw, levels, rts),
+                                      (fft, fc, fwt, fcw, flevels, frts)):
+        bad = [dict(o) for o in lv]
+        cd = bad[-1]["cd"].clone()
+        f = tree.f
+        cd.view(-1)[0] = f.add(cd.view(-1)[:1], f.const(1, dev))[0]
+        bad[-1]["cd"] = cd
+        if tree.verify(tc, tw, tcw, bad, tr):
+            raise AssertionError(f"{tree.ring.name} tree: a tampered digit "
+                                 "commitment was accepted")
+    text = hold_step(bfs, bc, bins, outs["babybear step"], (0,))
+    phase("protocol check", f"trees: goldilocks {Wt} leaves (L={Lt}) and "
+          f"frog {1 << tf} leaves (psi live) verified, a tampered digit "
+          f"commitment rejected by each; babybear step {text} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 41. launch counts ----------------------------------------------------
+    phase("protocol launches", json.dumps(launches))
+    levels_n = Wt.bit_length() - 1
+    expect = {name: {"fold_end": 2, "bb_fold_end": 0} for name in runs
+              if name.startswith("step")}
+    expect["tree"] = {"fold_end": 2 * levels_n, "bb_fold_end": 0}
+    expect["frog tree"] = {"fold_end": 0, "bb_fold_end": 0}
+    expect["babybear step"] = {"fold_end": 0, "bb_fold_end": 2}
+    if per_run != expect:
+        raise AssertionError(f"protocol launches {per_run}, expected "
+                             f"{expect}")
+    max_err, folds = {}, {}
+    for rec, (_, _, name) in PROTO_KERNELS.items():
+        sfs, sout = ((fs, outs[f"step W={PROTO_WS[-1]} psi=True"])
+                     if name == "goldilocks" else (bfs, outs["babybear step"]))
+        mod, fold = (K, "fold_end") if name == "goldilocks" else (
+            KB, "bb_fold_end")
+        if launches[fold] <= 0:
+            raise AssertionError(f"{rec} was never launched on the protocol "
+                                 "path")
+        m = sfs.tm._crt
+        dt = sout["digits"]
+        V = m.core.dot(dt.reshape(dt.shape[0], -1), m.w, m.w_corr)
+        folds[rec] = (mod, fold, V, m.core.R)
+        check(max_err, rec, getattr(mod, fold)(V, m.core.R, signed=False),
+              getattr(mod, fold + "_ref")(V, m.core.R, signed=False),
+              f"the step's digit CRT buckets {shape(V)}")
+
+    # -- 42. timings ----------------------------------------------------------
+    times = {}
+    for rec, (mod, fold, V, R) in folds.items():
+        kern, twin = getattr(mod, fold), getattr(mod, fold + "_ref")
+        moved = nbytes(V, kern(V, R, signed=False))
+        ms = time_ms(lambda: kern(V, R, signed=False), inner=10)
+        plain_ms = time_ms(lambda: twin(V, R, signed=False))
+        times[rec] = (ms, plain_ms, moved)
+        floor = moved / HBM_BYTES_PER_S * 1e3
+        phase("protocol time", f"{rec} {shape(V)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, memory floor {floor:.4f} ms "
+              f"({moved} B; {floor / ms:.0%} of the rate)  ({smi})")
+    for (W, psi), sfs in steps.items():
+        ms = time_ms(lambda: sfs.step(c, *ins[W]))
+        phase("protocol time", f"goldilocks step W={W} psi={psi}: {ms:.4f} "
+              f"ms = {1e3 / ms:.2f} steps/s = {W * 1e3 / ms:.1f} "
+              f"witnesses/s  ({smi})")
+    ms = time_ms(lambda: bfs.step(bc, *bins))
+    phase("protocol time", f"babybear step W={Wb} (commit block "
+          f"{bfs.commit_block(Wb)}): {ms:.4f} ms = {1e3 / ms:.2f} steps/s "
+          f"= {Wb * 1e3 / ms:.1f} witnesses/s  ({smi})")
+    ms = time_ms(lambda: ft.prove(ct_tables, wt, cw, rts))
+    phase("protocol time", f"goldilocks tree {Wt} leaves L={Lt}: {ms:.4f} "
+          f"ms = {Wt * 1e3 / ms:.1f} leaves/s  ({smi})")
+    st = step_stages(fs, c, ins[PROTO_WS[-1]])
+    total = sum(st.values())
+    phase("protocol stages", f"W={PROTO_WS[-1]} psi=True, each stage alone: "
+          + ", ".join(f"{k} {v:.4f} ms ({v / total:.1%})"
+                      for k, v in st.items())
+          + f"; sum {total:.4f} ms  ({smi})")
+    for name, sfs, tc, si in (("goldilocks", fs, c, ins[PROTO_WS[-1]]),
+                              ("babybear", bfs, bc, bins)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sfs.step(tc, *si)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        phase("protocol memory", f"{name} step W={si[0].shape[1]}: "
+              f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB), "
+              f"{peak - held} B above the {held} B held before it  ({smi})")
+
+    # -- 43. where the device time of one step goes ---------------------------
+    busy_ms, wall_ms, top = device_profile(
+        lambda: fs.step(c, *ins[PROTO_WS[-1]]), 3, dev, 6)
+    phase("protocol profile", f"step W={PROTO_WS[-1]} psi=True: device busy "
+          f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall (profiled), idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; per step: {top}  ({smi})")
+    def prove():
+        return ft.prove(ct_tables, wt, cw, rts)
+
+    busy_ms, wall_ms, top = device_profile(prove, 3, dev, 4)
+    prove_us = host_us(prove, 5)
+    n_ops = torch_ops(prove)
+    step_ops = torch_ops(lambda: fs.step(c, *ins[PROTO_WS[-1]]))
+    phase("protocol profile", f"tree {Wt} leaves L={Lt}: device busy "
+          f"{busy_ms:.4f} ms of {wall_ms:.4f} ms wall (profiled), idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; host {prove_us / 1e3:.4f} ms a prove "
+          f"unsynchronised, {n_ops} torch ops a prove ("
+          f"{prove_us / n_ops:.2f} us an op), {step_ops} a W={PROTO_WS[-1]} "
+          f"step; per prove: {top}  ({smi})")
+
+    rec_fold = {rec: folds[rec][1] for rec in PROTO_KERNELS}
+    return [record(rec, src, ref, launches[rec_fold[rec]], max_err[rec],
+                   *times[rec])
+            for rec, (src, ref, _) in PROTO_KERNELS.items()]
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -2875,6 +3263,7 @@ def main() -> None:
     records += slice_ntt(dev, smi, rng, gl)
     records += slice_sharded(dev, smi, rng)
     records += slice_models(dev, smi, rng)
+    records += slice_protocol(dev, smi, rng)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

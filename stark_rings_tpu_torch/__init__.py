@@ -9,8 +9,10 @@ rings (deg 2^16 Goldilocks and deg 2^12 BabyBear on the main paths;
 frog at deg 2 and 4), the Goldilocks MLE and
 sumcheck path, sumcheck over BabyBear and frog and over batched
 claims, the single-device Goldilocks NTT engines (radix-2 and the
-deg-2^14 digit-product four-step), and the sharded four-step NTT with
-its exchange kernel K8 (deg 2^20 on P shards of one card):
+deg-2^14 digit-product four-step), the sharded four-step NTT with its
+exchange kernel K8 (deg 2^20 on P shards of one card), balanced
+decomposition, the dense ring ``Matrix`` and the folding protocol
+(``FoldingStep``, ``FoldingTree``):
 
     spec/         the integer spec of the four ring models (a copy of
                   the reference's pure-Python spec/)
@@ -33,8 +35,14 @@ its exchange kernel K8 (deg 2^20 on P shards of one card):
     ops/mxu.py    7-bit digit MxuModMat and the deg-2^14 MatmulNTT
     ops/mxu_fused.py the fused mod-mat kernel, MxuModMatFused
     ops/_build.py builds and loads csrc/, the wrappers' launch rule
+    decomp/       balanced and gadget decomposition, the exact L2 words
+                  and norm checks
     linalg/       the element adapters FieldElems, RingElems,
-                  RingCoeffElems
+                  RingCoeffElems; the dense ring Matrix (k-blocked
+                  mul_mat), transpose, rounded division, AlgebraError
+    protocol/     the composed folding step FoldingStep (ntt_matvec, the
+                  blocked commit) and the folding tree FoldingTree with
+                  its verifier
     mle/          DenseMLE and helpers; the generic sumcheck prover
                   (sumcheck.py); kernels K5 evaluate / K6 fix-last
                   (fix.py) and the one-pass prover K7 over all three
@@ -47,7 +55,9 @@ its exchange kernel K8 (deg 2^20 on P shards of one card):
     parallel/     make_mesh (P shards on one card or one per card), the
                   sharded four-step ShardedNTT and K8, the twiddle-fused
                   exchange (wrappers + plain twins)
-    examples/     the sumcheck protocol (prove / verify)
+    examples/     the sumcheck protocol (prove / verify), the Ajtai
+                  commitment, the folding step and tree, the big-ring
+                  fold combine
     csrc/         the CUDA kernels (built by nvcc at first use)
     native/       the JAX-free loader of the C++ host oracles (schoolbook
                   multiplies, HostGoldilocks / HostRing NTTs)

@@ -1,0 +1,181 @@
+"""One LatticeFold-style folding step (counterpart of
+``stark_rings_tpu/protocol/folding.py``).
+
+Composes, in the batch-trailing layout (``ops/model_mul.TModelMul``):
+
+    1. challenge fold      s = s0 + r*s1,  c = c0 + r*c1
+                           (slot-wise; r's NTT form precomputed once)
+    2. ICRT                folded witness back to coefficient form
+    3. gadget decompose    [W, L] elements -> [W, L*k] short digits
+                           (balanced_decomposition/mod.rs:163-175)
+    4. norm check          exact L2 of the digit tensor per witness on
+                           the device (decomp.norms.l2_check)
+    5. CRT                 digits to NTT form
+    6. Ajtai commit        cd = A_g @ digits over the ring
+                           (matrix.rs:148-188)
+    7. (optional) psi range check per digit coefficient
+                           (monomial.rs:82-93), complete for power-of-two
+                           cyclotomics
+
+On the card each ICRT and CRT is one ``torch._int_mm`` and one fold
+kernel: K3 (``fold_end``) for goldilocks, K4's ``bb_fold_end`` for
+babybear; frog folds in torch ops.  A step runs one ICRT and one CRT;
+the challenge's precompute one more CRT.  Every other stage is torch
+ops on the ring's device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..decomp import decompose
+from ..decomp.norms import l2_check
+from ..ops.model_mul import TModelMul
+from ..spec.decomp import decomposition_max_length
+
+__all__ = ["FoldingStep", "ntt_matvec"]
+
+
+def ntt_matvec(f, tm, E, At, xt, block: int | None = None):
+    """c[i] = sum_j A[i, j] * x[j] over NTT-form ring elements in the
+    transposed layout: ``At [D, n, m]``, ``xt [D, W, m]`` -> [D, W, n]
+    (matrix.rs:148-188 semantics).
+
+    ``block``: m-blocked widened-word accumulation (the Matrix.mul_mat
+    pattern) bounding the live product tensor; bit-equal to the
+    unblocked contraction."""
+    if E == 1:
+        raise NotImplementedError(
+            "ntt_matvec over a slot field equal to the base field (E == 1) "
+            "serves stark_prime alone, which is ROADMAP queue 1 step 3")
+    return tm.matvec_t(At, xt, block=block)   # block >= m: unblocked
+
+
+class FoldingStep:
+    """Composed folding step over a ring model.
+
+    Parameters
+    ----------
+    ring : RingModel
+    n_rows : commitment rows (Ajtai security parameter)
+    wit_len : witness length L (ring elements per witness)
+    base, k : gadget decomposition basis / digit count
+               (k defaults to decomposition_max_length(q, base))
+    l2_bound_sq : witness-norm bound beta^2 of the device check;
+               defaults to the gadget guarantee L*k*D*(base/2)^2
+               (digits are balanced, so |d| <= base/2 always holds; a
+               protocol passes its real beta^2)
+    psi_check : include the per-coefficient monomial range check
+
+    Tables and witnesses live on the ring's device.
+    """
+
+    def __init__(self, ring, n_rows: int, wit_len: int, base: int = 256,
+                 k: int | None = None, l2_bound_sq: int | None = None,
+                 psi_check: bool = False):
+        self.ring = ring
+        self.f = ring.field
+        self.tm = TModelMul(ring)
+        self.n = int(n_rows)
+        self.L = int(wit_len)
+        self.base = int(base)
+        kmax = decomposition_max_length(ring.q, base)
+        if k is None:
+            k = kmax
+        # the step decomposes a FOLDED witness (full field range): a k
+        # below the field's max digit count would drop its high digits
+        assert k >= kmax, (
+            f"k={k} < decomposition_max_length(q, {base})={kmax} would"
+            " silently truncate the folded witness's digits")
+        self.k = int(k)
+        self.M = self.L * self.k
+        if l2_bound_sq is None:
+            l2_bound_sq = self.M * ring.D * (base // 2) ** 2
+        self.l2_bound_sq = int(l2_bound_sq)
+        self.psi_check = bool(psi_check)
+
+    # -- setup ------------------------------------------------------------
+    def init_tables(self, rng: np.random.Generator):
+        """Random Ajtai matrix A_g [n, M] of NTT-form ring elements in the
+        transposed layout [D, n, M], on the ring's device.  The CRT/ICRT
+        run on the ring's own digit tables; a ``tm`` entry (device tables
+        from ``ops.mxu2.from_jax_consts``, e.g. of the reference's
+        ``consts()``) takes their place."""
+        A = self.ring.rand_ntt((self.n, self.M), rng)
+        return {"Agt": torch.movedim(A, -1, 0).contiguous()}
+
+    def precompute_challenge(self, r):
+        """NTT form of the folding challenge: coefficient-form storage
+        [D] in, transposed NTT form [D, 1, 1] out; computed once per
+        challenge and broadcast over the witness batch in every step."""
+        ntt = self.tm.crt_t(self.tm.to_t(r)[:, None])
+        return ntt[:, :, None]
+
+    def rand_witness(self, W: int, rng: np.random.Generator):
+        """NTT-form witness batch [D, W, L] (transposed)."""
+        return self.tm.to_t(self.ring.rand_ntt((W, self.L), rng)).contiguous()
+
+    #: storage words of one [N, E, E, block, W, n] slot-product tensor
+    #: (the E-wide intermediate of ``TModelMul.matvec_t``, E times the
+    #: reference's [D, W, n, M]) tolerated before the commit blocks its
+    #: contraction: 2^27 int64 words, 1 GiB.  A u64 field product keeps
+    #: several such tensors live: the bench shape (goldilocks n = 8,
+    #: M = 8,192, W = 16: 75,497,472 words) stays on the unblocked path,
+    #: as the reference keeps it, and its step allocates 5.76 GB above
+    #: its inputs on the H100's 80 GB (``chip_smoke.py`` phase 42);
+    #: babybear's E = 9 blocks there and allocates the same.
+    _COMMIT_BUDGET_WORDS = 1 << 27
+
+    def commit_block(self, W: int) -> int:
+        """The contraction block the commit of W witnesses takes by
+        default (M or more: unblocked)."""
+        per = max(1, self.ring.D * self.ring.E * W * self.n)  # words a column
+        return max(1, self._COMMIT_BUDGET_WORDS // per)
+
+    def commit(self, c, dt, block: int | None = None):
+        """cd = A_g @ digits (NTT form, transposed): [D, W, M] -> [D, W, n].
+
+        Peak memory is bounded: when the slot-product tensor would pass
+        ``_COMMIT_BUDGET_WORDS`` words, the contraction runs M-blocked
+        with exact widened-word accumulation (bit-equal)."""
+        if block is None:
+            block = self.commit_block(dt.shape[1])
+        return ntt_matvec(self.f, self.tm, self.ring.E, c["Agt"], dt, block)
+
+    # -- the composed step --------------------------------------------------
+    def step(self, c, s0t, s1t, c0t, c1t, rt):
+        """One folding step.
+
+        Inputs (transposed layout): witnesses s0t/s1t [D, W, L],
+        commitments c0t/c1t [D, W, n], the challenge rt from
+        :meth:`precompute_challenge`.  Returns a dict with the folded
+        witness ``s`` and commitment ``c``, the digit tensor ``digits``
+        [D, W, M] and its commitment ``cd``, and the check bits ``ok_l2``
+        (and ``ok_psi``) [W]."""
+        f, tm = self.f, self.tm
+        tmc = c.get("tm")
+        st = f.add(s0t, tm.ntt_mul_bt(s1t, rt))
+        ct = f.add(c0t, tm.ntt_mul_bt(c1t, rt))
+        coeff = tm.icrt_t(st, tmc)                       # [D, W, L]
+        dig = decompose(f, coeff, self.base, self.k)     # [D, W, L, k]
+        # digit j of column l -> gadget column l*k + j (mod.rs:163-175)
+        dt = dig.reshape(dig.shape[0], dig.shape[1], self.M)
+        ok_l2 = l2_check(f, dt, self.l2_bound_sq, axis=(0, 2))   # [W]
+        d_ntt = tm.crt_t(dt, tmc)
+        cd = self.commit(c, d_ntt)
+        out = {"s": st, "c": ct, "digits": dt, "cd": cd, "ok_l2": ok_l2}
+        if self.psi_check:
+            from ..rings.monomial import psi_range_check_batched
+
+            # per coefficient of the digit tensor; all of (D, M) a witness
+            okp = psi_range_check_batched(self.ring, dt)
+            out["ok_psi"] = okp.all(dim=2).all(dim=0)
+        return out
+
+    # -- multi-device -------------------------------------------------------
+    def make_sharded_step_fn(self, mesh, axis: str = "x"):
+        """The witness-sharded step: ROADMAP queue 1 step 6."""
+        raise NotImplementedError(
+            "FoldingStep.make_sharded_step_fn is ROADMAP queue 1 step 6 "
+            "(the rest of the multi-device layer)")

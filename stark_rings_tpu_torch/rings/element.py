@@ -16,8 +16,8 @@ product:
     >>> (an * an).icrt() == a * a
     True
 
-The decomposition and norm methods need the port's decomposition layer,
-which is ROADMAP queue 1 step 2; until it lands they raise.
+The decomposition and norm methods run on the port's decomposition
+layer (:mod:`..decomp`).
 """
 
 from __future__ import annotations
@@ -26,9 +26,6 @@ import numpy as np
 import torch
 
 __all__ = ["Rq"]
-
-_STEP2 = ("needs the balanced decomposition layer (decomp/), which is not "
-          "ported yet (ROADMAP queue 1 step 2)")
 
 
 class Rq:
@@ -181,22 +178,42 @@ class Rq:
     def __hash__(self):  # storage tensors are unhashable; identity hash
         return id(self)
 
-    # -- decomposition / norms (ROADMAP queue 1 step 2) ----------------------
+    # -- decomposition / norms ------------------------------------------
     def decompose(self, b: int, k: int):
-        raise NotImplementedError(f"Rq.decompose {_STEP2}")
+        """Balanced digits along a new axis (Decompose trait); coefficient
+        form, returns raw digit storage [..., k, D]."""
+        from ..decomp import decompose_ring
+
+        self._need("coeff", "decompose()")
+        return decompose_ring(self.ring.field, self.data, b, k)
 
     @classmethod
     def recompose(cls, ring, digits, b: int):
-        raise NotImplementedError(f"Rq.recompose {_STEP2}")
+        from ..decomp import recompose_ring
+
+        return cls(ring, "coeff", recompose_ring(ring.field, digits, b))
 
     def linf_norm(self):
-        raise NotImplementedError(f"Rq.linf_norm {_STEP2}")
+        from ..decomp import linf_norm
+
+        self._need("coeff", "linf_norm()")
+        return linf_norm(self.ring.field, self.data)
 
     def l2_norm_squared_words(self):
-        raise NotImplementedError(f"Rq.l2_norm_squared_words {_STEP2}")
+        """Exact ||.||_2^2 over ALL coefficients (WithL2Norm,
+        traits.rs:6-56) as little-endian base-2^32 words on the device;
+        decode with ``decomp.words_to_int``."""
+        from ..decomp import l2_norm_squared_words
+
+        self._need("coeff", "l2_norm_squared_words()")
+        return l2_norm_squared_words(self.ring.field, self.data)
 
     def l2_check(self, bound_sq: int):
-        raise NotImplementedError(f"Rq.l2_check {_STEP2}")
+        """||.||_2^2 <= bound_sq on the device (no host round trip)."""
+        from ..decomp import l2_check
+
+        self._need("coeff", "l2_check()")
+        return l2_check(self.ring.field, self.data, bound_sq)
 
     # -- misc ---------------------------------------------------------------
     @property

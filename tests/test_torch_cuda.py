@@ -1249,3 +1249,77 @@ def test_model_mul_on_card(dev, name, B):
         full = tm.matvec_t(A, x)
         assert torch.equal(tm.matvec_t(A, x, block=4), full)
         assert torch.equal(full.cpu(), tc.matvec_t(A.cpu(), x.cpu()))
+
+
+def _step_inputs(fs, rng, W):
+    ring = fs.ring
+    c = fs.init_tables(rng)
+    rt = fs.precompute_challenge(ring.rand_coeff((), rng))
+    s0, s1 = fs.rand_witness(W, rng), fs.rand_witness(W, rng)
+    c0, c1 = (fs.tm.to_t(ring.rand_ntt((W, fs.n), rng)).contiguous()
+              for _ in range(2))
+    return c, (s0, s1, c0, c1, rt)
+
+
+@pytest.mark.parametrize("psi", [False, True], ids=["nopsi", "psi"])
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
+def test_folding_step_on_card(dev, name, psi):
+    """FoldingStep.step on the card equals the step on the CPU (the fold
+    kernels' twins) output by output, at a ragged witness batch and with
+    a forced commit block; K3 (goldilocks) or bb_fold_end (babybear) runs
+    twice a step: one ICRT of the folded witness, one CRT of the
+    digits."""
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, cpu = get_ring(name, device=dev), get_ring(name, device="cpu")
+    base = 4 if name == "frog" else 256
+    fs = FoldingStep(ring, n_rows=3, wit_len=5, base=base, psi_check=psi)
+    fc = FoldingStep(cpu, n_rows=3, wit_len=5, base=base, psi_check=psi)
+    c, ins = _step_inputs(fs, np.random.default_rng(31), W=3)
+    counts = {"goldilocks": (K.LAUNCHES, "fold_end"),
+              "babybear": (KB.LAUNCHES, "bb_fold_end")}.get(name)
+    torch.cuda.synchronize()
+    before = counts[0][counts[1]] if counts else 0
+    out = fs.step(c, *ins)
+    torch.cuda.synchronize()
+    if counts:
+        assert counts[0][counts[1]] - before == 2
+    want = fc.step({"Agt": c["Agt"].cpu()}, *(x.cpu() for x in ins))
+    assert sorted(out) == sorted(want)
+    for key, val in want.items():
+        assert out[key].device.type == "cuda"
+        assert torch.equal(out[key].cpu(), val), key
+    d_ntt = fs.tm.crt_t(out["digits"])
+    assert torch.equal(fs.commit(c, d_ntt, block=2), out["cd"])
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
+def test_folding_tree_on_card(dev, name):
+    """FoldingTree prove and verify on the card: the same levels as on
+    the CPU, accepted, and a tampered digit commitment rejected."""
+    from stark_rings_tpu_torch.protocol import FoldingTree
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, cpu = get_ring(name, device=dev), get_ring(name, device="cpu")
+    ft, fc = FoldingTree(ring, 2, 3), FoldingTree(cpu, 2, 3)
+    rng = np.random.default_rng(32)
+    c = ft.init_tables(rng)
+    wt = ft.rand_witnesses(8, rng)
+    ct = ft.commit_witnesses(c, wt)
+    rts = ft.precompute_challenges([ring.rand_coeff((), rng)
+                                    for _ in range(3)])
+    levels, rw, rc = ft.prove(c, wt, ct, rts)
+    assert ft.verify(c, wt, ct, levels, rts)
+    cc = {k: v.cpu() for k, v in c.items()}
+    lv_c, rw_c, _ = fc.prove(cc, wt.cpu(), ct.cpu(), [r.cpu() for r in rts])
+    assert torch.equal(rw.cpu(), rw_c)
+    for got, want in zip(levels, lv_c):
+        for key in want:
+            assert torch.equal(got[key].cpu(), want[key]), key
+    bad = [dict(o) for o in levels]
+    cd = bad[0]["cd"].clone()
+    cd.view(-1)[0] = ring.field.add(cd.view(-1)[:1],
+                                    ring.field.const(1, dev))[0]
+    bad[0]["cd"] = cd
+    assert not ft.verify(c, wt, ct, bad, rts)

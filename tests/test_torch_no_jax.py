@@ -60,6 +60,25 @@ import stark_rings_tpu_torch.ops.dense_linear
 import stark_rings_tpu_torch.ops.mxu_dense
 import stark_rings_tpu_torch.ops.model_mul
 import stark_rings_tpu_torch.models
+import stark_rings_tpu_torch.decomp
+import stark_rings_tpu_torch.decomp.balanced
+import stark_rings_tpu_torch.decomp.norms
+import stark_rings_tpu_torch.decomp.representatives
+import stark_rings_tpu_torch.linalg.matrix
+import stark_rings_tpu_torch.linalg.ops
+import stark_rings_tpu_torch.protocol
+import stark_rings_tpu_torch.protocol.folding
+import stark_rings_tpu_torch.protocol.tree
+import stark_rings_tpu_torch.examples.ajtai_commitment
+import stark_rings_tpu_torch.examples.folding_step
+import stark_rings_tpu_torch.examples.folding_tree
+import stark_rings_tpu_torch.examples.bigring_fold
+from stark_rings_tpu_torch.linalg import AlgebraError, Matrix
+from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree, ntt_matvec
+assert issubclass(AlgebraError, ValueError)
+for name in ("ajtai_commitment", "folding_step", "folding_tree",
+             "bigring_fold"):
+    getattr(stark_rings_tpu_torch.examples, name).main(device="cpu")
 R = stark_rings_tpu_torch.rings
 for name in ("goldilocks", "babybear", "frog"):
     ring = R.get_ring(name, device="cpu")
@@ -71,6 +90,8 @@ for name in ("goldilocks", "babybear", "frog"):
     assert (a * a).crt() == a.crt() * a.crt()
     assert R.monomial.psi_range_check_batched(ring, x[0, :4]).shape == (4,)
     assert R.sampling.is_invertible(ring, x).shape == (3,)
+    assert R.Rq.recompose(ring, a.decompose(256, 8), 256) == a
+    assert bool(a.l2_check(1 << 200)) and a.linf_norm().dim() == 0
 for field in ("goldilocks", "babybear", "frog"):
     stark_rings_tpu_torch.examples.sumcheck.main(n_vars=9, device="cpu",
                                                  field=field)

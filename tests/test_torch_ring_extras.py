@@ -4,8 +4,8 @@ psi, exp / exp_signed, the scalar and the batched psi range check,
 exp_batched), sampling (ranges; ``is_invertible`` on the reference's own
 draws, carried across), ``Transcript.squeeze_ring_element``, the ``Rq``
 operator surface (its elementwise operators against the reference's, its
-products against the ring model's; its decomposition methods raise until
-ROADMAP queue 1 step 2), the ring element adapters and the lazy
+products against the ring model's; its decomposition and norm methods
+against the reference's), the ring element adapters and the lazy
 ``models`` registry.
 Ints are carried across; outputs are compared through ``decode``, with
 no differing value allowed."""
@@ -200,11 +200,27 @@ def test_rq_operator_surface(name):
         _ = a * b.crt()
     with pytest.raises(ValueError, match="needs ntt form"):
         a.inv()
-    for call in (lambda: a.decompose(4, 8), lambda: Rq.recompose(ring, a, 4),
-                 a.linf_norm, a.l2_norm_squared_words,
-                 lambda: a.l2_check(10)):
-        with pytest.raises(NotImplementedError, match="queue 1 step 2"):
-            call()
+    # the decomposition and norm methods (the port's decomp/)
+    k = 64 // 8 if ring.q > 1 << 32 else 4
+    norm = sum(int(w) << (32 * j) for j, w in
+               enumerate(a.l2_norm_squared_words().tolist()))
+
+    def methods(x):   # the reference's five methods, jitted as one graph
+        xr = RefRq.coeff(ref, x)
+        d = xr.decompose(256, k)
+        return (d, RefRq.recompose(ref, d, 256).data, xr.linf_norm(),
+                xr.l2_norm_squared_words(), xr.l2_check(norm - 1),
+                xr.l2_check(norm))
+
+    want = [np.asarray(v) for v in jax.jit(methods)(ar.data)]
+    dig = a.decompose(256, k)
+    got = (dig, Rq.recompose(ring, dig, 256).data, a.linf_norm(),
+           a.l2_norm_squared_words(), a.l2_check(norm - 1), a.l2_check(norm))
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().astype(w.dtype).tolist() == w.tolist()
+    assert Rq.recompose(ring, dig, 256) == a
+    with pytest.raises(ValueError, match="needs coeff form"):
+        fa.decompose(256, k)
 
 
 def test_ring_elems_and_models_registry():
