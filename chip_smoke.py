@@ -46,6 +46,15 @@ is one digit GEMM (``torch._int_mm``) and one bucket fold, K3
 72 for babybear (frog folds in torch ops); and the Ajtai commit
 ``matvec_t`` at n = 8, m = 1,024, W = 16, unblocked and blocked.
 
+The stark slice is BASELINE config 3, the 252-bit stark prime in eight
+u32 limbs: ``get_power_ring("stark_prime", 12).mxu_ctx()``
+(``MxuLimbNTT``) at B = 256, ``TModelMul.mul_t`` over the D = 16 model
+at B = 4,096 and its commit, the limbed ``FoldingStep`` at W = 16 and a
+sumcheck at nv = 20 on the generic prover.  Its kernels compute what
+the reference runs in XLA: S1 (``stark_mul``, the CIOS Montgomery
+product), S2 (``stark_add``, ``stark_sub``) and S3 (``limb_fold``, the
+digit GEMM's bucket fold).
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -263,6 +272,31 @@ bench's width, goldilocks n = 8, L = 1,024, base 256 (k = 8, M = 8,192):
      and of one tree prove (with its host time and its torch operator
      calls), with their top kernels.
 
+The stark slice (``slice_stark``):
+ 44. S1 and S2 against their twins on 2^20 random elements, the pairs
+     of six edge values (0, 1, q - 1, R mod q, q's own limbs, 2^256 - 1)
+     and broadcast tables (the mid twiddle [64, 64, 8], one element);
+     S3 on the deg-2^12 level buckets [2048, 16384] and the model CRT's
+     [512, 4096], both digit schemes, both output layouts, and on
+     full-range int32 buckets;
+ 45. the main path with the launch counts zeroed before it and read
+     after: mul, mul_cached and square at B = 256 (6 folds and 4
+     products a mul), mul_t at B = 4,096, the commit (unblocked and
+     block 128), one W = 16 step, one nv = 20 proof, the four-step
+     ShardedNTT mul at B = 16 on 4 shards of the card;
+ 46. the multiplies bit-equal to the radix NTTContext on the card over
+     the whole batch, rows 0 and 255 to a Python-int negacyclic product,
+     the four-step to mxu_ctx().mul;
+ 47. mul_t equal to the integer spec on 2 rows, the commit blocked equal
+     to unblocked and c[0, 0] to Python ints;
+ 48. the step held as phase 40 holds it (witnesses 0 and 15 in Python
+     ints), the proof's sumcheck relations in Python ints;
+ 49. timings: each of S1-S3 against its twin with its bound (bytes, or
+     the issue rate over the kernel's SASS instructions a thread),
+     mults/s of the three multiplies and of mul_t, commits/s,
+     witnesses/s, the step's stages and peak memory, proofs/s;
+ 50. profile: device busy against wall time of one mul and one step.
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -279,6 +313,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import functools
 import json
 import pathlib
 import re
@@ -413,6 +448,25 @@ PROTO_KERNELS = {  # record -> (source, reference kernel file:line, model)
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
     "bb_fold_end[folding step babybear]": (
         BB_SOURCE, "stark_rings_tpu/ops/pallas_fold_bb.py:226", "babybear"),
+}
+# BASELINE config 3, the 252-bit stark prime: the deg-2^12 ring multiply
+# at the batch bench.py:726-757 measures, the D = 16 model's multiply at
+# bench.py:618's batch, the commit of slice_models, the limbed folding
+# step (n, L, base 2^16 of tests/test_protocol.py:28, W), a sumcheck
+ST_LOG = 12
+ST_B = 256
+ST_RANDOM = 1 << 20     # random elements S1 and S2 are held on
+ST_MODEL_B = 4096
+ST_COMMIT = (8, 1024, 16, 128)
+ST_PROTO = (8, 1024, 1 << 16, 16)
+ST_NV = 20
+ST_SHARDS, ST_SHARD_B = 4, 16   # the four-step at deg 2^12 on 4 shards
+ST_SOURCE = "stark_rings_tpu_torch/csrc/stark.cu"
+STARK_KERNELS = {  # record -> the reference's XLA code it computes
+    "stark_mul": "stark_rings_tpu/fields/field.py:665",
+    "stark_add": "stark_rings_tpu/fields/field.py:624",
+    "stark_sub": "stark_rings_tpu/fields/field.py:638",
+    "limb_fold": "stark_rings_tpu/ops/mxu_limb.py:133",
 }
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
@@ -1404,12 +1458,10 @@ def py_check_proof(f, tables, chal, msgs, finals, what) -> None:
     p(r) equals the product of the finals."""
     import numpy as np
 
-    from stark_rings_tpu_torch import to_numpy_storage
-
     q = f.q
     prod = None
     for T in tables:
-        c = to_numpy_storage(f.canon(T)).astype(object)
+        c = np.asarray(f.decode(T), dtype=object)
         prod = c if prod is None else prod * c % q
     claim = int(np.sum(prod)) % q
     m = f.decode(msgs).tolist()
@@ -2633,7 +2685,8 @@ def step_stages(fs, c, ins) -> dict:
     st = f.add(s0, tm.ntt_mul_bt(s1, rt))
     coeff = tm.icrt_t(st, tmc)
     D, W = coeff.shape[0], coeff.shape[1]
-    dt = decompose(f, coeff, fs.base, fs.k).reshape(D, W, fs.M)
+    dt = decompose(f, coeff, fs.base, fs.k).reshape((D, W, fs.M)
+                                                     + f.limb_shape)
     d_ntt = tm.crt_t(dt, tmc)
     return {
         "challenge fold": time_ms(lambda: (f.add(s0, tm.ntt_mul_bt(s1, rt)),
@@ -2671,7 +2724,7 @@ def hold_step(fs, c, ins, out, witnesses) -> str:
     ring, f, tm = fs.ring, fs.f, fs.tm
     s0, s1, c0, c1, rt = (tm.from_t(x) for x in ins)
     W = s0.shape[0]
-    r_ntt = rt.reshape(ring.D)
+    r_ntt = rt.reshape((ring.D,) + f.limb_shape)
     for key, x0, x1 in (("s", s0, s1), ("c", c0, c1)):
         want = ring.add(x0, ring.ntt_mul(x1, r_ntt.expand(x1.shape)))
         if not torch.equal(tm.from_t(out[key]), want):
@@ -2683,7 +2736,7 @@ def hold_step(fs, c, ins, out, witnesses) -> str:
     if not torch.equal(dig, gadget_decompose(f, coeff, fs.base, fs.k)):
         raise AssertionError("step digits: differ from gadget_decompose of "
                              "ring.icrt(s) over the batch")
-    Ag = Matrix(RingElems(ring), torch.movedim(c["Agt"], 0, -1))  # [n, M, D]
+    Ag = Matrix(RingElems(ring), tm.from_t(c["Agt"]))    # [n, M, D(, 8)]
     cd = tm.from_t(out["cd"])
     A0 = ring.decode(Ag.vals[0])                          # [M, D]
     psi_values = {}
@@ -2948,6 +3001,368 @@ def slice_protocol(dev, smi, rng) -> list:
             for rec, (src, ref, _) in PROTO_KERNELS.items()]
 
 
+def py_negacyclic(a, b, q) -> list:
+    """The negacyclic product of two coefficient lists in Python ints, by
+    one big-integer product (Kronecker substitution: each coefficient a
+    520-bit field of one integer, wide enough for N * q^2)."""
+    n = len(a)
+    nb = (2 * q.bit_length() + n.bit_length() + 8) // 8
+
+    def pack(v):
+        return int.from_bytes(b"".join(int(x).to_bytes(nb, "little")
+                                       for x in v), "little")
+
+    c = (pack(a) * pack(b)).to_bytes(2 * n * nb, "little")
+    full = [int.from_bytes(c[k * nb:(k + 1) * nb], "little")
+            for k in range(2 * n)]
+    return [(full[k] - full[k + n]) % q for k in range(n)]
+
+
+@functools.lru_cache(maxsize=1)
+def library_sass() -> list:
+    """(mangled name, SASS text) of every kernel in the built library
+    (one cuobjdump of the whole library, kept for the run)."""
+    from stark_rings_tpu_torch.ops import _build
+
+    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    return re.findall(r"Function : (\S+)(.*?)(?=Function :|\Z)", sass, re.S)
+
+
+def sass_instructions(pattern) -> int:
+    """The SASS instructions of the one kernel whose mangled name matches
+    ``pattern`` in the built library (cuobjdump), less the NOPs that pad
+    its end: the instructions a thread of a straight-line kernel
+    issues."""
+    body = [b for name, b in library_sass() if re.search(pattern, name)]
+    if len(body) != 1:
+        raise RuntimeError(f"expected one kernel matching {pattern!r} in "
+                           f"the SASS, found {len(body)}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body[0])
+    return sum(1 for op in ops if op.split()[0] != "NOP")
+
+
+def slice_stark(dev, smi, rng) -> list:
+    """Phases 44-50: BASELINE config 3, the 252-bit stark prime.  The
+    kernels S1 (``stark_mul``), S2 (``stark_add``, ``stark_sub``) and S3
+    (``limb_fold``) against their twins; the deg-2^12 ring multiply of
+    ``get_power_ring("stark_prime", 12).mxu_ctx()`` at B = 256, the model
+    multiply ``TModelMul.mul_t`` at B = 4,096 and its commit, the limbed
+    folding step at W = 16 and a sumcheck at nv = 20 on the generic
+    prover, and the four-step on 4 shards of the card.  Returns the
+    kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch.fields import STARK as F
+    from stark_rings_tpu_torch.mle.sumcheck_kernel import sumcheck_prove_many
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.ops.dense_linear import probe_dense_matrix
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.ops.mxu2 import digit_table
+    from stark_rings_tpu_torch.ops.mxu_limb import LimbPrescaledMat
+    from stark_rings_tpu_torch.ops.ntt import NTTContext
+    from stark_rings_tpu_torch.parallel import ShardedNTT, make_mesh
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_power_ring, get_ring
+
+    q = F.q
+    t0 = time.perf_counter()
+    pr = get_power_ring("stark_prime", ST_LOG, device=dev)
+    e = pr.mxu_ctx()
+    ring = get_ring("stark_prime", device=dev)
+    tm = TModelMul(ring)
+    n_rows, L, base, W = ST_PROTO
+    fs = FoldingStep(ring, n_rows, L, base)
+    phase("stark tables", f"MxuLimbNTT (N = {e.N} = {e.N1} x {e.N2}, "
+          f"unsigned u8 scheme: 32 data planes x 32 weight digits), the "
+          f"D = 16 model's CRT / ICRT and the step (n = {n_rows}, L = {L}, "
+          f"base {base}: k = {fs.k}, M = {fs.M}) built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 44. S1-S3 against their twins -----------------------------------
+    max_err = {}
+    t0 = time.perf_counter()
+    edges = [0, 1, q - 1, (1 << 256) % q, q, (1 << 256) - 1]
+    ev = torch.from_numpy(F.limbs_np(edges).view(np.int32)).to(dev)
+    ne = len(edges)
+    x = F.rand((ST_RANDOM,), rng, dev)
+    y = F.rand((ST_RANDOM,), rng, dev)
+    x[:ne * ne] = ev.repeat_interleave(ne, 0)
+    y[:ne * ne] = ev.repeat(ne, 1)
+    a4 = F.rand((4, e.N2, e.N1), rng, dev)
+    for op in ("mul", "add", "sub"):
+        name = "stark_" + op
+        kern, twin = getattr(S, name), getattr(S, name + "_ref")
+        check(max_err, name, kern(x, y), twin(x, y),
+              f"2^{ST_RANDOM.bit_length() - 1} random elements and the "
+              f"{ne} x {ne} edge pairs")
+        for b_ in (e.c["tw"], ev[3]):
+            check(max_err, name, kern(a4, b_), twin(a4, b_),
+                  f"{shape(a4)} against a broadcast {shape(b_)}")
+    # the level buckets of the multiply and the model CRT's, both schemes
+    a = pr.rand_coeff((ST_B,), rng)
+    b = pr.rand_coeff((ST_B,), rng)
+    x2 = e._to_internal(a).reshape(-1, e.N1, 8)
+    mats = {"level": (e.mat1, x2.transpose(0, 1), e.c["w1"],
+                      e.c["w1_corr"])}
+    at = F.rand((ring.D, ST_MODEL_B), rng, dev)
+    bt = F.rand((ring.D, ST_MODEL_B), rng, dev)
+    mats["model crt"] = (tm._crt.core, at, tm._crt.w, tm._crt.w_corr)
+    signed = {"level": LimbPrescaledMat(F.rand_ints((e.N1, e.N1), rng),
+                                        unsigned=False),
+              "model crt": LimbPrescaledMat(probe_dense_matrix(
+                  ring.spec.crt, ring.D, ring.D, q), unsigned=False)}
+    folds = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for key, (core, xin, w, corr) in mats.items():
+        for mat, (ww, cc) in ((core, (w, corr)),
+                              (signed[key], digit_table(signed[key].big,
+                                                        dev))):
+            V = mat.dot(xin, ww, cc)
+            sg = not mat.unsigned
+            folds.setdefault(key, V)
+            rand = torch.randint(-2**31, 2**31, V.shape, generator=gen,
+                                 dtype=torch.int32, device=dev)
+            for what, Vc in (("GEMM", V), ("int32", rand)):
+                for tr in (False, True):
+                    check(max_err, "limb_fold",
+                          S.limb_fold(Vc, mat.R, signed=sg, transpose_out=tr),
+                          S.limb_fold_ref(Vc, mat.R, signed=sg,
+                                          transpose_out=tr),
+                          f"{key} R={mat.R} {shape(Vc)} "
+                          f"{'signed' if sg else 'unsigned'} {what}"
+                          + (" transposed" if tr else ""))
+    torch.cuda.synchronize()
+    phase("stark parity", f"S1, S2 on 2^{ST_RANDOM.bit_length() - 1} "
+          f"random elements and {ne} x {ne} edge pairs (0, 1, q - 1, "
+          f"R mod q, q's limbs, 2^256 - 1) and against broadcast tables; "
+          f"S3 on the level buckets {shape(folds['level'])} and the model "
+          f"CRT's {shape(folds['model crt'])} in both schemes, and on "
+          f"full-range int32: bit-equal to the twins "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 45. the main path, launches counted -------------------------------
+    A = F.rand((ring.D, ST_COMMIT[0], ST_COMMIT[1]), rng, dev)
+    sv = F.rand((ring.D, ST_COMMIT[2], ST_COMMIT[1]), rng, dev)
+    c = fs.init_tables(rng)
+    rt = fs.precompute_challenge(ring.rand_coeff((), rng))
+    ins = (fs.rand_witness(W, rng), fs.rand_witness(W, rng),
+           *(tm.to_t(ring.rand_ntt((W, n_rows), rng)).contiguous()
+             for _ in range(2)), rt)
+    tables = [F.rand((1 << ST_NV,), rng, dev) for _ in range(2)]
+    chal = F.rand((ST_NV,), rng, dev)
+    sn = ShardedNTT("stark_prime", e.N, ST_SHARDS)
+    mesh = make_mesh(ST_SHARDS, device=dev)
+    cspec = sn.shard_specs(1)[0]
+    sh_a, sh_b = (sn.shard(sn.to_matrix(x[:ST_SHARD_B]), cspec, mesh)
+                  for x in (a, b))
+    sh_mul = sn.make_fns(mesh, batch_ndim=1)[2]
+    torch.cuda.synchronize()
+    S.reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "mul": lambda: e.mul(a, b),
+        "mul_cached": lambda: e.mul_cached(a, e.precompute(b)),
+        "square": lambda: e.square(a),
+        "mul_t": lambda: tm.mul_t(at, bt),
+        "commit": lambda: tm.matvec_t(A, sv),
+        "commit blocked": lambda: tm.matvec_t(A, sv, block=ST_COMMIT[3]),
+        "step": lambda: fs.step(c, *ins),
+        "sumcheck": lambda: sumcheck_prove_many(tables, chal,
+                                                field="stark_prime"),
+        "four-step": lambda: sh_mul(sh_a, sh_b),
+    }
+    results, per_run = {}, {}
+    for name, fn in runs.items():
+        before = dict(S.LAUNCHES)
+        results[name] = fn()
+        per_run[name] = {k: v - before[k] for k, v in S.LAUNCHES.items()}
+    torch.cuda.synchronize()
+    launches = dict(S.LAUNCHES)
+    phase("stark path", f"mul, mul_cached, square at deg 2^{ST_LOG} "
+          f"B={ST_B}; mul_t B={ST_MODEL_B}; the commit n={ST_COMMIT[0]} "
+          f"m={ST_COMMIT[1]} W={ST_COMMIT[2]}; the step W={W}; the sumcheck "
+          f"nv={ST_NV}; the four-step B={ST_SHARD_B} on {ST_SHARDS} shards "
+          f"in {time.perf_counter() - t0:.2f} s; launches "
+          f"{json.dumps(per_run)}")
+    phase("stark launches", json.dumps(launches))
+    for name in STARK_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the stark "
+                                 "path")
+    if per_run["mul"] != {"stark_mul": 4, "stark_add": 0, "stark_sub": 0,
+                          "limb_fold": 6}:
+        raise AssertionError(f"MxuLimbNTT.mul launched {per_run['mul']}, "
+                             "expected 6 folds and 4 products")
+
+    # -- 46. the multiply against the radix engine and Python ints ---------
+    t0 = time.perf_counter()
+    ctx = NTTContext(F, e.N, device=dev)
+    want = {"mul": ctx.mul(a, b), "square": ctx.mul(a, a)}
+    want["mul_cached"] = want["mul"]
+    for name, w in want.items():
+        got = results[name]
+        if got.shape != (ST_B, e.N, 8) or got.dtype != torch.int32:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+        if not torch.equal(got, w):
+            raise AssertionError(f"stark {name}: differs from the radix "
+                                 "NTTContext on the card")
+    if not bool(F.geq(F.canon_const(-1), results["mul"]).all()):
+        raise AssertionError("stark mul: non-canonical output")
+    for r in (0, ST_B - 1):
+        ai = [int(v) for v in pr.decode(a[r])]
+        bi = [int(v) for v in pr.decode(b[r])]
+        if [int(v) for v in pr.decode(results["mul"][r])] != \
+                py_negacyclic(ai, bi, q):
+            raise AssertionError(f"stark mul row {r}: differs from the "
+                                 "Python-int negacyclic product")
+    four = sn.from_matrix(sn.gather(results["four-step"], cspec, dev))
+    if not torch.equal(four, results["mul"][:ST_SHARD_B]):
+        raise AssertionError("stark four-step: the sharded mul differs from "
+                             "mxu_ctx().mul")
+    phase("stark multiply", f"mul, mul_cached and square at B={ST_B} "
+          f"bit-equal to NTTContext on the card over the whole batch; rows "
+          f"0 and {ST_B - 1} equal the Python-int negacyclic product; the "
+          f"four-step on {ST_SHARDS} shards of the card (plain block-"
+          f"transpose exchange) equals mxu_ctx().mul on {ST_SHARD_B} rows "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 47. the model multiply and the commit -----------------------------
+    t0 = time.perf_counter()
+    got = results["mul_t"]
+    ai, bi, gi = (ring.decode(v[:, :2].transpose(0, 1))
+                  for v in (at, bt, got))
+    for r in range(2):
+        if [int(v) for v in gi[r]] != ring.spec.coeff_mul(
+                [int(v) for v in ai[r]], [int(v) for v in bi[r]]):
+            raise AssertionError(f"stark mul_t row {r}: differs from the "
+                                 "integer spec")
+    full, blk = results["commit"], results["commit blocked"]
+    if full.shape != (ring.D, ST_COMMIT[2], ST_COMMIT[0], 8) \
+            or not torch.equal(full, blk):
+        raise AssertionError("stark commit: blocked and unblocked differ")
+    Ai, si = ring.decode(A[:, 0].transpose(0, 1)), ring.decode(
+        sv[:, 0].transpose(0, 1))
+    acc = [sum(int(Ai[j, d]) * int(si[j, d])
+               for j in range(ST_COMMIT[1])) % q for d in range(ring.D)]
+    if ring.decode(full[:, 0, 0]).tolist() != acc:
+        raise AssertionError("stark commit: c[0, 0] differs from the slot "
+                             "products summed in Python ints")
+    phase("stark model", f"mul_t B={ST_MODEL_B} equals the integer spec on "
+          f"2 rows (bench.py:640-647's gate); the commit blocked "
+          f"(block={ST_COMMIT[3]}) equals unblocked and c[0, 0] the slot "
+          f"products summed in Python ints "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 48. the step and the sumcheck against independent paths ----------
+    t0 = time.perf_counter()
+    summary = hold_step(fs, c, ins, results["step"], (0, W - 1))
+    msgs, finals = results["sumcheck"]
+    if msgs.shape != (ST_NV, 3, 8):
+        raise AssertionError(f"stark sumcheck: messages {tuple(msgs.shape)}")
+    py_check_proof(F, tables, chal, msgs, finals, "stark sumcheck")
+    phase("stark step", f"{summary}; the sumcheck at nv={ST_NV} satisfies "
+          f"its relations in Python ints ({time.perf_counter() - t0:.1f} s)")
+
+    # -- 49. timings -------------------------------------------------------
+    fa, fb = e.forward(a), e.forward(b)
+    Vl = folds["level"]
+    rows = fa.numel() // 8
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits", "-i", str(dev.index or 0)], capture_output=True,
+        text=True, check=True).stdout.split()[0])
+    issue = (torch.cuda.get_device_properties(dev).multi_processor_count
+             * ISSUE_PER_SM_CLOCK * mhz * 1e6)
+    timed = {  # record -> (kernel, twin, inputs, threads, SASS pattern)
+        "stark_mul": (lambda: S.stark_mul(fa, fb),
+                      lambda: S.stark_mul_ref(fa, fb), (fa, fb), rows,
+                      r"stark_binary_kernelILi0E"),
+        "stark_add": (lambda: S.stark_add(fa, fb),
+                      lambda: S.stark_add_ref(fa, fb), (fa, fb), rows,
+                      r"stark_binary_kernelILi1E"),
+        "stark_sub": (lambda: S.stark_sub(fa, fb),
+                      lambda: S.stark_sub_ref(fa, fb), (fa, fb), rows,
+                      r"stark_binary_kernelILi2E"),
+        "limb_fold": (lambda: S.limb_fold(Vl, e.N1, signed=False,
+                                          transpose_out=True),
+                      lambda: S.limb_fold_ref(Vl, e.N1, signed=False,
+                                              transpose_out=True),
+                      (Vl,), Vl.shape[1] * e.N1, r"limb_fold_kernelILb0E"),
+    }
+    times, ops_ms = {}, {}
+    for name, (kern, twin, inputs, threads, pat) in timed.items():
+        moved = nbytes(inputs, kern())
+        ms = time_ms(kern, inner=10)
+        plain_ms = time_ms(twin)
+        per = sass_instructions(pat)
+        ops_ms[name] = threads * per / issue * 1e3
+        times[name] = (ms, plain_ms, moved)
+        floor = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms[name])
+        phase("stark time", f"{name} {shape(*inputs)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; {moved} B, {threads} threads x "
+              f"{per} SASS instructions ({ops_ms[name]:.4f} ms at the "
+              f"issue rate), bound {floor:.4f} ms ({floor / ms:.0%} of it)"
+              f"  ({smi})")
+    fbc = e.precompute(b)
+    mul_ms = {name: time_ms(fn) for name, fn in (
+        ("mul", lambda: e.mul(a, b)),
+        ("mul_cached", lambda: e.mul_cached(a, fbc)),
+        ("square", lambda: e.square(a)))}
+    xl = x2.transpose(0, 1)
+    gemm_ms = time_ms(lambda: e.mat1.dot(xl, e.c["w1"], e.c["w1_corr"]))
+    ctx_ms = time_ms(lambda: ctx.mul(a, b))
+    phase("stark time", f"MxuLimbNTT deg 2^{ST_LOG} B={ST_B}: "
+          + ", ".join(f"{k} {v:.4f} ms = {ST_B / v * 1e3:.1f} mults/s"
+                      for k, v in mul_ms.items())
+          + f"; one level's digit GEMM (planes, _int_mm, offsets) "
+          f"{gemm_ms:.4f} ms, its S3 fold {times['limb_fold'][0]:.4f} ms; "
+          f"NTTContext mul {ctx_ms:.4f} ms = {ST_B / ctx_ms * 1e3:.1f} "
+          f"mults/s  ({smi})")
+    mt_ms = time_ms(lambda: tm.mul_t(at, bt))
+    cm_ms = time_ms(lambda: tm.matvec_t(A, sv))
+    phase("stark time", f"TModelMul.mul_t B={ST_MODEL_B}: {mt_ms:.4f} ms = "
+          f"{ST_MODEL_B / mt_ms * 1e3:.1f} mults/s; commit matvec_t "
+          f"n={ST_COMMIT[0]} m={ST_COMMIT[1]} W={ST_COMMIT[2]}: "
+          f"{cm_ms:.4f} ms = {ST_COMMIT[2] / cm_ms * 1e3:.1f} commits/s  "
+          f"({smi})")
+    step_ms = time_ms(lambda: fs.step(c, *ins))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    fs.step(c, *ins)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    stages = step_stages(fs, c, ins)
+    phase("stark time", f"FoldingStep W={W} (n={n_rows}, L={L}, base "
+          f"{base}, commit block {fs.commit_block(W)} of M={fs.M}): "
+          f"{step_ms:.3f} ms = {W / step_ms * 1e3:.1f} witnesses/s, "
+          f"{peak / 2**30:.2f} GiB above its inputs; stages alone: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items())
+          + f"  ({smi})")
+    sc_ms = time_ms(lambda: sumcheck_prove_many(tables, chal,
+                                                field="stark_prime"))
+    phase("stark time", f"sumcheck nv={ST_NV} k=2 on the generic prover: "
+          f"{sc_ms:.3f} ms = {1e3 / sc_ms:.2f} proofs/s  ({smi})")
+
+    # -- 50. where the device time of one multiply goes --------------------
+    busy_ms, wall_ms, top = device_profile(lambda: e.mul(a, b), 3, dev, 6)
+    phase("stark profile", f"MxuLimbNTT.mul B={ST_B}: device busy "
+          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
+    busy_ms, wall_ms, top = device_profile(lambda: fs.step(c, *ins), 2, dev,
+                                           6)
+    phase("stark profile", f"FoldingStep W={W}: device busy {busy_ms:.3f} "
+          f"ms of {wall_ms:.3f} ms wall, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}; per step: {top}  ({smi})")
+
+    return [record(name, ST_SOURCE, ref, launches[name], max_err[name],
+                   *times[name], ops_ms=ops_ms[name])
+            for name, ref in STARK_KERNELS.items()]
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -3063,9 +3478,10 @@ def card_info() -> str:
 
 
 def main() -> None:
+    started = time.perf_counter()
     if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE,
                                                NTT_SOURCE, MXU_SOURCE,
-                                               EXCHANGE_SOURCE)):
+                                               EXCHANGE_SOURCE, ST_SOURCE)):
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")
@@ -3264,6 +3680,9 @@ def main() -> None:
     records += slice_sharded(dev, smi, rng)
     records += slice_models(dev, smi, rng)
     records += slice_protocol(dev, smi, rng)
+    records += slice_stark(dev, smi, rng)
+    phase("done", f"every phase passed in {time.perf_counter() - started:.1f} "
+          "s, build included")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,11 @@
 
 The JAX package ``stark_rings_tpu`` is the reference; this package
 mirrors its module layout and imports ``torch`` and numpy, never JAX.
-So far it holds the Goldilocks, BabyBear and frog fields, the three
-cyclotomic ring models over them (``RingModel``, ``Rq``, the
+It holds the Goldilocks, BabyBear, frog and 8-limb stark prime fields,
+the four cyclotomic ring models over them (``RingModel``, ``Rq``, the
 batch-trailing multiply ``TModelMul``), the power-of-two negacyclic
-rings (deg 2^16 Goldilocks and deg 2^12 BabyBear on the main paths;
-frog at deg 2 and 4), the Goldilocks MLE and
+rings (deg 2^16 Goldilocks, deg 2^12 BabyBear and stark_prime on the
+main paths; frog at deg 2 and 4), the Goldilocks MLE and
 sumcheck path, sumcheck over BabyBear and frog and over batched
 claims, the single-device Goldilocks NTT engines (radix-2 and the
 deg-2^14 digit-product four-step), the sharded four-step NTT with its
@@ -17,7 +17,8 @@ decomposition, the dense ring ``Matrix`` and the folding protocol
     spec/         the integer spec of the four ring models (a copy of
                   the reference's pure-Python spec/)
     fields/       Goldilocks (int64 u64 bits), BabyBear (int32 u32
-                  Montgomery), frog (int64 u64 Montgomery), get_field
+                  Montgomery), frog (int64 u64 Montgomery), stark_prime
+                  (int32 [..., 8] u32 Montgomery limbs), get_field
     ops/stages.py, ops/dense_linear.py  the models' CRT as probed stage
                   tables and dense matrices (the oracles)
     ops/mxu_dense.py the models' CRT as one digit GEMM and a fold (K3,
@@ -26,6 +27,9 @@ decomposition, the dense ring ``Matrix`` and the folding protocol
     ops/ntt.py    the radix-2/4 NTTContext, find_primitive_root
     ops/mxu2.py   digit tables, digit GEMM, plain Mxu2NTT
     ops/mxu_bb.py BabyBear digit tables and the plain MxuBBNTT
+    ops/stark.py  the stark prime's kernels S1 (CIOS product), S2
+                  (add, sub), S3 (limb fold): wrappers + plain twins
+    ops/mxu_limb.py LimbPrescaledMat and the four-step MxuLimbNTT
     ops/fold.py   fold kernels K1-K3, the pointwise and chain kernels
                   (wrappers + plain twins), the fused engine Mxu2FusedNTT
                   and the evaluation-domain engine Mxu2KernelNTT
@@ -68,7 +72,7 @@ CUDA card unless the caller passes ``device="cpu"``.
 
 from .device import (from_jax_storage, get_device, to_numpy_storage,
                      to_numpy_u32, to_numpy_u64, to_torch, to_torch_u32)
-from .fields import BABYBEAR, FROG, GOLDILOCKS, get_field
+from .fields import BABYBEAR, FROG, GOLDILOCKS, STARK, get_field
 from .ops.fold import Mxu2FusedNTT, Mxu2KernelNTT
 from .ops.fold_bb import MxuBBFusedNTT
 from .ops.goldilocks_ntt import GoldilocksKernelNTT
@@ -76,6 +80,7 @@ from .ops.mxu import MatmulNTT, MxuModMat
 from .ops.mxu_fused import MxuModMatFused
 from .ops.mxu2 import Mxu2NTT, PrescaledMat, from_jax_consts
 from .ops.mxu_bb import MxuBBNTT
+from .ops.mxu_limb import LimbPrescaledMat, MxuLimbNTT
 from .ops.model_mul import TModelMul
 from .ops.ntt import NTTContext, get_ntt
 from .parallel import Mesh, ShardedNTT, make_mesh
@@ -84,9 +89,10 @@ from .rings.power import PowerRing, get_power_ring
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
            "to_numpy_u32", "from_jax_storage", "to_numpy_storage",
-           "GOLDILOCKS", "BABYBEAR", "FROG", "get_field",
+           "GOLDILOCKS", "BABYBEAR", "FROG", "STARK", "get_field",
            "Mxu2NTT", "Mxu2FusedNTT", "Mxu2KernelNTT", "MxuBBNTT",
            "MxuBBFusedNTT", "PrescaledMat", "from_jax_consts",
+           "LimbPrescaledMat", "MxuLimbNTT",
            "GoldilocksKernelNTT", "MatmulNTT", "MxuModMat", "MxuModMatFused",
            "NTTContext", "get_ntt", "PowerRing", "get_power_ring",
            "Mesh", "make_mesh", "ShardedNTT", "RingModel", "Rq", "get_ring",

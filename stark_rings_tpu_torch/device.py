@@ -23,9 +23,15 @@ Storage, per field:
 * **frog** (q = 15912092521325583641): a ``torch.int64`` tensor holding
   the u64 Montgomery form (R = 2^64), the reference's ``uint64`` storage;
   it crosses over as Goldilocks does.
+* **stark_prime** (q = 2^251 + 17 * 2^192 + 1): a ``torch.int32`` tensor
+  ``[..., 8]`` holding the eight little-endian u32 limbs of the
+  Montgomery form (R = 2^256), the reference's ``uint32 [..., 8]``; it
+  crosses over as BabyBear does.  Widen a limb with ``& 0xFFFFFFFF``
+  after the cast to ``int64``: a plain cast sign-extends limbs at or
+  above 2^31.
 
 :func:`from_jax_storage` maps the reference's numpy storage of any of
-the three fields to the port's storage tensor, and
+the four fields to the port's storage tensor, and
 :func:`to_numpy_storage` maps it back.
 """
 
@@ -85,8 +91,8 @@ def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
 
 def from_jax_storage(field, arr, device="cuda") -> torch.Tensor:
     """The reference's numpy storage of ``field`` (``uint64`` for
-    Goldilocks and frog, ``uint32`` for BabyBear) -> the port's storage
-    tensor on ``device``, the same bits."""
+    Goldilocks and frog, ``uint32`` for BabyBear and the stark prime's
+    limbs) -> the port's storage tensor on ``device``, the same bits."""
     if field.dtype == torch.int32:
         return to_torch_u32(arr, device)
     if field.dtype == torch.int64 and not field.limbed:

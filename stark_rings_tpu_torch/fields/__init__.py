@@ -1,8 +1,8 @@
-"""Prime-field layer of the PyTorch port: Goldilocks, BabyBear and
-frog."""
+"""Prime-field layer of the PyTorch port: Goldilocks, BabyBear, frog and
+the 8-limb stark prime."""
 
-from .field import (BABYBEAR, FIELDS, FROG, GOLDILOCKS, BabyBear, Frog,
-                    Goldilocks, get_field)
+from .field import (BABYBEAR, FIELDS, FROG, GOLDILOCKS, STARK, BabyBear,
+                    Frog, Goldilocks, Stark, get_field)
 
 __all__ = ["GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear", "FROG",
-           "Frog", "FIELDS", "get_field"]
+           "Frog", "STARK", "Stark", "FIELDS", "get_field"]

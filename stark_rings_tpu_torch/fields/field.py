@@ -1,9 +1,9 @@
-"""Prime-field arithmetic on integer tensors: Goldilocks, BabyBear and
-frog.
+"""Prime-field arithmetic on integer tensors: Goldilocks, BabyBear, frog
+and the 252-bit stark prime.
 
 Counterpart of ``stark_rings_tpu/fields/field.py`` (``_Goldilocks``,
-``_BabyBear``, ``_Frog`` and ``_mul64_128``); see :mod:`..device` for
-the storage.
+``_BabyBear``, ``_Frog``, ``_Stark`` and ``_mul64_128``); see
+:mod:`..device` for the storage.
 
 * **Goldilocks** ``q = 2^64 - 2^32 + 1``: canonical values held as the
   u64 bit patterns of ``int64`` tensors, with the classic 128-bit
@@ -21,6 +21,12 @@ the storage.
   u64 bit patterns, as Goldilocks; the REDC takes the high words of
   a*b and m*q and the carry of their low words, exactly as the
   reference's ``_mont_mul_raw``.
+* **stark_prime** ``q = 2^251 + 17 * 2^192 + 1``: Montgomery form with
+  R = 2^256 as eight little-endian u32 limbs, ``int32 [..., 8]``
+  (``limb_shape = (8,)``, coefficient axis -2).  The CIOS product and
+  add / sub are the CUDA kernels S1 and S2 of :mod:`..ops.stark` on the
+  card and their plain twins (the reference's limb loops on int64 words)
+  on the CPU.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ import torch
 
 from ..device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
                       to_torch_u32)
+from ..ops import stark as _ks
 
 __all__ = ["Goldilocks", "GOLDILOCKS", "BabyBear", "BABYBEAR", "Frog",
-           "FROG", "FIELDS", "get_field", "i64", "shr", "u64_lt"]
+           "FROG", "Stark", "STARK", "FIELDS", "get_field", "i64", "shr",
+           "u64_lt"]
 
 MASK32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
@@ -106,7 +114,7 @@ class _PrimeField:
         axis = axis % x.dim()
         if x.shape[axis] == 0:
             shape = x.shape[:axis] + x.shape[axis + 1:]
-            return self.zeros(shape, x.device)
+            return torch.zeros(shape, dtype=x.dtype, device=x.device)
         rem = None
         while x.shape[axis] > 1:
             n = x.shape[axis]
@@ -128,7 +136,7 @@ class _PrimeField:
     def pow_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
         """x**e for a static exponent (square and multiply)."""
         if e == 0:
-            return torch.full_like(x, self._scalar(1))
+            return self._one_like(x)
         acc = None
         base = x
         while e:
@@ -160,8 +168,11 @@ class _PrimeField:
                 acc = table[i] if acc is None else self.mul(acc, table[i])
             e >>= 1
             i += 1
-        return acc if acc is not None else torch.full_like(
-            table[0], self._scalar(1))
+        return acc if acc is not None else self._one_like(table[0])
+
+    def _one_like(self, x: torch.Tensor) -> torch.Tensor:
+        """The field's one in the storage shape of ``x``."""
+        return torch.full_like(x, self._scalar(1))
 
     # -- host draws and bytes -------------------------------------------------
     def rand_ints(self, shape, rng: np.random.Generator):
@@ -234,11 +245,19 @@ class _PrimeField:
         S = getattr(self, "R", 1) % self.q
         acc = None
         for j, d in enumerate(digits):
-            c = torch.tensor(self._raw((1 << (32 * j)) * S % self.q),
-                             dtype=self.dtype, device=d.device)
-            term = self.mul(d.to(self.dtype), c)
+            c = self._raw_tensor((1 << (32 * j)) * S % self.q, d.device)
+            term = self.mul(self._lift32(d), c)
             acc = term if acc is None else self.add(acc, term)
         return acc
+
+    def _lift32(self, d: torch.Tensor) -> torch.Tensor:
+        """int64 words below 2^32 -> storage holding that raw integer."""
+        return d.to(self.dtype)
+
+    def _raw_tensor(self, v: int, device) -> torch.Tensor:
+        """The storage whose bits are the canonical value ``v`` (not
+        Montgomery form), as a tensor on ``device``."""
+        return torch.tensor(self._raw(v), dtype=self.dtype, device=device)
 
 
 class _U64Field(_PrimeField):
@@ -505,17 +524,205 @@ class Frog(_U64Field):
         return self._mont_mul_raw(u, self._R2)
 
 
+class Stark(_PrimeField):
+    """q = 2^251 + 17 * 2^192 + 1 in Montgomery form (R = 2^256): eight
+    little-endian u32 limbs on a trailing axis of ``int32`` storage
+    (the reference's ``uint32 [..., 8]``, bit for bit).
+
+    ``mul``, ``add`` and ``sub`` are the kernels S1 and S2 of
+    ``ops/stark.py`` on CUDA tensors and their plain twins on CPU
+    tensors; everything else is built on them or is host code."""
+
+    name = "stark_prime"
+    q = 2**251 + 17 * 2**192 + 1
+    bits = 252
+    dtype = torch.int32
+    N_LIMBS = 8
+    limb_shape = (8,)
+    limbed = True
+    coeff_axis = -2
+
+    R = 1 << 256
+    _R1 = R % q                      # Montgomery form of 1
+    _R2 = R * R % q                  # mul(u, R2) = Montgomery form of u
+
+    # -- host conversions ---------------------------------------------------
+    @staticmethod
+    def limbs_np(vals) -> np.ndarray:
+        """Python ints below 2^256 -> numpy uint32 [n, 8] little-endian
+        limbs."""
+        data = b"".join(int(v).to_bytes(32, "little") for v in vals)
+        return np.frombuffer(data, dtype="<u4").reshape(-1, 8).copy()
+
+    @staticmethod
+    def _codec(arr, device):
+        return to_torch_u32(arr, device)
+
+    def storage_np(self, ints) -> np.ndarray:
+        """python ints / object array -> numpy uint32 [..., 8] Montgomery
+        limbs, byte-equal to the reference's ``encode``."""
+        arr = np.asarray(ints, dtype=object)
+        q, R1 = self.q, self._R1
+        flat = self.limbs_np(int(v) % q * R1 % q for v in arr.reshape(-1))
+        return flat.reshape(arr.shape + (8,))
+
+    def const(self, v: int, device="cuda") -> torch.Tensor:
+        """One element in storage form, a [8] tensor."""
+        return self.encode(np.array(int(v), dtype=object), device)
+
+    def _raw_tensor(self, v: int, device) -> torch.Tensor:
+        return to_torch_u32(self.limbs_np([v % self.q])[0], device)
+
+    def zeros(self, shape=(), device="cuda") -> torch.Tensor:
+        return torch.zeros(tuple(shape) + (8,), dtype=self.dtype,
+                           device=get_device(device))
+
+    def ones(self, shape=(), device="cuda") -> torch.Tensor:
+        return self.const(1, device).expand(tuple(shape) + (8,)).contiguous()
+
+    def _one_like(self, x: torch.Tensor) -> torch.Tensor:
+        return self.const(1, x.device).expand(x.shape).contiguous()
+
+    def canon_const(self, v: int) -> torch.Tensor:
+        """The canonical limbs of ``v mod q`` (NOT Montgomery form), a CPU
+        [8] tensor; :meth:`geq` moves it to the other operand's device."""
+        return self._raw_tensor(v, "cpu")
+
+    def decode(self, x: torch.Tensor) -> np.ndarray:
+        """storage -> numpy object array of canonical python ints."""
+        host = to_numpy_u32(self.canon(x))
+        rows = host.reshape(-1, 8).astype("<u4")
+        out = np.empty(rows.shape[0], dtype=object)
+        out[:] = [int.from_bytes(r.tobytes(), "little") for r in rows]
+        return out.reshape(host.shape[:-1])
+
+    def _draw(self, n: int, rng: np.random.Generator) -> np.ndarray:
+        """n uniform canonical values as uint32 [n, 8] limbs: 252-bit
+        draws from ``rng``, those >= q drawn again."""
+        q_limbs = self.limbs_np([self.q])[0]
+        out = np.empty((0, 8), dtype=np.uint32)
+        while out.shape[0] < n:
+            m = 2 * (n - out.shape[0]) + 8
+            d = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint64)
+            d = d.astype(np.uint32)
+            d[:, 7] &= np.uint32((1 << (self.bits - 224)) - 1)
+            lt = np.zeros(m, dtype=bool)
+            decided = np.zeros(m, dtype=bool)
+            for j in reversed(range(8)):
+                lt |= ~decided & (d[:, j] < q_limbs[j])
+                decided |= d[:, j] != q_limbs[j]
+            out = np.concatenate([out, d[lt]])
+        return out[:n]
+
+    def rand_ints(self, shape, rng: np.random.Generator):
+        """Uniform canonical python ints drawn from the numpy Generator:
+        an object array of ``shape`` (a python int for ``()``)."""
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        rows = self._draw(n, rng)
+        out = np.empty(n, dtype=object)
+        out[:] = [int.from_bytes(r.tobytes(), "little") for r in rows]
+        return out.reshape(shape) if shape else out[0]
+
+    def rand(self, shape, rng: np.random.Generator,
+             device="cuda") -> torch.Tensor:
+        """Uniform elements: canonical draws in [0, q) taken as storage
+        (Montgomery form is a bijection of [0, q))."""
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        return to_torch_u32(self._draw(n, rng).reshape(tuple(shape) + (8,)),
+                            device)
+
+    def from_uint(self, x, device="cuda") -> torch.Tensor:
+        """Unsigned ints below 2^32 (numpy, or an integer tensor) ->
+        storage of x mod q: the raw limbs times R^2 mod q."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x, dtype=np.int64)).to(
+                get_device(device))
+        return self.mul(self._lift32(x.to(torch.int64) & MASK32),
+                        self._raw_tensor(self._R2, x.device))
+
+    # -- limb axis ------------------------------------------------------------
+    def take_coeff(self, x: torch.Tensor, idx) -> torch.Tensor:
+        """Gather along the coefficient axis, one in from the limbs."""
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.as_tensor(np.asarray(idx, dtype=np.int64),
+                                  device=x.device)
+        return x[..., idx, :]
+
+    @staticmethod
+    def select(cond, a, b) -> torch.Tensor:
+        """where(cond, a, b) with ``cond`` broadcast over the limbs."""
+        return torch.where(cond[..., None], a, b)
+
+    @staticmethod
+    def is_zero(x) -> torch.Tensor:
+        return (x == 0).all(dim=-1)
+
+    def geq(self, a, b) -> torch.Tensor:
+        """a >= b on canonical limbs, lexicographic from the top limb."""
+        if a.device != b.device:
+            a, b = (a.to(b.device), b) if a.dim() < b.dim() else \
+                (a, b.to(a.device))
+        a64 = a.to(torch.int64) & MASK32
+        b64 = b.to(torch.int64) & MASK32
+        ge = decided = None
+        for j in reversed(range(8)):
+            gt, lt = a64[..., j] > b64[..., j], a64[..., j] < b64[..., j]
+            if ge is None:
+                ge, decided = gt, gt | lt
+            else:
+                ge = ge | (~decided & gt)
+                decided = decided | gt | lt
+        return ge | ~decided
+
+    # -- widened accumulation -------------------------------------------------
+    n_words = 8
+
+    def widen(self, x: torch.Tensor) -> torch.Tensor:
+        """storage -> int64 [..., 8]: the limbs are the base-2^32 words."""
+        return x.to(torch.int64) & MASK32
+
+    def _lift32(self, d: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(d.shape + (8,), dtype=self.dtype, device=d.device)
+        out[..., 0] = _ks.i32_bits(d & MASK32)
+        return out
+
+    # -- arithmetic (kernels S1 and S2 on the card) ----------------------------
+    @staticmethod
+    def add(a, b):
+        return _ks.stark_add(a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return _ks.stark_sub(a, b)
+
+    @staticmethod
+    def mul(a, b):
+        return _ks.stark_mul(a, b)
+
+    def neg(self, a):
+        q = self._raw_tensor(self.q, a.device)
+        return self.select(self.is_zero(a), torch.zeros_like(a),
+                           self.sub(q, a))
+
+    def canon(self, x):
+        """Montgomery storage -> canonical limbs: x * 1 * 2^-256."""
+        return self.mul(x, self._raw_tensor(1, x.device))
+
+    def from_canon(self, u):
+        """Canonical limbs -> Montgomery storage."""
+        return self.mul(u, self._raw_tensor(self._R2, u.device))
+
+
 GOLDILOCKS = Goldilocks()
 BABYBEAR = BabyBear()
 FROG = Frog()
-FIELDS = {"goldilocks": GOLDILOCKS, "babybear": BABYBEAR, "frog": FROG}
+STARK = Stark()
+FIELDS = {"goldilocks": GOLDILOCKS, "babybear": BABYBEAR, "frog": FROG,
+          "stark_prime": STARK}
 
 
 def get_field(name: str):
     """The field called ``name`` (the reference's ``get_field``)."""
     if name in FIELDS:
         return FIELDS[name]
-    if name == "stark_prime":
-        raise NotImplementedError(f"field {name!r} is not ported yet "
-                                  "(ROADMAP Slice C item 9)")
     raise KeyError(f"unknown field {name!r}")

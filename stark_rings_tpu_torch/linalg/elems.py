@@ -60,13 +60,13 @@ class FieldElems:
 
 
 class RingElems(FieldElems):
-    """NTT-form ring elements: shape [..., D], slot-wise product."""
+    """NTT-form ring elements: shape [..., D(, L)], slot-wise product."""
 
     def __init__(self, ring):
         super().__init__(ring.field, ring.device)
         self.ring = ring
-        self.elem_ndim = 1
-        self.elem_shape = (ring.D,)
+        self.elem_ndim = 1 + len(ring.field.limb_shape)
+        self.elem_shape = (ring.D,) + ring.field.limb_shape
 
     def mul(self, a, b):
         return self.ring.ntt_mul(a, b)

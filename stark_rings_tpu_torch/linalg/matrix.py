@@ -120,8 +120,9 @@ class Matrix:
         f = self.e.f
         if getattr(self.e, "ring", None) is not None:
             return Matrix(self.e, gd(f, self.vals, b, k))
-        dig = decompose(f, self.vals, b, k)   # [n, m, k]
-        return Matrix(self.e, dig.reshape(self.nrows, self.ncols * k))
+        dig = decompose(f, self.vals, b, k)   # [n, m, k(, L)]
+        return Matrix(self.e, dig.reshape((self.nrows, self.ncols * k)
+                                          + f.limb_shape))
 
     def gadget_recompose(self, b: int, k: int):
         from ..decomp import gadget_recompose as gr, recompose
@@ -131,8 +132,8 @@ class Matrix:
             return Matrix(self.e, gr(f, self.vals, b, k))
         n, mk = self.nrows, self.ncols
         assert mk % k == 0
-        return Matrix(self.e, recompose(f, self.vals.reshape(n, mk // k, k),
-                                        b))
+        return Matrix(self.e, recompose(
+            f, self.vals.reshape((n, mk // k, k) + f.limb_shape), b))
 
     #: storage words of products materialized per k-block of the blocked
     #: mul_mat (2^25 words = 256 MB), the reference's budget
@@ -153,8 +154,11 @@ class Matrix:
                 f"DifferentLengths: {self.ncols} vs {other.nrows}")
         f = self.e.f
         k = self.ncols
-        elem_words = int(np.prod(self.e.elem_shape, dtype=np.int64)) \
-            * f.n_words
+        # words a product: the element's storage words, widened (a limbed
+        # field's limbs are its words already)
+        elem_words = int(np.prod(self.e.elem_shape, dtype=np.int64))
+        if not f.limbed:
+            elem_words *= f.n_words
         if block is None:
             per_slice = max(1, self.nrows * other.ncols * elem_words)
             block = max(1, min(k, self._MULMAT_BUDGET_WORDS // per_slice))

@@ -69,7 +69,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..fields.field import FIELDS
+from ..fields.field import FIELDS, STARK
 from ..ops import _build
 from .fix import as_points
 from .sumcheck import sumcheck_prove_many_with_challenges
@@ -112,8 +112,7 @@ def reset_launches() -> None:
 def _field(field: str):
     if field not in SUMCHECK_FIELDS:
         raise ValueError(f"no sumcheck kernel for field {field!r}: K7 runs "
-                         f"over {sorted(SUMCHECK_FIELDS)} (the 8-limb "
-                         "stark_prime waits for ROADMAP Slice C item 9)")
+                         f"over {sorted(SUMCHECK_FIELDS)}")
     return FIELDS[field]
 
 
@@ -270,7 +269,15 @@ def sumcheck_prove_many(tables, challenges, field: str = "goldilocks"):
     """k-ary product sumcheck prover, msb order: ``tables`` k [2^nv]
     storage tensors of ``field``, ``challenges`` nv field elements (a
     1-D storage tensor, or scalars).  Returns (msgs [nv, k+1], finals: k
-    0-d tensors)."""
+    0-d tensors).
+
+    The 8-limb stark_prime has no K7: as the reference keeps its XLA
+    prover there, this is the generic prover on [2^nv, 8] tables and
+    [nv, 8] challenges, on any device (its field ops are the kernels S1
+    and S2 on the card)."""
+    if field == STARK.name:
+        return sumcheck_prove_many_with_challenges(STARK, tables,
+                                                   challenges, order="msb")
     f = _field(field)
     name = f"sumcheck_prove_many_{field}"
     chal, card = _prepare(name, f, tables, challenges, ())

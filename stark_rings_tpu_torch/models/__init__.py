@@ -7,15 +7,12 @@
 
 The model names resolve on first access, through ``get_ring(name)`` on
 the default device, the CUDA card: building a ring at import would need
-a card.  ``MODELS`` maps each ported model's name to its ring;
-``stark_prime`` raises until its field is ported (ROADMAP queue 1 step
-3).
+a card.  ``MODELS`` maps each of the four models' names to its ring.
 """
 
 from ..rings import PowerRing, RingModel, get_power_ring, get_ring
 
 _NAMES = ("goldilocks", "babybear", "frog", "stark_prime")
-_PORTED = ("goldilocks", "babybear", "frog")
 
 __all__ = [*_NAMES, "MODELS", "RingModel", "PowerRing", "get_ring",
            "get_power_ring"]
@@ -25,5 +22,5 @@ def __getattr__(name):
     if name in _NAMES:
         return get_ring(name)
     if name == "MODELS":
-        return {n: get_ring(n) for n in _PORTED}
+        return {n: get_ring(n) for n in _NAMES}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -128,13 +128,17 @@ def kernels() -> ctypes.CDLL:
         fn = getattr(lib, f"srt_twiddle_exchange_{field}")
         fn.argtypes = [p, p, p, i32, i64, i32, i32, i32, i32, p]
         exchange.append(fn)
+    stark = [getattr(lib, f"srt_stark_{op}") for op in ("mul", "add", "sub")]
+    for fn in stark:
+        fn.argtypes = [p, p, i64, p, i64, p]
+    lib.srt_limb_fold.argtypes = [p, p, i64, i64, i32, i32, p]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_pointwise_chain,
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
                lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
                lib.srt_mle_eval, lib.srt_mle_fix, *sumcheck,
-               *exchange):
+               *exchange, *stark, lib.srt_limb_fold):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p

@@ -40,7 +40,8 @@ def probe_dense_matrix(fn: Callable[[Sequence[int]], Sequence[int]],
 
 class DenseModMat:
     """Constant [R, C] matrix over Fq applied along the coefficient axis:
-    ``x`` [..., C] storage -> [..., R] storage, on ``device``."""
+    ``x`` [..., C(, L)] storage -> [..., R(, L)] storage, on ``device``
+    (the limb axis L of stark_prime trails)."""
 
     def __init__(self, field, m_ints, device="cuda"):
         self.f = field
@@ -49,4 +50,7 @@ class DenseModMat:
         self.m = field.encode(m, get_device(device))     # storage [R, C]
 
     def __call__(self, x):
-        return self.f.sum(self.f.mul(self.m, x[..., None, :]), axis=-1)
+        f = self.f
+        if f.limbed:
+            return f.sum(f.mul(self.m, x[..., None, :, :]), axis=-2)
+        return f.sum(f.mul(self.m, x[..., None, :]), axis=-1)

@@ -14,8 +14,10 @@ Semantics equal ``ring.icrt(ring.ntt_mul(ring.crt(a), ring.crt(b)))``,
 the reference pipeline crt -> slot-wise extension product -> icrt
 (crt.rs:52-77, ntt_form.rs:159-189).  On the card each CRT and ICRT is
 one ``torch._int_mm`` and one fold kernel: K3 (``fold_end``) for
-goldilocks, K4's ``bb_fold_end`` for babybear; frog folds in torch ops.
-A ``mul_t`` is three of them.
+goldilocks, K4's ``bb_fold_end`` for babybear, S3 (``limb_fold``) for
+stark_prime; frog folds in torch ops.  A ``mul_t`` is three of them.
+stark_prime's limb axis trails ([D, *batch, 8]), and its slot product
+(E = 1) is the field's Montgomery product, kernel S1 on the card.
 """
 
 from __future__ import annotations
@@ -30,9 +32,9 @@ __all__ = ["TModelMul"]
 class TModelMul:
     """Fused model multiply in the batch-trailing layout.
 
-    ``to_t(x)``: storage ``[*batch, D]`` -> ``[D, *batch]``; ``mul_t``
-    maps two transposed coefficient-form operands to their transposed
-    coefficient-form product.  goldilocks, babybear and frog."""
+    ``to_t(x)``: storage ``[*batch, D(, L)]`` -> ``[D, *batch(, L)]``;
+    ``mul_t`` maps two transposed coefficient-form operands to their
+    transposed coefficient-form product.  All four models."""
 
     def __init__(self, ring):
         self.ring = ring
@@ -45,15 +47,14 @@ class TModelMul:
             self._fac = fac               # [E, E] storage
 
     # -- layout ----------------------------------------------------------
-    @staticmethod
-    def to_t(x):
-        """[*batch, D] -> [D, *batch] (a view; batch shape preserved)."""
-        return torch.movedim(x, -1, 0)
+    def to_t(self, x):
+        """[*batch, D(, L)] -> [D, *batch(, L)] (a view; batch shape
+        preserved)."""
+        return torch.movedim(x, self.f.coeff_axis, 0)
 
-    @staticmethod
-    def from_t(xt):
-        """[D, *batch] -> [*batch, D] (a view)."""
-        return torch.movedim(xt, 0, -1)
+    def from_t(self, xt):
+        """[D, *batch(, L)] -> [*batch, D(, L)] (a view)."""
+        return torch.movedim(xt, 0, self.f.coeff_axis)
 
     # -- stages ----------------------------------------------------------
     def consts(self) -> dict:
@@ -62,12 +63,13 @@ class TModelMul:
         return self.ring.mul_consts()
 
     def _apply_t(self, m, xt, c, key):
-        """m @ xt in the batch-trailing layout: [C, *batch] -> [R, *batch].
-        Batch axes beyond the first are flattened for the GEMM and
-        restored."""
+        """m @ xt in the batch-trailing layout: [C, *batch(, L)] ->
+        [R, *batch(, L)].  Batch axes beyond the first are flattened for
+        the GEMM and restored."""
         w, corr = (m.w, m.w_corr) if c is None else (c[key],
                                                      c.get(key + "_corr"))
-        y = apply_cols(m.core, xt.reshape(m.C, -1), w, corr)
+        y = apply_cols(m.core, xt.reshape((m.C, -1) + self.f.limb_shape), w,
+                       corr)
         return y.reshape((m.R,) + tuple(xt.shape[1:]))
 
     def crt_t(self, xt, c=None):
@@ -114,11 +116,11 @@ class TModelMul:
     def matvec_t(self, At, xt, block: int | None = None):
         """NTT-form mat-vec in the transposed layout.
 
-        ``At [D, n, m]`` (a matrix of NTT-form ring elements), ``xt
-        [D, m]`` or ``[D, W, m]`` (batched vectors) -> ``[D, n]`` /
-        ``[D, W, n]``: c[i] = sum_j A[i, j] * x[j] (the reference's
-        checked_mul_vec over RqNTT, matrix.rs:148-188).  The contraction
-        axis is placed major.
+        ``At [D, n, m(, L)]`` (a matrix of NTT-form ring elements), ``xt
+        [D, m(, L)]`` or ``[D, W, m(, L)]`` (batched vectors) -> ``[D, n]``
+        / ``[D, W, n]`` (``(, L)``: stark_prime's limbs): c[i] = sum_j
+        A[i, j] * x[j] (the reference's checked_mul_vec over RqNTT,
+        matrix.rs:148-188).  The contraction axis is placed major.
 
         ``block``: contraction-blocked exact accumulation; only
         [D, block, W, n] slot products are live at a time, each block is
@@ -126,11 +128,11 @@ class TModelMul:
         words below 2^32, far fewer than 2^32 addends), and one fold mod
         q ends it.  Bit-equal to the unblocked path."""
         f = self.f
-        if xt.dim() == 2:
+        if xt.dim() == 2 + len(f.limb_shape):
             return self.matvec_t(At, xt[:, None], block=block)[:, 0]
-        D, n, m = At.shape
-        Am = At.permute(0, 2, 1)                      # [D, m, n]
-        xm = xt.permute(0, 2, 1)                      # [D, m, W]
+        m = At.shape[2]
+        Am = At.transpose(1, 2)                       # [D, m, n(, L)]
+        xm = xt.transpose(1, 2)                       # [D, m, W(, L)]
         if block is None or block >= m:
             prod = self.ntt_mul_bt(Am[:, :, None, :],        # [D, m, 1, n]
                                    xm[:, :, :, None])        # [D, m, W, 1]

@@ -13,13 +13,16 @@ bucket fold of each output.  Per field:
   the fold is K4's ``bb_fold_end`` kernel (``ops/fold_bb.py``);
 * frog: Montgomery u64 storage, :class:`Mont64PrescaledMat` (here): the
   weights carry 2^64 and the fold is one 64-bit REDC in torch ops, as
-  the reference folds it in XLA, outside any Pallas kernel.
+  the reference folds it in XLA, outside any Pallas kernel;
+* stark_prime: Montgomery u32 limbs [..., 8],
+  :class:`~.mxu_limb.LimbPrescaledMat`; the fold is the S3 kernel
+  (``ops/stark.py`` ``limb_fold``).
 
 The kernel wrappers run their plain twins on CPU tensors, so on the CPU
 the three folds are plain torch.  This is what makes the model CRT/ICRT
 maps (goldilocks/ntt.rs:68-127, babybear/ntt.rs:143-317,
-frog_ring/ntt.rs:108-191, each composed into one D x D matrix) one GEMM
-and one fold.  stark_prime's limbed matrix waits for its field.
+frog_ring/ntt.rs:108-191, stark_prime/ntt.rs:121-234, each composed
+into one D x D matrix) one GEMM and one fold.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .fold_bb import bb_fold_end
 from .mxu2 import (B_BITS, K_BUCKETS, P_PLANES, PrescaledMat, _round8,
                    digit_table)
 from .mxu_bb import BBPrescaledMat
+from .mxu_limb import LimbPrescaledMat
 
 __all__ = ["prescaled_dense", "Mont64PrescaledMat", "apply_cols",
            "fold_buckets"]
@@ -105,7 +109,7 @@ def fold_buckets(core, V: torch.Tensor) -> torch.Tensor:
     """``core``'s bucket fold of V int32 [K*R, cols] -> storage [R, cols]:
     K3's ``fold_end`` for Goldilocks and K4's ``bb_fold_end`` for BabyBear
     (their kernels on the card, their twins on the CPU), frog's REDC in
-    torch ops."""
+    torch ops, stark_prime's S3 ``limb_fold`` -> limbs [R, cols, 8]."""
     if core.F is GOLDILOCKS:
         return fold_end(V, core.R, signed=not core.unsigned)
     if core.F is BABYBEAR:
@@ -121,7 +125,10 @@ def apply_cols(core, x: torch.Tensor, w: torch.Tensor,
 
     The columns are zero-padded to a multiple of 8 (the shapes CUDA's
     ``_int_mm`` takes), so the buckets the fold reads are one contiguous
-    tensor; the padded columns are dropped after the fold."""
+    tensor; the padded columns are dropped after the fold.  A limbed
+    core takes [C, cols, 8] -> [R, cols, 8]."""
+    if core.F.limbed:
+        return core.apply(x, w, w_corr)
     cols = x.shape[1]
     pad = _round8(cols) - cols
     if pad:
@@ -131,8 +138,9 @@ def apply_cols(core, x: torch.Tensor, w: torch.Tensor,
 
 
 class _Wrap2D:
-    """[..., C] <-> [C, B] plumbing around a prescaled core, with the
-    core's digit table on the device (``w``, ``w_corr``)."""
+    """[..., C] <-> [C, B] plumbing around a prescaled core ([..., C, 8]
+    <-> [C, B, 8] for stark_prime's limbs), with the core's digit table
+    on the device (``w``, ``w_corr``)."""
 
     def __init__(self, core, device):
         self.core = core
@@ -145,19 +153,20 @@ class _Wrap2D:
         own by default."""
         if w is None:
             w, w_corr = self.w, self.w_corr
+        if self.core.F.limbed:      # [..., C, 8] -> [..., R, 8]
+            return self.core(x, w, w_corr)
         lead = x.shape[:-1]
         y = apply_cols(self.core, x.reshape(-1, self.C).t(), w, w_corr)
         return y.t().reshape(lead + (self.R,))
 
 
 _CORES = {"goldilocks": PrescaledMat, "babybear": BBPrescaledMat,
-          "frog": Mont64PrescaledMat}
+          "frog": Mont64PrescaledMat, "stark_prime": LimbPrescaledMat}
 
 
 def prescaled_dense(field, m_ints, device="cuda") -> _Wrap2D:
     """The digit-GEMM implementation of ``x -> M @ x mod q`` for this
     field, its tables on ``device``."""
     if field.name not in _CORES:
-        raise NotImplementedError(f"no prescaled matrix for {field.name!r} "
-                                  "yet (ROADMAP queue 1 step 3)")
+        raise KeyError(f"no prescaled matrix for field {field.name!r}")
     return _Wrap2D(_CORES[field.name](m_ints), get_device(device))

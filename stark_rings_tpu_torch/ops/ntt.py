@@ -1,5 +1,6 @@
-"""Power-of-two (nega)cyclic radix-2/4 NTT for any degree and either
-ported field (counterpart of ``stark_rings_tpu/ops/ntt.py``).
+"""Power-of-two (nega)cyclic radix-2/4 NTT for any degree and any ported
+field (counterpart of ``stark_rings_tpu/ops/ntt.py``); the 8-limb
+stark_prime's limb axis trails the coefficient axis.
 
 The recursion X^{2t} - z^2 = (X^t - z)(X^t + z) runs as log2(N) radix-2
 levels, two at a time (radix 4), each one reshape and a few broadcast
@@ -16,6 +17,7 @@ oracle engine of the digit-GEMM multipliers.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import torch
@@ -26,18 +28,66 @@ from ..fields import get_field
 __all__ = ["NTTContext", "get_ntt", "find_primitive_root"]
 
 
+def _is_prime(n: int) -> bool:
+    """Miller-Rabin on the first twelve prime bases (exact below 3.3e24,
+    far past the cofactors of q - 1 this module factors)."""
+    if n < 2:
+        return False
+    bases = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)
+    if n in bases:
+        return True
+    if any(n % p == 0 for p in bases):
+        return False
+    d, r = n - 1, 0
+    while d % 2 == 0:
+        d, r = d // 2, r + 1
+    for a in bases:
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def _split(n: int) -> int:
+    """A nontrivial factor of the odd composite n (Pollard's rho)."""
+    c = 1
+    while True:
+        x = y = 2
+        d = 1
+        while d == 1:
+            x = (x * x + c) % n
+            y = (y * y + c) % n
+            y = (y * y + c) % n
+            d = math.gcd(abs(x - y), n)
+        if d != n:
+            return d
+        c += 1
+
+
 def _factorize(n: int):
-    fs = []
-    d = 2
-    while d * d <= n:
-        while n % d == 0:
-            if not fs or fs[-1] != d:
-                fs.append(d)
-            n //= d
-        d += 1
-    if n > 1:
-        fs.append(n)
-    return fs
+    """The distinct prime factors of n, in increasing order: trial
+    division by small primes, then Pollard's rho on what is left (plain
+    trial division of stark_prime's q - 1 runs to 9.9e7)."""
+    fs = set()
+    for p in range(2, 1000):
+        while n % p == 0:
+            fs.add(p)
+            n //= p
+    todo = [n] if n > 1 else []
+    while todo:
+        m = todo.pop()
+        if _is_prime(m):
+            fs.add(m)
+        else:
+            d = _split(m)
+            todo += [d, m // d]
+    return sorted(fs)
 
 
 @lru_cache(maxsize=None)
@@ -104,13 +154,20 @@ class NTTContext:
 
     # -- shape helpers -----------------------------------------------------
     def _split(self, x, m: int, k: int):
-        """[..., N] -> the k parts of each of the m blocks, [..., m, t]."""
-        view = x.reshape(x.shape[:-1] + (m, k, self.N // (k * m)))
-        return tuple(view[..., i, :] for i in range(k))
+        """[..., N(, L)] -> the k parts of each of the m blocks,
+        [..., m, t(, L)]."""
+        limb = self.f.limb_shape
+        nd = len(limb)
+        view = x.reshape(x.shape[:x.dim() - 1 - nd]
+                         + (m, k, self.N // (k * m)) + limb)
+        return tuple(view.select(view.dim() - 2 - nd, i) for i in range(k))
 
     def _merge(self, parts):
-        view = torch.stack(parts, dim=-2)
-        return view.reshape(view.shape[:-3] + (self.N,))
+        limb = self.f.limb_shape
+        nd = len(limb)
+        view = torch.stack(parts, dim=-2 - nd)
+        return view.reshape(view.shape[:view.dim() - 3 - nd] + (self.N,)
+                            + limb)
 
     # -- transforms --------------------------------------------------------
     def forward(self, x):

@@ -30,8 +30,10 @@ exchange on CUDA shards of one card.  The local transforms are the radix
 (``local="mxu"``, Goldilocks), run once per shard in plain torch.  The
 twiddle tables are built on the host and cached per (shard, device);
 the reference builds them on its device by log-doubling.  The values
-are equal.  Not ported: the 8-limb stark_prime axis (ROADMAP queue 1
-step 3).
+are equal.  The 8-limb stark_prime storage carries its limb axis last
+([..., N1, N2, 8]); its exchange is the plain block transpose (the
+reference keeps the XLA collective there too, not K8), and its twist,
+twiddle and slot products are kernel S1 on the card.
 """
 
 from __future__ import annotations
@@ -80,10 +82,6 @@ class ShardedNTT:
                  local: str = "vpu", exchange: str = "xla",
                  single_chip: bool = False, device="cuda"):
         f = get_field(field_name)
-        if f.limbed:
-            raise NotImplementedError("the limbed stark_prime four-step is "
-                                      "not ported yet (ROADMAP queue 1 "
-                                      "step 3)")
         if N < 4 or N & (N - 1):
             raise ValueError(f"N={N} must be a power of two >= 4")
         logN = N.bit_length() - 1
@@ -219,11 +217,12 @@ class ShardedNTT:
         return col.forward, col.inverse, row.forward, row.inverse
 
     # -- per-shard stages -----------------------------------------------------
-    @staticmethod
-    def _apply_on_axis(fn, x, axis_from_end: int):
-        """Apply a last-axis transform to an inner axis."""
-        ax = x.dim() - axis_from_end
-        return fn(x.movedim(ax, -1)).movedim(-1, ax)
+    def _apply_on_axis(self, fn, x, axis_from_end: int):
+        """Apply a coefficient-axis transform to an inner axis, counted
+        from the end before the limb axis (which stays last)."""
+        nd = len(self.f.limb_shape)
+        ax, to = x.dim() - axis_from_end - nd, x.dim() - 1 - nd
+        return fn(x.movedim(ax, to)).movedim(to, ax)
 
     def _pre_exchange(self, x, p: int):
         """Twist and column NTT of shard p's [..., N1, C] coefficients."""
@@ -244,6 +243,9 @@ class ShardedNTT:
         tws = [self._tables(p, x.device)["T"] for p, x in enumerate(xs)]
         if self.single_chip:            # the P = 1 exchange is the identity
             return [self.f.mul(xs[0], tws[0])]
+        if self.f.limbed:               # rows split, columns joined
+            return all_to_all([self.f.mul(x, t) for x, t in zip(xs, tws)],
+                              -3, -2)
         if self.exchange == "pallas":
             return twiddle_exchange_fwd([x.contiguous() for x in xs], tws,
                                         self.f.name)
@@ -253,6 +255,9 @@ class ShardedNTT:
         tws = [self._tables(p, y.device)["Ti"] for p, y in enumerate(ys)]
         if self.single_chip:
             return [self.f.mul(ys[0], tws[0])]
+        if self.f.limbed:
+            return all_to_all([self.f.mul(y, t) for y, t in zip(ys, tws)],
+                              -2, -3)
         if self.exchange == "pallas":
             return twiddle_exchange_inv([y.contiguous() for y in ys], tws,
                                         self.f.name)
@@ -282,11 +287,13 @@ class ShardedNTT:
 
     # -- layouts ------------------------------------------------------------------
     def shard_specs(self, batch_ndim: int = 0):
-        """(coeff_spec, eval_spec): per axis of [..., N1, N2], the mesh
-        axis it is split over or None, as the reference's
+        """(coeff_spec, eval_spec): per axis of [..., N1, N2(, L)], the
+        mesh axis it is split over or None, as the reference's
         ``PartitionSpec``s."""
         lead = (None,) * batch_ndim
-        return lead + (None, self.axis), lead + (self.axis, None)
+        limb = (None,) * len(self.f.limb_shape)
+        return (lead + (None, self.axis) + limb,
+                lead + (self.axis, None) + limb)
 
     def _split_axis(self, spec) -> int:
         return spec.index(self.axis) - len(spec)
@@ -313,11 +320,17 @@ class ShardedNTT:
         return to_numpy_storage(whole) if device is None else whole
 
     def to_matrix(self, coeffs):
-        """[..., N] -> [..., N1, N2] (row-major n = n1*N2 + n2)."""
-        return coeffs.reshape(tuple(coeffs.shape[:-1]) + (self.N1, self.N2))
+        """[..., N(, L)] -> [..., N1, N2(, L)] (row-major n = n1*N2 + n2;
+        a tensor or numpy array)."""
+        limb = self.f.limb_shape
+        lead = tuple(coeffs.shape[:len(coeffs.shape) - 1 - len(limb)])
+        return coeffs.reshape(lead + (self.N1, self.N2) + limb)
 
     def from_matrix(self, m):
-        return m.reshape(tuple(m.shape[:-2]) + (self.N,))
+        """[..., N1, N2(, L)] -> [..., N(, L)] (a tensor or numpy array)."""
+        limb = self.f.limb_shape
+        lead = tuple(m.shape[:len(m.shape) - 2 - len(limb)])
+        return m.reshape(lead + (self.N,) + limb)
 
     # -- entry points ---------------------------------------------------------
     def _check_mesh(self, mesh) -> None:
@@ -391,8 +404,10 @@ class ShardedNTT:
         def pre(xs):
             return [self._pre_transpose(x, p) for p, x in enumerate(xs)]
 
+        nd = len(self.f.limb_shape)
+
         def exchange(ys):
-            return all_to_all(ys, -2, -1)
+            return all_to_all(ys, -2 - nd, -1 - nd)
 
         def rows(ys):
             return [self._rows(y) for y in ys]

@@ -19,9 +19,11 @@ Composes, in the batch-trailing layout (``ops/model_mul.TModelMul``):
 
 On the card each ICRT and CRT is one ``torch._int_mm`` and one fold
 kernel: K3 (``fold_end``) for goldilocks, K4's ``bb_fold_end`` for
-babybear; frog folds in torch ops.  A step runs one ICRT and one CRT;
-the challenge's precompute one more CRT.  Every other stage is torch
-ops on the ring's device.
+babybear, S3 (``limb_fold``) for stark_prime; frog folds in torch ops.
+A step runs one ICRT and one CRT; the challenge's precompute one more
+CRT.  Every other stage is torch ops on the ring's device, and over
+stark_prime every field product, add and subtract is kernel S1 or S2
+(its limb axis trails every tensor: [D, W, L, 8]).
 """
 
 from __future__ import annotations
@@ -39,17 +41,25 @@ __all__ = ["FoldingStep", "ntt_matvec"]
 
 def ntt_matvec(f, tm, E, At, xt, block: int | None = None):
     """c[i] = sum_j A[i, j] * x[j] over NTT-form ring elements in the
-    transposed layout: ``At [D, n, m]``, ``xt [D, W, m]`` -> [D, W, n]
-    (matrix.rs:148-188 semantics).
+    transposed layout: ``At [D, n, m(, L)]``, ``xt [D, W, m(, L)]`` ->
+    [D, W, n(, L)] (matrix.rs:148-188 semantics; the limb axis trails for
+    stark_prime).
 
     ``block``: m-blocked widened-word accumulation (the Matrix.mul_mat
     pattern) bounding the live product tensor; bit-equal to the
     unblocked contraction."""
-    if E == 1:
-        raise NotImplementedError(
-            "ntt_matvec over a slot field equal to the base field (E == 1) "
-            "serves stark_prime alone, which is ROADMAP queue 1 step 3")
-    return tm.matvec_t(At, xt, block=block)   # block >= m: unblocked
+    if E > 1:
+        return tm.matvec_t(At, xt, block=block)   # block >= m: unblocked
+    # slot field == base field: the slot product is the field's product
+    m = At.shape[2]
+    if block is None or block >= m:
+        return f.sum(f.mul(At[:, None], xt[:, :, None]), axis=3)
+    acc = None
+    for s in range(0, m, block):
+        prod = f.mul(At[:, None, :, s:s + block], xt[:, :, None, s:s + block])
+        w = f.widen(prod).sum(dim=3)
+        acc = w if acc is None else acc + w
+    return f.reduce_words(acc)
 
 
 class FoldingStep:
@@ -103,38 +113,43 @@ class FoldingStep:
         from ``ops.mxu2.from_jax_consts``, e.g. of the reference's
         ``consts()``) takes their place."""
         A = self.ring.rand_ntt((self.n, self.M), rng)
-        return {"Agt": torch.movedim(A, -1, 0).contiguous()}
+        return {"Agt": self.tm.to_t(A).contiguous()}
 
     def precompute_challenge(self, r):
         """NTT form of the folding challenge: coefficient-form storage
-        [D] in, transposed NTT form [D, 1, 1] out; computed once per
-        challenge and broadcast over the witness batch in every step."""
+        [D(, L)] in, transposed NTT form [D, 1, 1(, L)] out; computed once
+        per challenge and broadcast over the witness batch in every
+        step."""
         ntt = self.tm.crt_t(self.tm.to_t(r)[:, None])
         return ntt[:, :, None]
 
     def rand_witness(self, W: int, rng: np.random.Generator):
-        """NTT-form witness batch [D, W, L] (transposed)."""
+        """NTT-form witness batch [D, W, L(, limbs)] (transposed)."""
         return self.tm.to_t(self.ring.rand_ntt((W, self.L), rng)).contiguous()
 
-    #: storage words of one [N, E, E, block, W, n] slot-product tensor
-    #: (the E-wide intermediate of ``TModelMul.matvec_t``, E times the
-    #: reference's [D, W, n, M]) tolerated before the commit blocks its
-    #: contraction: 2^27 int64 words, 1 GiB.  A u64 field product keeps
-    #: several such tensors live: the bench shape (goldilocks n = 8,
-    #: M = 8,192, W = 16: 75,497,472 words) stays on the unblocked path,
-    #: as the reference keeps it, and its step allocates 5.76 GB above
-    #: its inputs on the H100's 80 GB (``chip_smoke.py`` phase 42);
-    #: babybear's E = 9 blocks there and allocates the same.
+    #: storage words of one [N, E, E, block, W, n(, L)] slot-product
+    #: tensor (the E-wide intermediate of ``TModelMul.matvec_t``, E times
+    #: the reference's [D, W, n, M]; stark_prime's L = 8 limbs counted,
+    #: which the reference's budget leaves out) tolerated before the
+    #: commit blocks its contraction: 2^27 words, 1 GiB of int64.  A u64
+    #: field product keeps several such tensors live: the bench shape
+    #: (goldilocks n = 8, M = 8,192, W = 16: 75,497,472 words) stays on
+    #: the unblocked path, as the reference keeps it, and its step
+    #: allocates 5.76 GB above its inputs on the H100's 80 GB
+    #: (``chip_smoke.py`` phase 42); babybear's E = 9 blocks there and
+    #: allocates the same.
     _COMMIT_BUDGET_WORDS = 1 << 27
 
     def commit_block(self, W: int) -> int:
         """The contraction block the commit of W witnesses takes by
         default (M or more: unblocked)."""
-        per = max(1, self.ring.D * self.ring.E * W * self.n)  # words a column
+        limbs = int(np.prod(self.f.limb_shape, dtype=np.int64))
+        per = max(1, self.ring.D * self.ring.E * W * self.n * limbs)
         return max(1, self._COMMIT_BUDGET_WORDS // per)
 
     def commit(self, c, dt, block: int | None = None):
-        """cd = A_g @ digits (NTT form, transposed): [D, W, M] -> [D, W, n].
+        """cd = A_g @ digits (NTT form, transposed): [D, W, M(, L)] ->
+        [D, W, n(, L)].
 
         Peak memory is bounded: when the slot-product tensor would pass
         ``_COMMIT_BUDGET_WORDS`` words, the contraction runs M-blocked
@@ -158,9 +173,10 @@ class FoldingStep:
         st = f.add(s0t, tm.ntt_mul_bt(s1t, rt))
         ct = f.add(c0t, tm.ntt_mul_bt(c1t, rt))
         coeff = tm.icrt_t(st, tmc)                       # [D, W, L]
-        dig = decompose(f, coeff, self.base, self.k)     # [D, W, L, k]
+        dig = decompose(f, coeff, self.base, self.k)     # [D, W, L, k(, l)]
         # digit j of column l -> gadget column l*k + j (mod.rs:163-175)
-        dt = dig.reshape(dig.shape[0], dig.shape[1], self.M)
+        dt = dig.reshape((dig.shape[0], dig.shape[1], self.M)
+                         + f.limb_shape)
         ok_l2 = l2_check(f, dt, self.l2_bound_sq, axis=(0, 2))   # [W]
         d_ntt = tm.crt_t(dt, tmc)
         cd = self.commit(c, d_ntt)

@@ -59,7 +59,7 @@ class FoldingTree:
         A_g [n, M]), transposed to [D, n, L]."""
         c = self.fs.init_tables(rng)
         Aw = self.ring.rand_ntt((self.n, self.L), rng)
-        c["Awt"] = torch.movedim(Aw, -1, 0).contiguous()
+        c["Awt"] = self.tm.to_t(Aw).contiguous()
         return c
 
     def commit_witnesses(self, c, wt, block: int | None = None):
@@ -113,8 +113,8 @@ class FoldingTree:
 
         ring, f, tm = self.ring, self.f, self.tm
         e = RingElems(ring)
-        Aw = Matrix(e, torch.movedim(c["Awt"], 0, -1))
-        Ag = Matrix(e, torch.movedim(c["Agt"], 0, -1))
+        Aw = Matrix(e, tm.from_t(c["Awt"]))
+        Ag = Matrix(e, tm.from_t(c["Agt"]))
         wt, ct = wt0, ct0
         for out, rt in zip(levels, rts):
             st, cf = out["s"], out["c"]

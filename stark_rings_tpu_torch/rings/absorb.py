@@ -4,7 +4,8 @@
 ``elements_to_bytes``).
 
 A field element serializes as its canonical integer, little-endian, in
-ceil(bits / 8) bytes: 8 bytes for Goldilocks and frog, 4 for BabyBear.
+ceil(bits / 8) bytes: 8 bytes for Goldilocks and frog, 4 for BabyBear,
+32 for stark_prime (its eight canonical u32 limbs in order).
 The Montgomery fields (BabyBear, frog) are converted to canonical values
 first: their storage words are not the values, and writing them would
 squeeze other challenges.  The transcript is a
@@ -34,12 +35,11 @@ def elem_nbytes(f) -> int:
 def elements_to_bytes(f, x) -> bytes:
     """Every element of ``x`` (a storage tensor, or the reference's numpy
     storage), row-major, canonical little-endian, no header."""
-    if f.limbed:
-        raise NotImplementedError(f"serialization of {f.name} elements is "
-                                  "not ported yet")
     if not isinstance(x, torch.Tensor):
         x = from_jax_storage(f, x, "cpu")
     host = to_numpy_storage(f.canon(x))
+    if f.limbed:        # 32 bytes an element: the limbs, least first
+        return host.astype("<u4").tobytes()
     return host.astype(f"<u{elem_nbytes(f)}").tobytes()
 
 
@@ -92,6 +92,6 @@ class Transcript:
 
     def squeeze_ring_element(self, ring, form: str = "coeff"):
         """One uniform ring element: D squeezed field elements as storage
-        [D] on the ring's device (either form: the draw is uniform in
+        [D(, L)] on the ring's device (either form: the draw is uniform in
         both)."""
         return self.squeeze_field_elements(ring.field, ring.D, ring.device)

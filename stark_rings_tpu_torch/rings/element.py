@@ -95,9 +95,9 @@ class Rq:
         return self.data
 
     def ct(self):
-        """Constant term (CoeffRing::ct), as storage [..., 1]."""
+        """Constant term (CoeffRing::ct), as storage [..., 1(, L)]."""
         self._need("coeff", "ct()")
-        return self.data[..., :1]
+        return self.data.narrow(self.ring.field.coeff_axis, 0, 1)
 
     # -- arithmetic ------------------------------------------------------
     def _need(self, form, what):
@@ -219,7 +219,7 @@ class Rq:
     @property
     def shape(self):
         """Batch shape (the leading axes before the coefficient axis)."""
-        return tuple(self.data.shape[:-1])
+        return tuple(self.ring.batch_shape(self.data))
 
     def __repr__(self):
         return f"Rq({self.ring.name}, {self.form}, batch={self.shape})"

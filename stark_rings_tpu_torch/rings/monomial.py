@@ -76,7 +76,7 @@ def exp_signed(ring, a: int):
 
 def ct(ring, x):
     """Constant term (CoeffRing::ct, poly_ring.rs:19-42)."""
-    return x[..., 0]
+    return ring.field.take_coeff(x, 0)
 
 
 def psi_range_check(ring, a: int) -> bool:
@@ -101,14 +101,21 @@ def _exp_pos_batched(ring, a):
     vm = f.canon(a)                        # canonical |a|
     vneg = f.canon(f.neg(a))               # canonical q - a
     is_pos = f.geq(f.canon_const((ring.q - 1) // 2), vm)   # incl. a = 0
-    sm = torch.where(is_pos, vm, vneg).to(torch.int32)
+    centered = f.select(is_pos, vm, vneg)
+    if f.limbed:                           # the low limb, if the rest is 0
+        high_zero = (centered[..., 1:] == 0).all(dim=-1)
+        sm = torch.where(high_zero, centered[..., 0], 0)
+    else:
+        high_zero = True
+        sm = centered.to(torch.int32)
     pos = torch.where(is_pos, sm, torch.remainder(D - sm, D))
-    valid = torch.where(is_pos, sm < D, sm <= D)
+    valid = high_zero & torch.where(is_pos, sm < D, sm <= D)
     return pos, valid
 
 
 def exp_batched(ring, a):
-    """Batched exp(): storage [...] -> (monomials [..., D], valid [...]).
+    """Batched exp(): storage [...] -> (monomials [..., D(, L)], valid
+    [...]).
 
     The device-side mirror of :func:`exp` over a whole witness tensor:
     where the reference would panic, ``valid`` is False and the monomial
@@ -117,13 +124,13 @@ def exp_batched(ring, a):
     pos, valid = _exp_pos_batched(ring, a)
     onehot = (torch.arange(D, dtype=torch.int32, device=a.device)
               == pos[..., None]) & valid[..., None]
-    mono = torch.where(onehot, f.ones((), a.device), f.zeros((), a.device))
+    mono = f.select(onehot, f.ones((), a.device), f.zeros((), a.device))
     return mono, valid
 
 
 def _ct_psi_table(ring):
-    """Storage [D] table of ct(psi * X^p) for p in [0, D), on the ring's
-    device.
+    """Storage [D(, L)] table of ct(psi * X^p) for p in [0, D), on the
+    ring's device.
 
     ct(psi * exp(a)) reads only the constant term of the product, and
     exp(a) is a monomial, so the D^2 schoolbook multiply of the naive
@@ -153,10 +160,12 @@ def psi_range_check_batched(ring, a):
     gather inside a composed step about 30x slower than the whole
     step).  Equal to the one-hot and ``coeff_mul`` formulation on every
     input, valid or not."""
+    f = ring.field
     pos, valid = _exp_pos_batched(ring, a)
     tbl = _ct_psi_table(ring)
     pos_m = torch.remainder(pos, ring.D)
-    c = tbl[0].expand(pos.shape)
+    c = tbl[0].expand(pos.shape + f.limb_shape)
     for p in range(1, ring.D):
-        c = torch.where(pos_m == p, tbl[p], c)
-    return valid & (c == a)
+        c = f.select(pos_m == p, tbl[p], c)
+    eq = c == a
+    return valid & (eq.all(dim=-1) if f.limbed else eq)

@@ -1,18 +1,18 @@
-"""Power-of-two negacyclic rings F_q[X]/(X^N + 1) over Goldilocks and
-BabyBear (deg 2^1 .. 2^20 and beyond, to the fields' 2-adicity) and frog
-(deg 2 and 4: its q - 1 has 2-adicity 3) (counterpart of
-``stark_rings_tpu/rings/power.py``).
+"""Power-of-two negacyclic rings F_q[X]/(X^N + 1) over Goldilocks,
+BabyBear and stark_prime (deg 2^1 .. 2^20 and beyond, to the fields'
+2-adicity) and frog (deg 2 and 4: its q - 1 has 2-adicity 3)
+(counterpart of ``stark_rings_tpu/rings/power.py``).
 
 A :class:`PowerRing` is fully splitting: its NTT form is the N
 leaf-order evaluations of ``ops/ntt.py`` (slot field F_q, E = 1).
 Elements are storage tensors [..., N] (int64 Goldilocks, int32 BabyBear
-Montgomery) on the ring's device, which is the CUDA card unless the
-caller passes ``device="cpu"``.  ``mxu_ctx()`` is the production-rate
-multiplier: the digit-GEMM engines with their hand-written kernels.
+Montgomery; stark_prime's [..., N, 8] limbs) on the ring's device, which
+is the CUDA card unless the caller passes ``device="cpu"``.
+``mxu_ctx()`` is the production-rate multiplier: the digit-GEMM engines
+with their hand-written kernels.
 
 ``fourstep_ctx()`` is the single-device four-step of
-``parallel/ntt.py`` on flat [..., N] tensors.  Not ported yet: the
-stark_prime ring.
+``parallel/ntt.py`` on flat [..., N] tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from ..device import get_device
 from ..fields import get_field
 from ..ops.ntt import NTTContext
+from .ring import RingModel
 
 __all__ = ["PowerRing", "get_power_ring", "FourStep"]
 
@@ -43,11 +44,6 @@ class PowerRing:
     slot field = F_q (E = 1, N slots = D)."""
 
     def __init__(self, field_name: str, logN: int, device="cuda"):
-        if field_name == "stark_prime":
-            raise NotImplementedError(
-                "stark_prime power rings are not ported yet: the limbed "
-                "field is ROADMAP Slice C item 9, its MXU engine Slice F "
-                "item 15 (queue 1 step 3)")
         self.field = get_field(field_name)
         two_adicity = ((self.field.q - 1)
                        & -(self.field.q - 1)).bit_length() - 1
@@ -93,7 +89,7 @@ class PowerRing:
 
     def from_scalar_ntt(self, v, shape=()):
         return self.field.const(v, self.device).expand(
-            tuple(shape) + (self.D,)).contiguous()
+            tuple(shape) + (self.D,) + self.field.limb_shape).contiguous()
 
     # -- ring ops ---------------------------------------------------------
     def add(self, a, b):
@@ -146,13 +142,21 @@ class PowerRing:
         Goldilocks :class:`~..ops.fold.Mxu2KernelNTT` (K1 untransposed,
         K3 and the pointwise kernel).  ``pallas=False``: the plain
         :class:`~..ops.mxu_bb.MxuBBNTT` / :class:`~..ops.mxu2.Mxu2NTT`.
-        On CPU tensors the kernel wrappers run their plain twins.  frog
-        has no digit-GEMM engine (as in the reference): it raises."""
-        if self.field.name not in ("goldilocks", "babybear"):
+        stark_prime gets :class:`~..ops.mxu_limb.MxuLimbNTT` either way
+        (its folds S3 and products S1 are its only kernels; operands
+        [B, D, 8]).  On CPU tensors the kernel wrappers run their plain
+        twins.  frog has no digit-GEMM engine (as in the reference): it
+        raises."""
+        if self.field.name not in ("goldilocks", "babybear", "stark_prime"):
             raise ValueError(f"no digit-GEMM engine over {self.field.name}: "
-                             "MXU weights exist for goldilocks and babybear")
+                             "MXU weights exist for goldilocks, babybear "
+                             "and stark_prime")
+        if self.field.limbed:
+            pallas = True           # one engine: the reference's cache key
         if pallas not in self._mxu:
-            if self.field.name == "babybear":
+            if self.field.limbed:
+                from ..ops.mxu_limb import MxuLimbNTT as engine
+            elif self.field.name == "babybear":
                 if pallas:
                     from ..ops.fold_bb import MxuBBFusedNTT as engine
                 else:
@@ -190,7 +194,7 @@ class PowerRing:
         if e < 0:
             raise ValueError("negative exponents: invert first")
         if e == 0:
-            return self.from_scalar_ntt(1, a.shape[:-1])
+            return self.from_scalar_ntt(1, self.batch_shape(a))
         return self.field.pow_const(a, e)
 
     def ntt_inv(self, a):
@@ -198,18 +202,13 @@ class PowerRing:
 
     def rot(self, a):
         """Multiply by X: negacyclic shift."""
-        return torch.cat([self.field.neg(a[..., -1:]), a[..., :-1]], dim=-1)
+        ax, D = self.field.coeff_axis, self.D
+        return torch.cat([self.field.neg(a.narrow(ax, D - 1, 1)),
+                          a.narrow(ax, 0, D - 1)], dim=ax)
 
-    def flatten(self, x):
-        """[..., n, D] -> [..., n*D]."""
-        return x.reshape(x.shape[:-2] + (x.shape[-2] * self.D,))
-
-    def promote(self, x):
-        """[..., n*D] -> [..., n, D]."""
-        if x.shape[-1] % self.D:
-            raise ValueError(f"last axis {x.shape[-1]} is not a multiple "
-                             f"of D = {self.D}")
-        return x.reshape(x.shape[:-1] + (x.shape[-1] // self.D, self.D))
+    batch_shape = RingModel.batch_shape
+    flatten = RingModel.flatten
+    promote = RingModel.promote
 
 
 _POWER = {}

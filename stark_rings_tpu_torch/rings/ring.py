@@ -1,27 +1,29 @@
 """Cyclotomic ring models as batched integer-tensor ops (counterpart of
 ``stark_rings_tpu/rings/ring.py``; L2 of the reference).
 
-A :class:`RingModel` binds one spec model (goldilocks, babybear, frog)
-to its prime field and to one device, and exposes the reference's
+A :class:`RingModel` binds one spec model (goldilocks, babybear, frog,
+stark_prime) to its prime field and to one device, and exposes the
+reference's
 `Ring`/`PolyRing` surface as functional, batched tensor ops:
 
-* coefficient form: storage ``[..., D]``; schoolbook multiply and
+* coefficient form: storage ``[..., D]`` (``[..., D, 8]`` for
+  stark_prime's limbs, as everywhere below); schoolbook multiply and
   cyclotomic reduction (reference coeff_form.rs:54-67 and the models'
   ``reduce_in_place``).
 * NTT/CRT form: the same shape, slot-major ``N x E``; the slot-wise
   extension-field product (ntt_form.rs:159-189) through precomputed
   gather and factor tables.
 * ``crt``/``icrt``: one D x D digit GEMM and its bucket fold
-  (:mod:`..ops.mxu_dense`; the fold is K3's kernel for goldilocks and
-  K4's ``bb_fold_end`` for babybear on the card).  The chain of 2-term
+  (:mod:`..ops.mxu_dense`; the fold is K3's kernel for goldilocks,
+  K4's ``bb_fold_end`` for babybear and S3's ``limb_fold`` for
+  stark_prime on the card).  The chain of 2-term
   stages derived from the integer spec (goldilocks/ntt.rs:68-127 etc.)
   stays as the oracle (``crt_staged``, ``use_dense_crt = False``).
 
 A vector of ring elements is a leading batch axis; the reference's
 ``elementwise_crt`` / ``Flatten`` casts (crt.rs:10-49, flatten.rs:10-44)
 are reshapes.  Every table lives on the ring's device, the CUDA card
-unless the caller passes ``device="cpu"``.  stark_prime waits for its
-field (ROADMAP queue 1 step 3).
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -284,8 +286,12 @@ class RingModel:
         (coeff_form.rs:54-67; the oracle for ntt_mul)."""
         f = self.field
         idx, mask = self._conv_tables
-        bg = torch.where(mask, f.take_coeff(b, idx), 0)     # [..., D, 2D-1]
-        conv = f.sum(f.mul(a[..., :, None], bg), axis=-2)
+        bg = f.take_coeff(b, idx)                       # [..., D, 2D-1(, L)]
+        bg = f.select(mask, bg, torch.zeros_like(bg))
+        if f.limbed:
+            conv = f.sum(f.mul(a[..., :, None, :], bg), axis=-3)
+        else:
+            conv = f.sum(f.mul(a[..., :, None], bg), axis=-2)
         return self._reduce_table(conv)
 
     def reduce(self, c):
@@ -296,13 +302,14 @@ class RingModel:
         """Multiply by X in coefficient form (Cyclotomic::rot,
         goldilocks/mod.rs:138-149, frog_ring/mod.rs:125-133)."""
         f = self.field
-        D = self.D
-        last = a[..., D - 1:]
-        out = torch.cat([f.neg(last), a[..., :D - 1]], dim=-1)
+        D, ax = self.D, f.coeff_axis
+        last = a.narrow(ax, D - 1, 1)
+        out = torch.cat([f.neg(last), a.narrow(ax, 0, D - 1)], dim=ax)
         if self.spec.has_middle_term:
             h = D // 2
-            out = torch.cat([out[..., :h], f.add(out[..., h:h + 1], last),
-                             out[..., h + 1:]], dim=-1)
+            out = torch.cat([out.narrow(ax, 0, h),
+                             f.add(out.narrow(ax, h, 1), last),
+                             out.narrow(ax, h + 1, D - h - 1)], dim=ax)
         return out
 
     def pow_rot(self, a, k: int):
@@ -316,7 +323,7 @@ class RingModel:
         if e < 0:
             raise ValueError("negative exponents: invert first")
         if e == 0:
-            return self.from_scalar_ntt(1, a.shape[:-1])
+            return self.from_scalar_ntt(1, self.batch_shape(a))
         acc = None
         base = a
         while e:
@@ -357,17 +364,27 @@ class RingModel:
         inv_n0 = f.inv(norm.reshape(slots)[..., :1])
         return f.mul(conj.reshape(slots), inv_n0).reshape(a.shape)
 
+    def batch_shape(self, x):
+        """The batch axes of storage ``x`` (before the coefficient axis)."""
+        return x.shape[:x.dim() - 1 - len(self.field.limb_shape)]
+
     # -- flatten (R10): Vec<Rq> <-> Vec<Fq> are reshapes -----------------
     def flatten(self, x):
-        """[..., n, D] -> [..., n*D]."""
-        return x.reshape(x.shape[:-2] + (x.shape[-2] * self.D,))
+        """[..., n, D(, L)] -> [..., n*D(, L)]."""
+        limb = self.field.limb_shape
+        lead = x.shape[:x.dim() - 2 - len(limb)]
+        n = x.shape[x.dim() - 2 - len(limb)]
+        return x.reshape(lead + (n * self.D,) + limb)
 
     def promote(self, x):
-        """[..., n*D] -> [..., n, D]."""
-        if x.shape[-1] % self.D:
-            raise ValueError(f"last axis {x.shape[-1]} is not a multiple "
+        """[..., n*D(, L)] -> [..., n, D(, L)]."""
+        limb = self.field.limb_shape
+        nd = x.shape[x.dim() - 1 - len(limb)]
+        if nd % self.D:
+            raise ValueError(f"coefficient axis {nd} is not a multiple "
                              f"of D = {self.D}")
-        return x.reshape(x.shape[:-1] + (x.shape[-1] // self.D, self.D))
+        return x.reshape(self.batch_shape(x) + (nd // self.D, self.D)
+                         + limb)
 
 
 RINGS: dict = {}
@@ -376,10 +393,6 @@ RINGS: dict = {}
 def get_ring(name: str, device="cuda") -> RingModel:
     """The ring model called ``name`` on ``device``, built on first use
     and cached per (name, device)."""
-    if name == "stark_prime":
-        raise NotImplementedError(
-            "the stark_prime ring model is not ported yet: it waits for "
-            "its limbed field and LimbPrescaledMat (ROADMAP queue 1 step 3)")
     if name not in MODELS:
         raise KeyError(f"unknown ring model {name!r}")
     dev = get_device(device)

@@ -37,10 +37,14 @@ def sample_short(ring, shape, rng: np.random.Generator, bound: int):
 
 def is_invertible(ring, x_coeff):
     """True where the element is a unit, i.e. every CRT slot is nonzero:
-    coefficient form [..., D] -> bool [...] on the ring's device."""
-    slots = ring.crt(x_coeff).reshape(x_coeff.shape[:-1]
-                                      + (ring.N, ring.E))
-    return ~(slots == 0).all(dim=-1).any(dim=-1)
+    coefficient form [..., D(, L)] -> bool [...] on the ring's device."""
+    limb = ring.field.limb_shape
+    batch = x_coeff.shape[:x_coeff.dim() - 1 - len(limb)]
+    slots = ring.crt(x_coeff).reshape(batch + (ring.N, ring.E) + limb)
+    zero = slots == 0
+    for _ in range(1 + len(limb)):      # a slot is 0 when every coordinate is
+        zero = zero.all(dim=-1)
+    return ~zero.any(dim=-1)
 
 
 def sample_short_invertible(ring, rng: np.random.Generator, bound: int,

@@ -75,8 +75,9 @@ def test_encode_decode_and_constants_match_reference():
     assert x.shape == (6, 5) and x.dtype == torch.int32
     assert ((x >= 0) & (x < Q)).all()
     assert get_field("babybear") is F
-    with pytest.raises(NotImplementedError, match="Slice C item 9"):
-        get_field("stark_prime")
+    assert get_field("stark_prime").limbed
+    with pytest.raises(KeyError, match="unknown field"):
+        get_field("nope")
 
 
 def test_elementwise_ops_match_reference():

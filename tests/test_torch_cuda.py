@@ -9,7 +9,10 @@ radix NTT kernels (the tile kernel in every mode at every log_tile, and
 the engine against NTTContext from N = 2 to 2^16), the fused mod-mat
 kernel and the chain kernel, and the engines on them; the ring models'
 CRT folds (K3 at R = 24, K4's bb_fold_end at R = 72) and TModelMul on
-the card against the CPU twin path.  Marked ``cuda``:
+the card against the CPU twin path; the stark prime's kernels S1-S3
+against their twins, and MxuLimbNTT, the D = 16 model, the limbed
+folding step and tree and the generic sumcheck over it on the card
+against the radix engine and the CPU path.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -1323,3 +1326,182 @@ def test_folding_tree_on_card(dev, name):
                                     ring.field.const(1, dev))[0]
     bad[0]["cd"] = cd
     assert not ft.verify(c, wt, ct, bad, rts)
+
+
+# -- the 252-bit stark prime: S1-S3 and the paths on them -------------------
+
+
+def _stark_edges(dev):
+    from stark_rings_tpu_torch.fields import STARK
+
+    q = STARK.q
+    vals = [0, 1, 2, q - 1, q - 2, (1 << 256) % q, q, q + 1, (1 << 256) - 1,
+            (1 << 255) + 12345]
+    return torch.from_numpy(STARK.limbs_np(vals).view(np.int32)).to(dev)
+
+
+def test_stark_kernels_match_twins(dev):
+    """S1 (stark_mul) and S2 (stark_add, stark_sub) bit-equal to their
+    twins on random limbs in [0, q), on every pair of edge values (q's
+    own limbs and 2^256 - 1 among them) and on broadcast operands; S3
+    (limb_fold) on random and full-range buckets in both schemes and both
+    output layouts; one launch a call."""
+    from stark_rings_tpu_torch.fields import STARK
+    from stark_rings_tpu_torch.ops import stark as S
+
+    rng = np.random.default_rng(40)
+    ev = _stark_edges(dev)
+    ne = ev.shape[0]
+    x = STARK.rand((5000,), rng, dev)
+    y = STARK.rand((5000,), rng, dev)
+    x[:ne * ne] = ev.repeat_interleave(ne, 0)
+    y[:ne * ne] = ev.repeat(ne, 1)
+    tab = STARK.rand((7, 9), rng, dev)
+    big = STARK.rand((3, 7, 9), rng, dev)
+    for op in ("mul", "add", "sub"):
+        kern = getattr(S, "stark_" + op)
+        twin = getattr(S, f"stark_{op}_ref")
+        for a, b in ((x, y), (big, tab), (tab, big), (big, ev[5]),
+                     (big[:, None], tab[None, :1])):
+            before = S.LAUNCHES["stark_" + op]
+            got = kern(a, b)
+            assert S.LAUNCHES["stark_" + op] - before == 1
+            assert got.device.type == "cuda"
+            assert torch.equal(got, twin(a, b)), (op, a.shape, b.shape)
+        assert torch.equal(kern(x.cpu(), y.cpu()), twin(x, y).cpu())
+    for signed, K_ in ((False, 32), (True, 33)):
+        for R, cols in ((16, 4096), (64, 300), (3, 1)):
+            V = torch.from_numpy(rng.integers(-2**31, 2**31, (K_ * R, cols))
+                                 .astype(np.int32)).to(dev)
+            for tr in (False, True):
+                before = S.LAUNCHES["limb_fold"]
+                got = S.limb_fold(V, R, signed=signed, transpose_out=tr)
+                assert S.LAUNCHES["limb_fold"] - before == 1
+                assert torch.equal(got, S.limb_fold_ref(
+                    V, R, signed=signed, transpose_out=tr)), (signed, R, tr)
+    with pytest.raises(TypeError):
+        S.stark_mul(x.to(torch.int64), y)
+    with pytest.raises(ValueError):
+        S.limb_fold(torch.zeros((31, 8), dtype=torch.int32, device=dev), 1,
+                    signed=False)
+
+
+@pytest.mark.parametrize("unsigned", [True, False], ids=["u8", "s7"])
+@pytest.mark.parametrize("N", [16, 512, 4096])
+def test_stark_mxu_limb_ntt_on_card(dev, N, unsigned):
+    """MxuLimbNTT on the card: mul, mul_cached (batch-B and batch-1
+    states) and square bit-equal to the radix NTTContext on the card and
+    to MxuLimbNTT on the CPU; six S3 folds and four S1 products a mul."""
+    from stark_rings_tpu_torch.fields import STARK
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.ops.mxu_limb import MxuLimbNTT
+
+    rng = np.random.default_rng(N)
+    e = MxuLimbNTT(N, unsigned=unsigned, device=dev)
+    ctx = NTTContext(STARK, N, device=dev)
+    a, b = (STARK.rand((3, N), rng, dev) for _ in range(2))
+    before = dict(S.LAUNCHES)
+    got = e.mul(a, b)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["limb_fold"] - before["limb_fold"] == 6
+    assert S.LAUNCHES["stark_mul"] - before["stark_mul"] == 4
+    want = ctx.mul(a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(e.mul_cached(a, e.precompute(b)), want)
+    assert torch.equal(e.mul_cached(a, e.precompute(b[:1])),
+                       ctx.mul(a, b[:1].expand(3, N, 8)))
+    assert torch.equal(e.square(a), ctx.mul(a, a))
+    if N <= 512:
+        cpu = MxuLimbNTT(N, unsigned=unsigned, device="cpu")
+        assert torch.equal(cpu.mul(a.cpu(), b.cpu()), got.cpu())
+    pr = get_power_ring("stark_prime", N.bit_length() - 1, device=dev)
+    assert torch.equal(pr.mxu_ctx().mul(a, b), want)
+
+
+@pytest.mark.parametrize("B", [1, 13, 1000])
+def test_stark_model_mul_on_card(dev, B):
+    """The D = 16 stark_prime model on the card: TModelMul.mul_t, square_t
+    and mul_cached_t, RingModel crt / icrt / coeff_mul equal to the CPU
+    path; mul_t of two rows equals the integer spec; three S3 folds a
+    mul_t; the commit matvec_t blocked equals unblocked and the CPU."""
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, cpu = (get_ring("stark_prime", device=d) for d in (dev, "cpu"))
+    f = ring.field
+    rng = np.random.default_rng(B + 7)
+    a, b = (f.rand((B, ring.D), rng, dev) for _ in range(2))
+    tm, tc = TModelMul(ring), TModelMul(cpu)
+    before = S.LAUNCHES["limb_fold"]
+    got = tm.mul_t(tm.to_t(a), tm.to_t(b))
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["limb_fold"] - before == 3
+    assert torch.equal(got.cpu(), tc.mul_t(tc.to_t(a.cpu()),
+                                           tc.to_t(b.cpu())))
+    assert torch.equal(tm.square_t(tm.to_t(a)).cpu(),
+                       tc.square_t(tc.to_t(a.cpu())))
+    f1 = tm.precompute_t(tm.to_t(b[:1]))
+    assert torch.equal(tm.mul_cached_t(tm.to_t(a), f1).cpu(),
+                       tc.mul_cached_t(tc.to_t(a.cpu()),
+                                       tc.precompute_t(tc.to_t(b[:1].cpu()))))
+    assert torch.equal(ring.crt(a).cpu(), cpu.crt_staged(a.cpu()))
+    assert torch.equal(ring.icrt(ring.crt(a)), a)
+    assert torch.equal(tm.from_t(got), ring.coeff_mul(a, b))
+    ai, bi, gi = ring.decode(a[:2]), ring.decode(b[:2]), ring.decode(
+        tm.from_t(got)[:2])
+    for r in range(min(B, 2)):
+        assert [int(v) for v in gi[r]] == ring.spec.coeff_mul(
+            [int(v) for v in ai[r]], [int(v) for v in bi[r]])
+    if B >= 13:
+        A = f.rand((ring.D, 3, B), rng, dev)
+        x = f.rand((ring.D, 2, B), rng, dev)
+        full = tm.matvec_t(A, x)
+        assert torch.equal(tm.matvec_t(A, x, block=4), full)
+        assert torch.equal(full.cpu(), tc.matvec_t(A.cpu(), x.cpu()))
+
+
+def test_stark_step_tree_sumcheck_on_card(dev):
+    """The limbed FoldingStep on the card equals the CPU step output by
+    output (two S3 folds a step), with a forced commit block; a 4-leaf
+    FoldingTree verifies and rejects a tampered digit commitment; the
+    generic sumcheck prover over stark_prime equals the CPU proof."""
+    from stark_rings_tpu_torch.mle.sumcheck_kernel import sumcheck_prove_many
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, cpu = (get_ring("stark_prime", device=d) for d in (dev, "cpu"))
+    f = ring.field
+    fs = FoldingStep(ring, n_rows=3, wit_len=5, base=1 << 16)
+    fc = FoldingStep(cpu, n_rows=3, wit_len=5, base=1 << 16)
+    c, ins = _step_inputs(fs, np.random.default_rng(33), W=3)
+    before = S.LAUNCHES["limb_fold"]
+    out = fs.step(c, *ins)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["limb_fold"] - before == 2
+    want = fc.step({"Agt": c["Agt"].cpu()}, *(x.cpu() for x in ins))
+    assert sorted(out) == sorted(want)
+    for key, val in want.items():
+        assert torch.equal(out[key].cpu(), val), key
+    assert torch.equal(fs.commit(c, fs.tm.crt_t(out["digits"]), block=7),
+                       out["cd"])
+    ft = FoldingTree(ring, 2, 2, base=1 << 16, psi_check=False)
+    rng = np.random.default_rng(34)
+    ct = ft.init_tables(rng)
+    wt = ft.rand_witnesses(4, rng)
+    cw = ft.commit_witnesses(ct, wt)
+    rts = ft.precompute_challenges([ring.rand_coeff((), rng)
+                                    for _ in range(2)])
+    levels, _, _ = ft.prove(ct, wt, cw, rts)
+    assert ft.verify(ct, wt, cw, levels, rts)
+    bad = [dict(o) for o in levels]
+    bad[0]["cd"] = f.add(bad[0]["cd"], f.ones((), dev))
+    assert not ft.verify(ct, wt, cw, bad, rts)
+    tables = [f.rand((1 << 10,), rng, dev) for _ in range(3)]
+    chal = f.rand((10,), rng, dev)
+    msgs, finals = sumcheck_prove_many(tables, chal, field="stark_prime")
+    m_c, f_c = sumcheck_prove_many([t.cpu() for t in tables], chal.cpu(),
+                                   field="stark_prime")
+    assert msgs.shape == (10, 4, 8) and torch.equal(msgs.cpu(), m_c)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(finals, f_c))

@@ -162,11 +162,17 @@ def test_int_words_round_trip_and_representatives():
 
 
 def test_limbed_fields_wait_for_stark_prime():
-    class Limbed:
-        name, limbed = "stark_prime", True
-
-    with pytest.raises(AssertionError, match="step 3"):
-        PD.signed_magnitude(Limbed(), torch.zeros(3, 8))
+    """The limbed field decomposes: its magnitudes are limb tensors and
+    its balanced digits recompose (held against the reference in
+    tests/test_torch_stark_ring.py)."""
+    f = get_field("stark_prime")
+    x = f.encode([0, 5, -5, (f.q - 1) // 2, (f.q + 1) // 2], "cpu")
+    neg, mag = PD.signed_magnitude(f, x)
+    assert neg.tolist() == [False, False, True, False, True]
+    assert mag.shape == (5, 8) and mag.dtype == torch.int32
+    dig = PD.decompose(f, x, 1 << 16, 16)
+    assert dig.shape == (5, 16, 8)
+    assert torch.equal(PD.recompose(f, dig, 1 << 16), x)
 
 
 @pytest.mark.parametrize("name", NAMES)

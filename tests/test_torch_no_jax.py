@@ -59,6 +59,8 @@ import stark_rings_tpu_torch.ops.stages
 import stark_rings_tpu_torch.ops.dense_linear
 import stark_rings_tpu_torch.ops.mxu_dense
 import stark_rings_tpu_torch.ops.model_mul
+import stark_rings_tpu_torch.ops.stark
+import stark_rings_tpu_torch.ops.mxu_limb
 import stark_rings_tpu_torch.models
 import stark_rings_tpu_torch.decomp
 import stark_rings_tpu_torch.decomp.balanced
@@ -130,6 +132,18 @@ for field in ("goldilocks", "babybear"):
         sn.shard(sn.to_matrix(a), cspec, mesh)), cspec, "cpu")
     want = stark_rings_tpu_torch.get_power_ring(field, 8, device="cpu")
     assert (sn.from_matrix(got) == want.coeff_square(a)).all()
+ring = R.get_ring("stark_prime", device="cpu")
+x = ring.rand_coeff((2,), np.random.default_rng(0))
+tm = stark_rings_tpu_torch.ops.model_mul.TModelMul(ring)
+assert (tm.mul(x, x) == ring.coeff_mul(x, x)).all()
+pr = stark_rings_tpu_torch.get_power_ring("stark_prime", 5, device="cpu")
+y = pr.rand_coeff((1,), np.random.default_rng(0))
+assert (pr.mxu_ctx().mul(y, y) == pr.coeff_square(y)).all()
+fs = FoldingStep(ring, n_rows=1, wit_len=1, base=1 << 16)
+c = fs.init_tables(np.random.default_rng(1))
+w = fs.rand_witness(2, np.random.default_rng(2))
+rt = fs.precompute_challenge(x[0])
+assert fs.step(c, w, w, w[:, :, :1], w[:, :, :1], rt)["ok_l2"].all()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked

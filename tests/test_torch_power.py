@@ -222,7 +222,8 @@ def test_power_ring_matches_reference(name, logN):
 
 def test_power_ring_schoolbook_oracle_and_unported_fields():
     """The C++ schoolbook for any q (the BabyBear oracle) against the
-    reference's HostRing and the ring's multiply; stark_prime raises."""
+    reference's HostRing and the ring's multiply; stark_prime's power
+    ring multiplies on MxuLimbNTT, as its NTTContext does."""
     ring = get_power_ring("babybear", 10, device="cpu")
     rng = np.random.default_rng(6)
     a = rng.integers(0, ring.q, (2, ring.D), dtype=np.uint32)
@@ -236,8 +237,10 @@ def test_power_ring_schoolbook_oracle_and_unported_fields():
                                          for x, y in zip(ca, cb)]))
     prod = ring.mxu_ctx().mul(to_torch_u32(a, "cpu"), to_torch_u32(b, "cpu"))
     assert np.array_equal(np.array(ring.decode(prod), dtype=np.uint64), got)
-    with pytest.raises(NotImplementedError, match="Slice F item 15"):
-        get_power_ring("stark_prime", 9, device="cpu")
+    sp = get_power_ring("stark_prime", 4, device="cpu")
+    x, y = (sp.rand_coeff((2,), rng) for _ in range(2))
+    assert x.shape == (2, 16, 8)
+    assert torch.equal(sp.mxu_ctx().mul(x, y), sp.coeff_mul(x, y))
 
 
 def test_config1_goldilocks_pow2_ring():

@@ -210,8 +210,13 @@ def test_step_chains_and_multi_device_raises():
     out2 = fs.step(c, out["s"], s1, out["cd"], c1, rt)
     assert out2["s"].shape == out["s"].shape == (ring.D, 2, 2)
     assert out2["cd"].shape == out["cd"].shape == (ring.D, 2, 2)
-    with pytest.raises(NotImplementedError, match="step 3"):
-        ntt_matvec(ring.field, fs.tm, 1, c["Agt"], out["digits"])
+    # the E == 1 branch (stark_prime's, held in test_torch_stark_protocol)
+    # contracts with the field's product: its widened blocks agree
+    f = ring.field
+    full = ntt_matvec(f, fs.tm, 1, c["Agt"], out["digits"])
+    assert full.shape == (ring.D, 2, 2)
+    assert torch.equal(ntt_matvec(f, fs.tm, 1, c["Agt"], out["digits"],
+                                  block=3), full)
     with pytest.raises(NotImplementedError, match="step 6"):
         fs.make_sharded_step_fn(None)
     with pytest.raises(NotImplementedError, match="step 6"):

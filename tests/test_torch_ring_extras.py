@@ -237,8 +237,10 @@ def test_ring_elems_and_models_registry():
     assert e.device.type == "cpu"
     # the registry resolves names on access, on the default device
     assert models.get_ring is get_ring and models.RingModel is type(ring)
-    with pytest.raises(NotImplementedError, match="queue 1 step 3"):
-        models.stark_prime
+    assert models.get_ring("stark_prime", device="cpu").field.limbed
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            models.stark_prime
     with pytest.raises(AttributeError):
         models.nope
     if not torch.cuda.is_available():

@@ -171,8 +171,8 @@ def test_get_ring_cache_and_refusals():
     assert get_ring("frog", device="cpu") is ring
     assert RINGS[("frog", "cpu")] is ring and isinstance(ring, RingModel)
     assert (ring.D, ring.N, ring.E) == (16, 4, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 step 3"):
-        get_ring("stark_prime", device="cpu")
+    sp = get_ring("stark_prime", device="cpu")
+    assert (sp.D, sp.N, sp.E) == (16, 16, 1) and sp.field.limbed
     with pytest.raises(KeyError):
         get_ring("nope", device="cpu")
     if not torch.cuda.is_available():
@@ -180,9 +180,9 @@ def test_get_ring_cache_and_refusals():
             get_ring("goldilocks")
     with pytest.raises(ValueError, match="last axis"):
         ring.encode_coeffs([1, 2, 3])
-    with pytest.raises(NotImplementedError, match="queue 1 step 3"):
-        mxu_dense.prescaled_dense(type("F", (), {"name": "stark_prime"}),
-                                  [[1]], "cpu")
+    with pytest.raises(KeyError, match="no prescaled matrix"):
+        mxu_dense.prescaled_dense(type("F", (), {"name": "nope"}), [[1]],
+                                  "cpu")
     # rand draws from a numpy Generator onto the ring's device
     x = ring.rand_coeff((2, 3), np.random.default_rng(0))
     assert x.shape == (2, 3, 16) and x.device.type == "cpu"

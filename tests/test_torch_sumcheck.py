@@ -138,10 +138,9 @@ def test_k7_wrapper_matches_generic_msb_prover(nv, k):
 
 def test_k7_rejects_unported_fields_and_bad_tables():
     T = torch.zeros(1 << 12, dtype=torch.int64)
-    with pytest.raises(ValueError,
-                       match="no sumcheck kernel for field 'stark_prime'"
-                       ".*Slice C item 9"):
-        SK.sumcheck_prove_many([T, T], [0] * 12, field="stark_prime")
+    with pytest.raises(ValueError, match="no sumcheck kernel for field "
+                                         "'nope'"):
+        SK.sumcheck_prove_many([T, T], [0] * 12, field="nope")
     with pytest.raises(TypeError, match="field"):
         SK.sumcheck_prove_batch_goldilocks([T[None], T[None]], [0] * 12,
                                            field="babybear")
