@@ -36,7 +36,10 @@ Slice H (sharded) is the four-step NTT of ``parallel/ntt.py`` at deg
 on a mesh of 8 shards of the one card, whose every exchange is one
 launch of the twiddle-fused exchange kernel K8 (``twiddle_exchange_fwd``
 and ``twiddle_exchange_inv``, over Goldilocks and BabyBear), and the
-single-device ``PowerRing.fourstep_ctx()``.
+single-device ``PowerRing.fourstep_ctx()``.  Its Goldilocks local
+transforms are the cyclic radix tile ``ntt_tile`` (one launch a shard's
+columns or rows) and its twist, twiddle and slot products
+``pointwise_mul`` (tables broadcast over the batch).
 
 The ring models are the batch-trailing model-CRT multiply
 ``TModelMul.mul_t`` over goldilocks (B = 65,536), babybear (B = 16,384)
@@ -45,6 +48,12 @@ is one digit GEMM (``torch._int_mm``) and one bucket fold, K3
 (``fold_end``) at R = 24 for goldilocks and K4's ``bb_fold_end`` at R =
 72 for babybear (frog folds in torch ops); and the Ajtai commit
 ``matvec_t`` at n = 8, m = 1,024, W = 16, unblocked and blocked.
+
+The linalg slice is BASELINE config 4's mat-vec into its MLEs: a
+``SparseMatrix`` of 2^20 x 2^20 with 4 terms a row over Goldilocks,
+``mul_vec`` (a gather, a product and the field's ``segment_sum``), the
+MLE of the product through K5 and K6, the nv = 40 ``SparseMLE`` of the
+matrix, a ring-element mat-vec and ``DenseMLE.from_matrix``.
 
 The stark slice is BASELINE config 3, the 252-bit stark prime in eight
 u32 limbs: ``get_power_ring("stark_prime", 12).mxu_ctx()``
@@ -206,23 +215,36 @@ Phases, one line each:
  29. sharded parity: K8 forward and inverse against their twins, bit for
      bit, over Goldilocks and BabyBear at deg 2^20: 8 shards at B = 8 on
      tables of zeros, of q-1 and of random words, and batchless; 1, 2
-     and 4 shards at B = 2;
- 30. sharded path, launches counted: on 8 shards at deg 2^20, B = 8,
-     the Goldilocks forward, inverse, mul, mul_cached (batch-8 and
-     batch-1 cached operands) and square with K8, each bit-equal to the
-     "xla" route; mul also to fourstep_ctx().mul, GoldilocksKernelNTT.mul
-     and HostGoldilocks.mul (row 0), forward to fourstep_ctx().forward,
-     inverse(forward) = id; the BabyBear mul to the "xla" route,
-     fourstep_ctx().mul and HostRing.mul (row 0); local="mxu" to
-     local="vpu";
- 31. launch counts of phase 30 (K8's four instances must each have run,
-     3 per mul, 2 per square);
+     and 4 shards at B = 2; the cyclic radix tile on a shard's columns
+     as [8,192, 1,024] rows against NTTContext(negacyclic=False) and its
+     twin, and pointwise_mul on a [8, 1,024, 128] shard with b a
+     [1,024, 128] table, a batch-1 operand, its own shape and one
+     element against its twin;
+ 30. sharded path, launches counted (K8, ntt_tile, pointwise_mul and
+     NTTContext's transforms, zeroed before): on 8 shards at deg 2^20,
+     B = 8, the Goldilocks forward, inverse, mul, mul_cached (batch-8
+     and batch-1 cached operands) and square with K8, each bit-equal to
+     the "xla" route; mul also to fourstep_ctx().mul (run on the path),
+     GoldilocksKernelNTT.mul and HostGoldilocks.mul (row 0),
+     fourstep_ctx().mul to GoldilocksKernelNTT.mul and HostGoldilocks,
+     forward to fourstep_ctx().forward, inverse(forward) = id; the
+     BabyBear mul to the "xla" route, fourstep_ctx().mul and
+     HostRing.mul (row 0); local="mxu" to local="vpu";
+ 31. launch counts of phase 30: K8's four instances must each have run,
+     3 per mul, 2 per square; per shard a Goldilocks mul 6 ntt_tile and
+     4 pointwise_mul launches (fourstep_ctx().mul: 6 and 7), a square 4
+     and 3, no ntt_stage and no NTTContext transform; BabyBear 6
+     NTTContext transforms a shard (no radix kernel over it);
  32. timings (CUDA events, median of 10 after warm-up): K8 against its
      twin, its bound and the block transpose alone (one permute and
-     contiguous on the stacked shards); the sharded mul with K8 and with
-     the "xla" route; fourstep_ctx().mul and GoldilocksKernelNTT.mul in
-     turns; make_phase_fns' three phases;
- 33. profile: device busy time against wall time of one sharded mul.
+     contiguous on the stacked shards); the four-step's tile and
+     broadcast pointwise_mul at its shapes against their twins and
+     bounds; the sharded mul with K8 and with the "xla" route;
+     fourstep_ctx().mul and GoldilocksKernelNTT.mul in turns;
+     make_phase_fns' three phases;
+ 33. profile: device busy time against wall time of one sharded mul and
+     one fourstep_ctx().mul, the hand kernels' share and the rest
+     (transpose copies, torch ops).
 
  34. model parity: K3 at R = 24, B = 65,536 and bb_fold_end at R = 72,
      B = 16,384 against their twins on the model CRT GEMM's buckets, at
@@ -237,7 +259,8 @@ Phases, one line each:
      bb_fold_end a babybear one, none for frog);
  37. timings (CUDA events, median of 10 after warm-up): K3 and
      bb_fold_end at the model shapes against their twins and memory
-     floors; mults/s of each mul_t with the stages of one CRT GEMM
+     floors, their device-only time (torch.profiler) with the wrapper's
+     host time apart; mults/s of each mul_t with the stages of one CRT GEMM
      (planes, _int_mm, offset terms, fold) and the slot product; the
      commit's rate and time per commitment, unblocked and blocked;
  38. profile: device busy time against wall time of one mul_t per
@@ -292,10 +315,33 @@ The stark slice (``slice_stark``):
  48. the step held as phase 40 holds it (witnesses 0 and 15 in Python
      ints), the proof's sumcheck relations in Python ints;
  49. timings: each of S1-S3 against its twin with its bound (bytes, or
-     the issue rate over the kernel's SASS instructions a thread),
+     the issue rate over the kernel's SASS instructions a thread) and
+     its device-only time (torch.profiler) with the wrapper's host time
+     apart,
      mults/s of the three multiplies and of mul_t, commits/s,
      witnesses/s, the step's stages and peak memory, proofs/s;
  50. profile: device busy against wall time of one mul and one step.
+
+The linalg slice (``slice_linalg``, BASELINE config 4's mat-vec):
+ 51. tables: A 2^20 x 2^20 with 4 terms a row (nnz 2^22) and z [2^20]
+     over Goldilocks; a 2^16 x 2^16 ring-element matrix (nnz 2^18) over
+     the goldilocks model; a 2^12 x 2^12 matrix for an nv = 24 MLE;
+ 52. the path with K5 and K6 counted from 0: y = A.mul_vec(z),
+     DenseMLE(y) (nv = 20) evaluated by K5 and fixed by K6 (k = 10),
+     SparseMLE.from_matrix(A) (nv = 40) evaluated at r||c and fixed at
+     c, the fixed MLE evaluated by K5, the ring mat-vec,
+     DenseMLE.from_matrix (nv = 24) evaluated by K5;
+ 53. oracles: 64 rows of y in Python ints; K5 and K6 against
+     DenseMLE.evaluate / fix_last_variables; fix_variables(c) against
+     A.mul_vec(eq(c, .)) and its evaluation at r against the nv = 40
+     one; the nv = 24 evaluation against SparseMLE.evaluate; 8 ring rows
+     against the spec's slot products in Python ints; a Matrix, a
+     SparseMatrix and a SparseMLE serialized to the arkworks golden
+     bytes;
+ 54. launch counts of phase 52 (3 K5 launches, 1 K6);
+ 55. timings (mat-vecs/s, SparseMLE evaluations/s, K5 / K6, the ring
+     mat-vec, from_matrix) and profiles of one mat-vec and one nv = 40
+     evaluation.
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
@@ -461,6 +507,12 @@ ST_COMMIT = (8, 1024, 16, 128)
 ST_PROTO = (8, 1024, 1 << 16, 16)
 ST_NV = 20
 ST_SHARDS, ST_SHARD_B = 4, 16   # the four-step at deg 2^12 on 4 shards
+FOURSTEP_KERNELS = {  # record -> (source, reference kernel file:line)
+    "ntt_tile[fourstep cyclic]": (
+        NTT_SOURCE, "stark_rings_tpu/ops/pallas_goldilocks.py:457"),
+    "pointwise_mul[fourstep tables]": (
+        SOURCE, "stark_rings_tpu/ops/pallas_fold.py:658"),
+}
 ST_SOURCE = "stark_rings_tpu_torch/csrc/stark.cu"
 STARK_KERNELS = {  # record -> the reference's XLA code it computes
     "stark_mul": "stark_rings_tpu/fields/field.py:665",
@@ -468,6 +520,16 @@ STARK_KERNELS = {  # record -> the reference's XLA code it computes
     "stark_sub": "stark_rings_tpu/fields/field.py:638",
     "limb_fold": "stark_rings_tpu/ops/mxu_limb.py:133",
 }
+# BASELINE config 4's mat-vec (BASELINE.md:25): A is 2^20 x 2^20 with 4
+# terms a row (nnz 2^22, the shape of an R1CS / CCS matrix) over
+# Goldilocks scalars, z of 2^20; its MLEs (nv = 20 dense, nv = 40
+# sparse); a ring-element mat-vec over the Goldilocks ring model, and
+# DenseMLE.from_matrix of a 2^12 x 2^12 matrix (nv = 24)
+LA_LOG, LA_TERMS = 20, 4
+LA_ORACLE_ROWS = 64
+LA_FIX_K = 10
+LA_RING_LOG, LA_RING_ROWS = 16, 8
+LA_DM_LOG = 12
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -590,6 +652,25 @@ def host_us(fn, n=200):
         samples.append((time.perf_counter() - t0) / n * 1e6)
         torch.cuda.synchronize()
     return statistics.median(samples)
+
+
+def device_only(fn, dev, bound_ms, flush) -> str:
+    """One wrapper call's kernel time on the device alone (torch.profiler
+    over 50 calls, torch's own kernels left out), back to back (its
+    inputs partly in the 50 MB L2) and after a write of ``flush`` (the
+    L2 cold), beside its bound, and the wrapper's host time a call
+    apart, as text."""
+    skip = ("at::native",)
+    warm = device_profile(fn, 50, dev, 0, skip)[0]
+    cold = device_profile(lambda: (flush.fill_(1), fn()), 20, dev, 0,
+                          skip)[0]
+
+    def share(ms):
+        return f"{bound_ms / ms:.0%}" if ms else "not measured"
+
+    return (f"device-only {warm:.4f} ms warm ({share(warm)} of its bound "
+            f"{bound_ms:.4f} ms), {cold:.4f} ms after an L2 flush "
+            f"({share(cold)}), wrapper host {host_us(fn):.2f} us a call")
 
 
 def call_costs(counts, name, fn, dev, floor_us, flush=None) -> str:
@@ -1113,7 +1194,7 @@ def slice_e(dev, smi, rng) -> list:
     # phase 17 times it; K5 after a write of twice the 50 MB L2
     one = F.encode([1], dev)
     ptrs = (one.data_ptr(), one.data_ptr(), torch.empty_like(one).data_ptr(),
-            1)
+            1, 1)
     floor_us = 1e3 * time_ms(lambda: _build.launch(
         {"floor": 0}, "floor", _build.kernels().srt_pointwise_mul, dev,
         *ptrs), inner=LAUNCH_REPS)
@@ -1429,7 +1510,7 @@ def slice_b(dev, smi, rng, gl) -> list:
     one = F.encode([1], dev)
     out = torch.empty_like(one)
     fn = _build.kernels().srt_pointwise_mul
-    ptrs = (one.data_ptr(), one.data_ptr(), out.data_ptr(), 1)
+    ptrs = (one.data_ptr(), one.data_ptr(), out.data_ptr(), 1, 1)
     scratch = {"pointwise_mul": 0}
     launch_us = {
         label: time_ms(call, inner=LAUNCH_REPS) * 1e3 for label, call in (
@@ -1743,8 +1824,8 @@ def slice_c(dev, smi, rng) -> list:
     one = F.encode([1], dev)
     floor_us = 1e3 * time_ms(lambda: _build.launch(
         {"floor": 0}, "floor", _build.kernels().srt_pointwise_mul, dev,
-        one.data_ptr(), one.data_ptr(), torch.empty_like(one).data_ptr(), 1),
-        inner=LAUNCH_REPS)
+        one.data_ptr(), one.data_ptr(), torch.empty_like(one).data_ptr(), 1,
+        1), inner=LAUNCH_REPS)
     for (nv, k), (n, wall, busy, host) in wide_times(
             dev, rng, SC_WIDE_TIMED).items():
         moved = 8 * ((k << nv) + nv * (k + 1) + k)
@@ -2135,11 +2216,13 @@ def slice_sharded(dev, smi, rng) -> list:
     import torch
 
     from stark_rings_tpu_torch import (BABYBEAR as FB, GOLDILOCKS as F,
-                                       GoldilocksKernelNTT, ShardedNTT,
-                                       get_power_ring, make_mesh,
+                                       GoldilocksKernelNTT, NTTContext,
+                                       ShardedNTT, get_power_ring, make_mesh,
                                        to_numpy_u32, to_numpy_u64, to_torch)
     from stark_rings_tpu_torch.native.host import HostGoldilocks, HostRing
     from stark_rings_tpu_torch.ops import _build
+    from stark_rings_tpu_torch.ops import fold as K
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
     from stark_rings_tpu_torch.parallel import exchange as EX
 
     fields = {"goldilocks": F, "babybear": FB}
@@ -2210,6 +2293,41 @@ def slice_sharded(dev, smi, rng) -> list:
           f"q-1 and random tables and batchless; P={SH_PS} B={SH_B_SMALL}) "
           f"bit-equal to the twins in {time.perf_counter() - t0:.1f} s")
 
+    # the four-step's local kernels at its shapes: the cyclic radix tile
+    # on a shard viewed as [B*C, N1] rows, and pointwise_mul with the
+    # twist / twiddle table broadcast over the batch
+    t0 = time.perf_counter()
+    for name in FOURSTEP_KERNELS:
+        max_err[name] = 0
+    cyc = GoldilocksKernelNTT(N1, device=dev, negacyclic=False)
+    ctx_c = NTTContext(F, N1, negacyclic=False, device=dev)
+    rows_p = table(F, (SH_B * N2 // SH_P, N1), "random")   # a P = 8 shard
+    rows_c = table(F, (SH_B * N2, N1), "random")           # fourstep_ctx()
+    tile = "ntt_tile[fourstep cyclic]"
+    for rows in (rows_p, rows_c):
+        for what, got, want in (
+                ("forward", cyc.forward(rows), ctx_c.forward(rows)),
+                ("inverse", cyc.inverse(rows), ctx_c.inverse(rows)),
+                ("forward twin", cyc.forward(rows), G.ntt_tile_ref(
+                    rows, *cyc.tables(), cyc.log_tile, "forward"))):
+            check(max_err, tile, got, want, f"{shape(rows)} {what}")
+    pw = "pointwise_mul[fourstep tables]"
+    xs4 = table(F, (SH_B, N1, N2 // SH_P), "random")
+    bcasts = {"table": table(F, (N1, N2 // SH_P), "random"),
+              "batch-1": table(F, (1, N1, N2 // SH_P), "random"),
+              "same shape": table(F, xs4.shape, "random"),
+              "one element": table(F, (1,), "q-1")}
+    for what, tb in bcasts.items():
+        check(max_err, pw, K.pointwise_mul(xs4, tb),
+              K.pointwise_mul_ref(xs4, tb), f"{shape(xs4, tb)} {what}")
+    torch.cuda.synchronize()
+    phase("sharded parity", f"the cyclic radix tile at {shape(rows_p)} "
+          f"and {shape(rows_c)} (forward, inverse) bit-equal to "
+          f"NTTContext(negacyclic=False) "
+          f"and its twin; pointwise_mul on {shape(xs4)} with b broadcast "
+          f"({', '.join(bcasts)}) bit-equal to its twin "
+          f"({time.perf_counter() - t0:.1f} s)")
+
     # -- 30. the path, launches counted -----------------------------------
     def fns(sn):
         return (*sn.make_fns(mesh, batch_ndim=1),
@@ -2227,7 +2345,23 @@ def slice_sharded(dev, smi, rng) -> list:
     sab, sbb = shards(bb, abb), shards(bb, bbb)
     sb1 = shards(gl, b[:1])
     torch.cuda.synchronize()
+    # NTTContext's transforms, counted on the path: no Goldilocks
+    # four-step may run one (BabyBear has no radix kernel, it does)
+    ctx_calls = {"n": 0}
+
+    def counted(fn):
+        def call(self, x):
+            ctx_calls["n"] += 1
+            return fn(self, x)
+        return call
+
+    orig = {m: getattr(NTTContext, m) for m in ("forward", "inverse")}
+    for m, fn in orig.items():
+        setattr(NTTContext, m, counted(fn))
+    counters = (EX.LAUNCHES, G.LAUNCHES, K.LAUNCHES, ctx_calls)
     EX.reset_launches()
+    G.reset_launches()
+    K.reset_launches()
     t0 = time.perf_counter()
     runs = {
         "gl forward": lambda: fwd(sa),
@@ -2238,22 +2372,31 @@ def slice_sharded(dev, smi, rng) -> list:
         "gl square": lambda: square(sa),
         "bb mul": lambda: fns(bb)[2](sab, sbb),
         "gl mxu mul": lambda: fns(smx)[2](sa, sb),
+        "gl fourstep mul": lambda: fs["goldilocks"].mul(a, b),
     }
     results, per_variant = {}, {}
-    for name, fn in runs.items():
-        before = dict(EX.LAUNCHES)
-        results[name] = fn()
-        per_variant[name] = {k: v - before[k] for k, v in EX.LAUNCHES.items()
-                             if v != before[k]}
-    torch.cuda.synchronize()
-    launches = dict(EX.LAUNCHES)
+    try:
+        for name, fn in runs.items():
+            before = [dict(c) for c in counters]
+            results[name] = fn()
+            per_variant[name] = {
+                ("NTTContext" if k == "n" else k): v - was[k]
+                for c, was in zip(counters, before) for k, v in c.items()
+                if v != was[k]}
+        torch.cuda.synchronize()
+    finally:
+        for m, fn in orig.items():
+            setattr(NTTContext, m, fn)
+    launches = {**EX.LAUNCHES, "ntt_tile": G.LAUNCHES["ntt_tile"],
+                "pointwise_mul": K.LAUNCHES["pointwise_mul"]}
     path_s = time.perf_counter() - t0
     phase("sharded path", f"{len(runs)} calls at deg {SH_N}, P={SH_P}, "
           f"B={SH_B} in {path_s:.2f} s; launches {per_variant}")
 
     t0 = time.perf_counter()
     got = {k: whole(gl, v, 1 if k == "gl forward" else 0)
-           for k, v in results.items() if not k.startswith(("bb", "gl mxu"))}
+           for k, v in results.items()
+           if not k.startswith(("bb", "gl mxu", "gl fourstep"))}
     xf = fns(sx["goldilocks"])
     want = {"gl forward": whole(gl, xf[0](sa), 1),
             "gl mul": whole(gl, xf[2](sa, sb)),
@@ -2268,7 +2411,10 @@ def slice_sharded(dev, smi, rng) -> list:
         raise AssertionError("inverse(forward(a)) != a")
     if not torch.equal(got["gl forward"], fs["goldilocks"].forward(a)):
         raise AssertionError("the sharded forward differs from fourstep_ctx's")
-    ab = fs["goldilocks"].mul(a, b)
+    ab = results["gl fourstep mul"]
+    if u64_err(ab, radix.mul(a, b), "fourstep_ctx().mul"):
+        raise AssertionError("fourstep_ctx().mul differs from "
+                             "GoldilocksKernelNTT.mul")
     others = {"fourstep_ctx().mul": ab, "GoldilocksKernelNTT.mul":
               radix.mul(a, b)}
     for what, w in others.items():
@@ -2290,15 +2436,18 @@ def slice_sharded(dev, smi, rng) -> list:
     host_gl = orc["goldilocks"].result()
     host_bb = orc["babybear"].result()
     pool.shutdown()
-    if not np.array_equal(to_numpy_u64(got["gl mul"][:1]), host_gl):
-        raise AssertionError("sharded mul differs from HostGoldilocks.mul")
+    if not np.array_equal(to_numpy_u64(got["gl mul"][:1]), host_gl) or \
+            not np.array_equal(to_numpy_u64(ab[:1]), host_gl):
+        raise AssertionError("sharded mul or fourstep_ctx().mul differs "
+                             "from HostGoldilocks.mul")
     if not np.array_equal(to_numpy_u32(FB.canon(bbm[:1])).astype(np.uint64),
                           host_bb):
         raise AssertionError("bb sharded mul differs from HostRing.mul")
     phase("sharded path", f"goldilocks forward / inverse / mul / mul_cached "
           f"(batch {SH_B} and 1) / square bit-equal to the xla route, mul to "
           f"fourstep_ctx().mul, GoldilocksKernelNTT.mul and HostGoldilocks"
-          f".mul (row 0), forward to fourstep_ctx().forward, inverse(forward)"
+          f".mul (row 0; fourstep_ctx().mul too), forward to "
+          f"fourstep_ctx().forward, inverse(forward)"
           f" = id; babybear mul to the xla route, fourstep_ctx().mul and "
           f"HostRing.mul (row 0); local=mxu mul to local=vpu "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -2310,9 +2459,29 @@ def slice_sharded(dev, smi, rng) -> list:
             raise AssertionError(f"{name} was never launched on the path")
     for name, n in (("gl mul", 3), ("gl mul_cached", 3), ("gl square", 2),
                     ("bb mul", 3), ("gl mxu mul", 3)):
-        if sum(per_variant[name].values()) != n:
+        k8 = sum(v for k, v in per_variant[name].items()
+                 if k.startswith("twiddle_exchange"))
+        if k8 != n:
             raise AssertionError(f"{name}: {per_variant[name]}, not {n} K8 "
                                  "launches")
+    # a shard's local transforms are one tile launch each (N1 = N2 =
+    # 2^10); its products pointwise_mul, the twiddles inside K8
+    expect = {  # variant -> (shards, tiles, products, NTTContext calls)
+        "gl forward": (SH_P, 2, 1, 0), "gl inverse": (SH_P, 2, 1, 0),
+        "gl mul": (SH_P, 6, 4, 0), "gl mul_cached": (SH_P, 6, 4, 0),
+        "gl mul_cached_batch1": (SH_P, 6, 4, 0),
+        "gl square": (SH_P, 4, 3, 0), "gl mxu mul": (SH_P, 0, 4, 0),
+        "bb mul": (SH_P, 0, 0, 6), "gl fourstep mul": (1, 6, 7, 0)}
+    for name, (p_, tiles, prods, ctxs) in expect.items():
+        got_n = tuple(per_variant[name].get(k, 0) for k in (
+            "ntt_tile", "pointwise_mul", "NTTContext", "ntt_stage"))
+        if got_n != (p_ * tiles, p_ * prods, p_ * ctxs, 0):
+            raise AssertionError(f"{name}: (ntt_tile, pointwise_mul, "
+                                 f"NTTContext, ntt_stage) = {got_n}, not "
+                                 f"{(p_ * tiles, p_ * prods, p_ * ctxs, 0)}")
+    for name in FOURSTEP_KERNELS:
+        if launches[name.split("[")[0]] <= 0:
+            raise AssertionError(f"{name} was never launched on the path")
 
     # -- 32. timings -----------------------------------------------------------
     rate = modmul_peak(dev)[0]
@@ -2363,6 +2532,36 @@ def slice_sharded(dev, smi, rng) -> list:
                   f"bound {bound:.4f} ms ({bound / ms:.0%} of it); the block "
                   f"transpose alone (permute + contiguous) {tr_ms:.4f} ms  "
                   f"({smi})")
+    # the four-step's local kernels alone at fourstep_ctx()'s shapes: the
+    # cyclic tile on its columns as [B*N2, N1] rows, and the twist table
+    # [N1, N2] against its [B, N1, N2] operand
+    tile_rec, pw_rec = FOURSTEP_KERNELS
+    wf, wi, ninv = cyc.tables()
+    lt = cyc.log_tile
+
+    def tile_fn():
+        return G.ntt_tile(rows_c, wf, wi, ninv, lt, "forward")
+
+    xs1 = table(F, (SH_B, N1, N2), "random")
+    tw1 = table(F, (N1, N2), "random")
+    timed4 = {
+        tile_rec: (tile_fn, lambda: G.ntt_tile_ref(rows_c, wf, wi, ninv, lt,
+                                                   "forward"),
+                   (rows_c, wf), rows_c.numel() // 2 * lt),
+        pw_rec: (lambda: K.pointwise_mul(xs1, tw1),
+                 lambda: K.pointwise_mul_ref(xs1, tw1), (xs1, tw1),
+                 xs1.numel())}
+    for name, (kern, twin, inputs, modmuls) in timed4.items():
+        moved = nbytes(inputs, kern())
+        ms = time_ms(kern, inner=10)
+        plain_ms = time_ms(twin)
+        ops_ms[name] = modmuls / rate * 1e3
+        times[name] = (ms, plain_ms, moved)
+        bound = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms[name])
+        phase("sharded time", f"{name} {shape(*inputs)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; {moved} B, {modmuls} modmuls "
+              f"({ops_ms[name]:.4f} ms at the peak), bound {bound:.4f} ms "
+              f"({bound / ms:.0%} of it)  ({smi})")
     mul_x = fns(sx["goldilocks"])[2]
     rates = {"pallas (K8)": time_ms(lambda: mul(sa, sb)),
              "xla": time_ms(lambda: mul_x(sa, sb))}
@@ -2388,14 +2587,26 @@ def slice_sharded(dev, smi, rng) -> list:
           + f"  ({smi})")
 
     # -- 33. where the device time of one sharded mul goes ---------------------
-    busy_ms, wall_ms, top = device_profile(lambda: mul(sa, sb), 1, dev, 6)
-    phase("sharded profile", f"sharded mul deg {SH_N} P={SH_P} B={SH_B}: "
-          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled), "
-          f"idle share {1 - busy_ms / wall_ms:.3f}; per mul: {top}  ({smi})")
+    for label, fn in ((f"sharded mul P={SH_P}", lambda: mul(sa, sb)),
+                      ("fourstep_ctx().mul", lambda: fs["goldilocks"].mul(
+                          a, b))):
+        kerns = []
+        busy_ms, wall_ms, top = device_profile(fn, 3, dev, 8, rows_out=kerns)
+        mine = sum(t for k, _, t in kerns if "ntt_tile_kernel" in k
+                   or "pointwise_mul_kernel" in k or "twiddle_exchange" in k)
+        phase("sharded profile", f"{label} deg {SH_N} B={SH_B}: device busy "
+              f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall (profiled), idle "
+              f"share {1 - busy_ms / wall_ms:.3f}; the hand kernels "
+              f"{mine:.3f} ms, the rest (transpose copies, torch ops) "
+              f"{busy_ms - mine:.3f} ms ({(busy_ms - mine) / busy_ms:.0%} of "
+              f"busy); per mul: {top}  ({smi})")
 
     return [record(name, EXCHANGE_SOURCE, ref, launches[name], max_err[name],
                    *times[name], ops_ms=ops_ms[name])
-            for name, ref in EXCHANGE_KERNELS.items()]
+            for name, ref in EXCHANGE_KERNELS.items()] + [
+        record(name, src, ref, launches[name.split("[")[0]], max_err[name],
+               *times[name], ops_ms=ops_ms[name])
+        for name, (src, ref) in FOURSTEP_KERNELS.items()]
 
 
 def model_stages(tm, at, bt) -> dict:
@@ -2616,6 +2827,7 @@ def slice_models(dev, smi, rng) -> list:
                                  "path")
 
     # -- 37. timings --------------------------------------------------------
+    flush = torch.empty(100 << 20, dtype=torch.uint8, device=dev)  # 2 x L2
     times = {}
     for rec, (mod, fold, V, R) in folds.items():
         kern = getattr(mod, fold)
@@ -2627,7 +2839,9 @@ def slice_models(dev, smi, rng) -> list:
         floor = moved / HBM_BYTES_PER_S * 1e3
         phase("model time", f"{rec} {shape(V)}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, memory floor {floor:.4f} ms ({moved} B; "
-              f"{floor / ms:.0%} of the rate)  ({smi})")
+              f"{floor / ms:.0%} of the rate); " + device_only(
+                  lambda: kern(V, R, signed=False), dev, floor, flush)
+              + f"  ({smi})")
     for name, (at, bt) in ops.items():
         tm = tms[name]
         ms = time_ms(lambda: tm.mul_t(at, bt))
@@ -3293,6 +3507,7 @@ def slice_stark(dev, smi, rng) -> list:
                       (Vl,), Vl.shape[1] * e.N1, r"limb_fold_kernelILb0E"),
     }
     times, ops_ms = {}, {}
+    flush = torch.empty(100 << 20, dtype=torch.uint8, device=dev)  # 2 x L2
     for name, (kern, twin, inputs, threads, pat) in timed.items():
         moved = nbytes(inputs, kern())
         ms = time_ms(kern, inner=10)
@@ -3304,8 +3519,8 @@ def slice_stark(dev, smi, rng) -> list:
         phase("stark time", f"{name} {shape(*inputs)}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; {moved} B, {threads} threads x "
               f"{per} SASS instructions ({ops_ms[name]:.4f} ms at the "
-              f"issue rate), bound {floor:.4f} ms ({floor / ms:.0%} of it)"
-              f"  ({smi})")
+              f"issue rate), bound {floor:.4f} ms ({floor / ms:.0%} of it); "
+              + device_only(kern, dev, floor, flush) + f"  ({smi})")
     fbc = e.precompute(b)
     mul_ms = {name: time_ms(fn) for name, fn in (
         ("mul", lambda: e.mul(a, b)),
@@ -3361,6 +3576,212 @@ def slice_stark(dev, smi, rng) -> list:
     return [record(name, ST_SOURCE, ref, launches[name], max_err[name],
                    *times[name], ops_ms=ops_ms[name])
             for name, ref in STARK_KERNELS.items()]
+
+
+def eq_table(F, pts, dev):
+    """eq(pts, x) for every x in {0,1}^n, variable j at bit j: [2^n]."""
+    import torch
+
+    one = F.ones((), dev)
+    t = F.ones((1,), dev)
+    for p in pts:
+        t = torch.cat([F.mul(t, F.sub(one, p)), F.mul(t, p)])
+    return t
+
+
+def slice_linalg(dev, smi, rng) -> list:
+    """Phases 51-55: BASELINE config 4's mat-vec into its MLEs at full
+    width, ``SparseMatrix`` / ``SparseMLE`` / ``DenseMLE.from_matrix``
+    over Goldilocks on the card, with K5 and K6 on the path.  No kernel
+    of its own (the reference runs sparse linalg in XLA): returns no
+    record."""
+    import struct
+
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import (BABYBEAR, GOLDILOCKS as F, get_ring,
+                                       to_torch)
+    from stark_rings_tpu_torch import utils as U
+    from stark_rings_tpu_torch.linalg import (FieldElems, Matrix, RingElems,
+                                              SparseMatrix)
+    from stark_rings_tpu_torch.mle import DenseMLE, SparseMLE
+    from stark_rings_tpu_torch.mle import fix as FX
+    from stark_rings_tpu_torch.spec import get_model
+
+    q = F.q
+    n = 1 << LA_LOG
+    nnz = n * LA_TERMS
+
+    # -- 51. tables ------------------------------------------------------------
+    t0 = time.perf_counter()
+    e = FieldElems(F, dev)
+    cols_np = rng.integers(0, n, nnz, dtype=np.int64).astype(np.int32)
+    data_np = rng.integers(0, q, nnz, dtype=np.uint64)
+    z_np = rng.integers(0, q, n, dtype=np.uint64)
+    rows = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(
+        LA_TERMS)
+    A = SparseMatrix(e, n, n, to_torch(data_np, dev), rows,
+                     torch.from_numpy(cols_np).to(dev))
+    z = to_torch(z_np, dev)
+    pts = F.rand((2 * LA_LOG,), rng, dev)       # c (columns), then r (rows)
+    c, r = list(pts[:LA_LOG]), list(pts[LA_LOG:])
+    ring = get_ring("goldilocks", device=dev)
+    er = RingElems(ring)
+    rn = 1 << LA_RING_LOG
+    rnnz = rn * LA_TERMS
+    rcols = rng.integers(0, rn, rnnz, dtype=np.int64)
+    AR = SparseMatrix(er, rn, rn, er.rand((rnnz,), rng),
+                      torch.arange(rn, device=dev).repeat_interleave(
+                          LA_TERMS), torch.from_numpy(rcols).to(dev))
+    zr = er.rand((rn,), rng)
+    dn = 1 << LA_DM_LOG
+    AD = SparseMatrix(e, dn, dn, e.rand((dn * LA_TERMS,), rng),
+                      torch.arange(dn, device=dev).repeat_interleave(
+                          LA_TERMS),
+                      torch.from_numpy(rng.integers(0, dn, dn * LA_TERMS))
+                      .to(dev))
+    pd = F.rand((2 * LA_DM_LOG,), rng, dev)
+    torch.cuda.synchronize()
+    phase("linalg tables", f"A {n} x {n}, nnz {nnz} "
+          f"({nbytes(A.data, A.rows, A.cols)} B of data and indices), z "
+          f"[{n}]; the ring mat-vec {rn} x {rn}, nnz "
+          f"{rnnz} over the goldilocks model (D = {ring.D}); the nv = "
+          f"{2 * LA_DM_LOG} matrix {dn} x {dn}, nnz {dn * LA_TERMS}; built "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    # -- 52. the path, launches counted ---------------------------------------
+    FX.reset_launches()
+    t0 = time.perf_counter()
+    y = A.mul_vec(z)
+    dm = DenseMLE(e, LA_LOG, y)
+    y_at = FX.evaluate_goldilocks(dm.evals, r)                 # K5
+    y_fix = FX.fix_last_goldilocks(dm.evals, r[LA_LOG - LA_FIX_K:])   # K6
+    sm = SparseMLE.from_matrix(e, A)
+    full = sm.evaluate(c + r)
+    fixed = sm.fix_variables(c)
+    fixed_d = fixed.to_dense().evals
+    fixed_at = FX.evaluate_goldilocks(fixed_d, r)              # K5
+    yr = AR.mul_vec(zr)
+    mdd = DenseMLE.from_matrix(e, AD)
+    mdd_at = FX.evaluate_goldilocks(mdd.evals, list(pd))       # K5
+    torch.cuda.synchronize()
+    launches = dict(FX.LAUNCHES)
+    phase("linalg path", f"mul_vec, DenseMLE(y) through K5 and K6 (k = "
+          f"{LA_FIX_K}), SparseMLE.from_matrix (nv = {sm.num_vars}) "
+          f"evaluated and fixed at c, the ring mat-vec, DenseMLE.from_matrix "
+          f"(nv = {mdd.num_vars}) through K5 in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # -- 53. oracles -------------------------------------------------------------
+    t0 = time.perf_counter()
+    if y.shape != (n,) or sm.num_vars != 2 * LA_LOG:
+        raise AssertionError(f"y {tuple(y.shape)}, nv {sm.num_vars}")
+    pick = rng.choice(n, LA_ORACLE_ROWS, replace=False)
+    y_host = y.cpu().numpy().view(np.uint64)
+    for i in pick:
+        s_ = sum(int(data_np[t]) * int(z_np[cols_np[t]])
+                 for t in range(i * LA_TERMS, (i + 1) * LA_TERMS)) % q
+        if int(y_host[i]) != s_:
+            raise AssertionError(f"mul_vec row {i}: {int(y_host[i])} != "
+                                 f"{s_} (Python ints)")
+    checks = {
+        "K5 at r": (y_at, dm.evaluate(r)),
+        "K6 k=10": (y_fix, dm.fix_last_variables(
+            r[LA_LOG - LA_FIX_K:]).evals),
+        "fix_variables(c)": (fixed_d, A.mul_vec(eq_table(F, c, dev))),
+        "fixed at r": (fixed_at, full),
+        "from_matrix nv=24": (mdd_at, SparseMLE.from_matrix(e, AD).evaluate(
+            list(pd))),
+    }
+    for what, (got, want) in checks.items():
+        if u64_err(got, want, what):
+            raise AssertionError(f"{what}: differs")
+    model = get_model("goldilocks")
+    ring_rows = rng.choice(rn, LA_RING_ROWS, replace=False)
+    ents = (ring_rows[:, None] * LA_TERMS
+            + np.arange(LA_TERMS)[None, :]).reshape(-1)
+    yr_host = ring.decode(yr[torch.from_numpy(ring_rows).to(dev)])
+    d_host = ring.decode(AR.data[torch.from_numpy(ents).to(dev)])
+    z_host = ring.decode(zr[torch.from_numpy(rcols[ents]).to(dev)])
+    for k, i in enumerate(ring_rows):
+        acc = [0] * ring.D
+        for t in range(k * LA_TERMS, (k + 1) * LA_TERMS):
+            prod = model.ntt_mul([int(v) for v in d_host[t]],
+                                 [int(v) for v in z_host[t]])
+            acc = [(x + y_) % q for x, y_ in zip(acc, prod)]
+        if [int(v) for v in yr_host[k]] != acc:
+            raise AssertionError(f"ring mul_vec row {i} differs from the "
+                                 "spec's slot products")
+    eb = FieldElems(BABYBEAR, dev)
+
+    def u64(*v):
+        return struct.pack(f"<{len(v)}Q", *v)
+
+    def bb4(*v):
+        return b"".join(int(x).to_bytes(4, "little") for x in v)
+
+    golden = {
+        "Matrix": (Matrix.from_ints(eb, [[1, 2], [3, 4]]),
+                   u64(2, 2) + bb4(1, 2) + u64(2) + bb4(3, 4)),
+        "SparseMatrix": (SparseMatrix.from_entries(eb, 2, 3, [(0, 1, 5),
+                                                              (1, 2, 7)]),
+                         u64(2, 3, 2, 1) + bb4(5) + u64(1, 1) + bb4(7)
+                         + u64(2)),
+        "SparseMLE": (SparseMLE.from_pairs(eb, 2, [(3, 8), (1, 5)]),
+                      u64(2, 1) + bb4(5) + u64(3) + bb4(8) + u64(2)
+                      + bb4(0)),
+    }
+    for what, (obj, want) in golden.items():
+        if U.serialize_compressed(obj) != want:
+            raise AssertionError(f"{what}: bytes differ from the arkworks "
+                                 "layout")
+    phase("linalg oracle", f"{LA_ORACLE_ROWS} rows of y equal Python-int "
+          f"sums; K5 and K6 equal DenseMLE.evaluate / fix_last_variables; "
+          f"SparseMLE.fix_variables(c) equals A.mul_vec(eq(c, .)) and its "
+          f"K5 evaluation at r the nv = {sm.num_vars} evaluation at r||c; "
+          f"the nv = {mdd.num_vars} DenseMLE.from_matrix through K5 equals "
+          f"SparseMLE.evaluate; {LA_RING_ROWS} ring rows equal the spec's "
+          f"slot products in Python ints; {', '.join(golden)} serialize to "
+          f"the golden bytes ({time.perf_counter() - t0:.1f} s)")
+
+    # -- 54. launch counts --------------------------------------------------------
+    phase("linalg launches", json.dumps(launches))
+    if launches != {"evaluate_goldilocks": 3, "fix_last_goldilocks": 1}:
+        raise AssertionError(f"K5 / K6 launches on the path: {launches}, "
+                             "expected 3 and 1")
+
+    # -- 55. timings and profile ---------------------------------------------------
+    nv_s, nv_d = sm.num_vars, mdd.num_vars
+    ms = {
+        "mul_vec": time_ms(lambda: A.mul_vec(z)),
+        f"SparseMLE.evaluate nv={nv_s}": time_ms(lambda: sm.evaluate(c + r)),
+        "SparseMLE.fix_variables(c)": time_ms(lambda: sm.fix_variables(c)),
+        f"K5 nv={LA_LOG}": time_ms(lambda: FX.evaluate_goldilocks(y, r),
+                                   inner=10),
+        f"K6 nv={LA_LOG} k={LA_FIX_K}": time_ms(
+            lambda: FX.fix_last_goldilocks(y, r[LA_LOG - LA_FIX_K:]),
+            inner=10),
+        "ring mul_vec": time_ms(lambda: AR.mul_vec(zr)),
+        f"DenseMLE.from_matrix nv={nv_d}": time_ms(
+            lambda: DenseMLE.from_matrix(e, AD)),
+        f"K5 nv={nv_d}": time_ms(lambda: FX.evaluate_goldilocks(
+            mdd.evals, list(pd)), inner=10),
+    }
+    ev_ms = ms[f"SparseMLE.evaluate nv={nv_s}"]
+    phase("linalg time", f"mat-vec {n} x {n} nnz {nnz}: "
+          f"{ms['mul_vec']:.4f} ms = {1e3 / ms['mul_vec']:.1f} mat-vecs/s; "
+          f"SparseMLE nv={nv_s} {1e3 / ev_ms:.2f} evaluations/s; "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"  ({smi})")
+    for label, fn in (("mul_vec", lambda: A.mul_vec(z)),
+                      (f"SparseMLE.evaluate nv={nv_s}",
+                       lambda: sm.evaluate(c + r))):
+        busy_ms, wall_ms, top = device_profile(fn, 3, dev, 6)
+        phase("linalg profile", f"{label}: device busy {busy_ms:.3f} ms of "
+              f"{wall_ms:.3f} ms wall, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; per call: {top}  ({smi})")
+    return []
 
 
 def modmul_peak(dev) -> tuple:
@@ -3681,6 +4102,7 @@ def main() -> None:
     records += slice_models(dev, smi, rng)
     records += slice_protocol(dev, smi, rng)
     records += slice_stark(dev, smi, rng)
+    records += slice_linalg(dev, smi, rng)
     phase("done", f"every phase passed in {time.perf_counter() - started:.1f} "
           "s, build included")
     print(json.dumps({"kernels": records}))

@@ -43,11 +43,15 @@ decomposition, the dense ring ``Matrix`` and the folding protocol
                   and norm checks
     linalg/       the element adapters FieldElems, RingElems,
                   RingCoeffElems; the dense ring Matrix (k-blocked
-                  mul_mat), transpose, rounded division, AlgebraError
+                  mul_mat), the COO SparseMatrix (mat-vec by the
+                  field's segment_sum, sparse x sparse), the packed
+                  SymmetricMatrix, transpose, rounded division,
+                  AlgebraError
     protocol/     the composed folding step FoldingStep (ntt_matvec, the
                   blocked commit) and the folding tree FoldingTree with
                   its verifier
-    mle/          DenseMLE and helpers; the generic sumcheck prover
+    mle/          DenseMLE (from_matrix), SparseMLE and helpers,
+                  ArithError; the generic sumcheck prover
                   (sumcheck.py); kernels K5 evaluate / K6 fix-last
                   (fix.py) and the one-pass prover K7 over all three
                   fields, one claim or a batch (sumcheck_kernel.py);
@@ -59,6 +63,10 @@ decomposition, the dense ring ``Matrix`` and the folding protocol
     parallel/     make_mesh (P shards on one card or one per card), the
                   sharded four-step ShardedNTT and K8, the twiddle-fused
                   exchange (wrappers + plain twins)
+    utils/        the arkworks byte layouts of vectors, matrices and
+                  MLEs; checkpoints of storage tensors (.npz); tracing
+                  spans (torch.profiler and NVTX)
+    errors.py     ConversionError and the re-exported error types
     examples/     the sumcheck protocol (prove / verify), the Ajtai
                   commitment, the folding step and tree, the big-ring
                   fold combine
@@ -70,9 +78,17 @@ Storage is described in :mod:`.device`.  Every entry point runs on the
 CUDA card unless the caller passes ``device="cpu"``.
 """
 
+from . import (decomp, fields, linalg, mle, ops, parallel, protocol, rings,
+               spec, utils)
+from .decomp import (decompose, gadget_decompose, gadget_recompose,
+                     recompose)
 from .device import (from_jax_storage, get_device, to_numpy_storage,
                      to_numpy_u32, to_numpy_u64, to_torch, to_torch_u32)
-from .fields import BABYBEAR, FROG, GOLDILOCKS, STARK, get_field
+from .errors import ConversionError
+from .fields import BABYBEAR, FIELDS, FROG, GOLDILOCKS, STARK, get_field
+from .linalg import (AlgebraError, FieldElems, Matrix, RingElems,
+                     SparseMatrix, SymmetricMatrix)
+from .mle import ArithError, DenseMLE, SparseMLE
 from .ops.fold import Mxu2FusedNTT, Mxu2KernelNTT
 from .ops.fold_bb import MxuBBFusedNTT
 from .ops.goldilocks_ntt import GoldilocksKernelNTT
@@ -84,7 +100,8 @@ from .ops.mxu_limb import LimbPrescaledMat, MxuLimbNTT
 from .ops.model_mul import TModelMul
 from .ops.ntt import NTTContext, get_ntt
 from .parallel import Mesh, ShardedNTT, make_mesh
-from .rings import RingModel, Rq, get_ring
+from .protocol import FoldingStep, FoldingTree
+from .rings import RINGS, RingModel, Rq, get_ring
 from .rings.power import PowerRing, get_power_ring
 
 __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
@@ -96,4 +113,11 @@ __all__ = ["get_device", "to_torch", "to_numpy_u64", "to_torch_u32",
            "GoldilocksKernelNTT", "MatmulNTT", "MxuModMat", "MxuModMatFused",
            "NTTContext", "get_ntt", "PowerRing", "get_power_ring",
            "Mesh", "make_mesh", "ShardedNTT", "RingModel", "Rq", "get_ring",
-           "TModelMul"]
+           "TModelMul",
+           # the reference's top-level names (stark_rings_tpu/__init__.py)
+           "fields", "rings", "decomp", "linalg", "mle", "ops", "parallel",
+           "protocol", "spec", "utils", "FoldingStep", "FoldingTree",
+           "FIELDS", "RINGS", "Matrix", "SparseMatrix", "SymmetricMatrix",
+           "FieldElems", "RingElems", "DenseMLE", "SparseMLE", "decompose",
+           "recompose", "gadget_decompose", "gadget_recompose",
+           "AlgebraError", "ArithError", "ConversionError"]

@@ -206,17 +206,22 @@ fold_end_kernel(const int32_t* __restrict__ v, int64_t ld,
     out[r * cols + c] = fold_point<SIGNED>(v + r * ld + c, R * ld);
 }
 
-// Goldilocks slot product out[i] = a[i] * b[i] mod q over a flat range.
+// Goldilocks slot product out[i] = a[i] * b[i mod b_n] mod q over a flat
+// range: b is a's shape or a table that broadcasts over a's leading axes
+// (the four-step's twist and twiddles [N1, C] against [B, N1, C], a
+// batch-1 cached operand).  BCAST = false when b_n == n skips the modulo.
 // Replaces pointwise_mul (pallas_fold.py, pallas_call at :675) and K3b
 // pointwise_dma (:639), which compute the same function on u32 planes in
 // VMEM tiles.  One thread per element; on the main path (N = 2^16,
-// B = 80) 84 MB read and 42 MB written per call, bound by device memory.
+// B = 80) 84 MB read and 42 MB written per call, bound by device memory;
+// a broadcast table is read from L2 after its first pass.
+template <bool BCAST>
 __global__ void __launch_bounds__(THREADS)
 pointwise_mul_kernel(const uint64_t* __restrict__ a,
                      const uint64_t* __restrict__ b,
-                     uint64_t* __restrict__ out, int64_t n) {
+                     uint64_t* __restrict__ out, int64_t n, int64_t b_n) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
-    if (i < n) out[i] = gl::mul(a[i], b[i]);
+    if (i < n) out[i] = gl::mul(a[i], b[BCAST ? i % b_n : i]);
 }
 
 // x <- x * b mod q, `depth` times, starting from x = a, over a flat range.
@@ -319,12 +324,18 @@ extern "C" int srt_fold_end(const void* v, int64_t ld, void* out, int64_t R,
 }
 
 extern "C" int srt_pointwise_mul(const void* a, const void* b, void* out,
-                                 int64_t n, void* stream) {
+                                 int64_t n, int64_t b_n, void* stream) {
     const auto grid = static_cast<unsigned>((n + THREADS - 1) / THREADS);
-    pointwise_mul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(
-        stream)>>>(static_cast<const uint64_t*>(a),
-                   static_cast<const uint64_t*>(b),
-                   static_cast<uint64_t*>(out), n);
+    const auto* ap = static_cast<const uint64_t*>(a);
+    const auto* bp = static_cast<const uint64_t*>(b);
+    auto* op = static_cast<uint64_t*>(out);
+    auto s = static_cast<cudaStream_t>(stream);
+    if (b_n == n)
+        pointwise_mul_kernel<false><<<grid, THREADS, 0, s>>>(ap, bp, op, n,
+                                                             b_n);
+    else
+        pointwise_mul_kernel<true><<<grid, THREADS, 0, s>>>(ap, bp, op, n,
+                                                            b_n);
     return static_cast<int>(cudaGetLastError());
 }
 

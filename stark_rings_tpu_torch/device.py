@@ -55,10 +55,11 @@ def get_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def _from_numpy(x: np.ndarray, udt, sdt, device) -> torch.Tensor:
-    arr = np.ascontiguousarray(x, dtype=udt)
+    arr = np.ascontiguousarray(x, dtype=udt)   # 0-d comes back 1-d
     if not arr.flags.writeable:
         arr = arr.copy()
-    return torch.from_numpy(arr.view(sdt)).to(get_device(device))
+    return torch.from_numpy(arr.view(sdt)).reshape(np.shape(x)).to(
+        get_device(device))
 
 
 def to_torch(x: np.ndarray, device: str | torch.device) -> torch.Tensor:

@@ -250,6 +250,21 @@ class _PrimeField:
             acc = term if acc is None else self.add(acc, term)
         return acc
 
+    def segment_sum(self, values: torch.Tensor, seg_ids,
+                    num_segments: int) -> torch.Tensor:
+        """Modular segment sum over the leading axis: storage [n, ...] and
+        segment ids [n] in [0, num_segments) (a tensor or array of ints;
+        duplicates add, absent segments are zero) -> [num_segments, ...].
+        The widened words are added by one int64 ``index_add_``: u64
+        bits that wrap as the reference's ``uint64`` accumulators do,
+        exact on the card in any order of the atomics."""
+        w = self.widen(values)
+        ids = torch.as_tensor(seg_ids, device=w.device)
+        acc = torch.zeros((num_segments,) + tuple(w.shape[1:]),
+                          dtype=torch.int64, device=w.device)
+        acc.index_add_(0, ids, w)
+        return self.reduce_words(acc)
+
     def _lift32(self, d: torch.Tensor) -> torch.Tensor:
         """int64 words below 2^32 -> storage holding that raw integer."""
         return d.to(self.dtype)

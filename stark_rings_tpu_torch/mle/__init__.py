@@ -1,9 +1,10 @@
 """Multilinear extension layer of the PyTorch port (counterpart of
-``stark_rings_tpu/mle``): dense MLEs over any scalar field, the
-HyperPlonk helpers, the generic sumcheck prover (``sumcheck``), kernels
-K5 and K6 for Goldilocks (``fix``), the one-pass prover K7 over
-Goldilocks, BabyBear and frog, and its Goldilocks batch of claims
-(``sumcheck_kernel``), and the digit-GEMM evaluation (``mxu_eval``)."""
+``stark_rings_tpu/mle``): dense and sparse MLEs over any scalar field
+or ring elements, the HyperPlonk helpers, the generic sumcheck prover
+(``sumcheck``), kernels K5 and K6 for Goldilocks (``fix``), the
+one-pass prover K7 over Goldilocks, BabyBear and frog, and its
+Goldilocks batch of claims (``sumcheck_kernel``), and the digit-GEMM
+evaluation (``mxu_eval``)."""
 
 from .dense import DenseMLE
 from .polynomials import (
@@ -18,6 +19,7 @@ from .polynomials import (
     random_permutation_mles,
     random_zero_mle_list,
 )
+from .sparse import SparseMLE
 from .sumcheck import (
     bit_reverse_table,
     sumcheck_prove_many_with_challenges,
@@ -36,7 +38,7 @@ from .util import (
 )
 
 __all__ = [
-    "DenseMLE",
+    "DenseMLE", "SparseMLE", "ArithError",
     "random_mle_list", "random_zero_mle_list",
     "identity_permutation", "identity_permutation_mles",
     "random_permutation", "random_permutation_mles",
@@ -47,3 +49,7 @@ __all__ = [
     "sumcheck_prove_many_with_challenges", "bit_reverse_table",
     "sumcheck_prove_many", "sumcheck_prove_batch_goldilocks",
 ]
+
+
+class ArithError(ValueError):
+    """Mirror of ArithErrors (polynomials/errors.rs:13-21)."""

@@ -5,8 +5,6 @@ Evaluations over {0,1}^n are one tensor ``evals [2^n]`` with the
 reference's little-endian index convention: variable 0 is the least
 significant bit, and ``fix_variables`` pairs adjacent entries.  Storage
 is always the full 2^n table, as in the JAX package.
-
-``from_matrix`` needs sparse matrices and waits for the linalg port.
 """
 
 from __future__ import annotations
@@ -15,6 +13,11 @@ import numpy as np
 import torch
 
 __all__ = ["DenseMLE"]
+
+
+def _pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1)."""
+    return 1 << max(int(n) - 1, 0).bit_length()
 
 
 def _lerp(e, left, right, r):
@@ -61,6 +64,17 @@ class DenseMLE:
     def rand(cls, elems, num_vars, rng):
         """Uniform evaluations from the numpy Generator ``rng``."""
         return cls(elems, num_vars, elems.rand((1 << num_vars,), rng))
+
+    @classmethod
+    def from_matrix(cls, elems, sparse_mat):
+        """MLE of a SparseMatrix, row-major with power-of-two padding
+        (dense.rs:117-135): index padded_cols*row + col, num_vars the
+        sum of the two padded sizes' logs; entries in one cell add."""
+        pr, pc = _pow2(sparse_mat.nrows), _pow2(sparse_mat.ncols)
+        ids = sparse_mat.rows.long() * pc + sparse_mat.cols.long()
+        nv = pr.bit_length() + pc.bit_length() - 2
+        return cls(elems, nv, elems.f.segment_sum(sparse_mat.data, ids,
+                                                  pr * pc))
 
     # -- trait surface (mle/mod.rs:23-76) --------------------------------
     def to_evaluations(self):

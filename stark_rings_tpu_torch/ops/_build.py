@@ -104,7 +104,7 @@ def kernels() -> ctypes.CDLL:
     lib.srt_fold_end2_mul.argtypes = [p, i64, p, i64, i64, p, i64, i64,
                                       i32, p]
     lib.srt_fold_end.argtypes = [p, i64, p, i64, i64, i32, p]
-    lib.srt_pointwise_mul.argtypes = [p, p, p, i64, p]
+    lib.srt_pointwise_mul.argtypes = [p, p, p, i64, i64, p]
     lib.srt_pointwise_chain.argtypes = [p, p, p, i64, i32, p]
     u64 = ctypes.c_uint64
     lib.srt_ntt_stage.argtypes = [p, p, p, u64, i32, i32, i32, i64, i32, p]

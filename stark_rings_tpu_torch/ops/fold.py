@@ -133,7 +133,8 @@ def fold_end2_mul_ref(Va, Vb, R, *, signed):
 
 
 def pointwise_mul_ref(a, b):
-    """Plain twin of :func:`pointwise_mul`."""
+    """Plain twin of :func:`pointwise_mul` (b broadcast by torch)."""
+    b = b.reshape(b.shape[max(b.dim() - a.dim(), 0):]).expand(a.shape)
     return join(*_mul_q(*split(a), *split(b)))
 
 
@@ -280,12 +281,13 @@ def fold_end(V, R, *, signed):
     return fold_end_with(GL_FOLDS, fold_end_ref, V, R, signed)
 
 
-def _check_slots(name, a, b):
-    """Two contiguous int64 tensors of one shape, within the grid."""
+def _check_slots(name, a, b, broadcast=False):
+    """Two contiguous int64 tensors of one shape (unless ``broadcast``),
+    within the grid."""
     if not isinstance(a, torch.Tensor) or not isinstance(b, torch.Tensor) \
             or a.dtype != torch.int64 or b.dtype != torch.int64:
         raise TypeError(f"{name}: operands must be int64 tensors")
-    if a.shape != b.shape:
+    if not broadcast and a.shape != b.shape:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} differ")
     if not (a.is_contiguous() and b.is_contiguous()):
@@ -294,17 +296,34 @@ def _check_slots(name, a, b):
         raise ValueError(f"{name}: {a.numel()} elements exceed the grid")
 
 
+def _check_broadcast(name, a, b):
+    """b's shape, less its leading 1s, is a trailing part of a's: then
+    torch's broadcast of b reads flat element i mod b.numel()."""
+    tail = list(b.shape)
+    while tail and tail[0] == 1:
+        tail.pop(0)
+    if len(tail) > a.dim() or list(a.shape[a.dim() - len(tail):]) != tail:
+        raise ValueError(f"{name}: shape {tuple(b.shape)} does not "
+                         f"broadcast over the leading axes of "
+                         f"{tuple(a.shape)}")
+
+
 def pointwise_mul(a, b):
-    """Goldilocks slot product a * b mod q of two int64 tensors of the
-    same shape (canonical u64 bits), elementwise over the flat range."""
-    _check_slots("pointwise_mul", a, b)
+    """Goldilocks slot product a * b mod q of int64 tensors (canonical
+    u64 bits), elementwise over a's flat range.  b has a's shape, or
+    broadcasts over a's leading axes (a table [N1, C] against
+    [B, N1, C], a batch-1 operand [1, R, N2] against [B, R, N2]): the
+    kernel reads b at flat index i mod b.numel()."""
+    _check_slots("pointwise_mul", a, b, broadcast=True)
+    _check_broadcast("pointwise_mul", a, b)
     if not _build.on_cuda("pointwise_mul", a, b):
         return pointwise_mul_ref(a, b)
     out = torch.empty_like(a)
     if a.numel():
         _build.launch(LAUNCHES, "pointwise_mul",
                       _build.kernels().srt_pointwise_mul, a.device,
-                      a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel())
+                      a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
+                      b.numel())
     return out
 
 

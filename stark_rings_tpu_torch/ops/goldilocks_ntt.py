@@ -239,11 +239,15 @@ class GoldilocksKernelNTT:
 
     ``forward``, ``inverse``, ``mul`` (fused), ``pointwise`` and
     ``mul_composite`` take int64 [B, N] (or [N]); every output equals
-    ``NTTContext``'s."""
+    ``NTTContext(F, N, negacyclic)``'s.  ``negacyclic=False`` runs the
+    same kernels on the cyclic tables: the leaf-order cyclic transforms
+    the four-step's local column and row NTTs use, and ``mul`` is then
+    the cyclic product, as ``NTTContext.mul`` is."""
 
-    def __init__(self, N: int, device="cuda"):
+    def __init__(self, N: int, device="cuda", negacyclic: bool = True):
         self.device = get_device(device)
-        self.ctx = NTTContext(F, N, negacyclic=True, device=self.device)
+        self.ctx = NTTContext(F, N, negacyclic=negacyclic,
+                              device=self.device)
         self.N, self.logN = N, self.ctx.logN
         self.log_tile = min(LOG_TILE, self.logN)
         self.passes = self.logN - self.log_tile   # stages in device memory

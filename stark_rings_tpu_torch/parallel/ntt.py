@@ -25,9 +25,17 @@ Steps 3-4 are the exchange: ``exchange="xla"`` multiplies by the
 twiddle and runs the plain block transpose (torch slicing, ``cat`` and
 ``.to(device)``: the reference's ``jax.lax.all_to_all``);
 ``exchange="pallas"`` runs K8 (:mod:`.exchange`), one launch per
-exchange on CUDA shards of one card.  The local transforms are the radix
-``NTTContext`` (``local="vpu"``) or the digit-GEMM ``PrescaledMat``
-(``local="mxu"``, Goldilocks), run once per shard in plain torch.  The
+exchange on CUDA shards of one card.  The local transforms
+(``local="vpu"``) are the radix kernels for Goldilocks: a cyclic
+:class:`~..ops.goldilocks_ntt.GoldilocksKernelNTT` of size N1 or N2, one
+``ntt_tile`` launch over all the rows of a shard for N1, N2 <= 2^13
+(the column transform on the shard viewed as [B*C, N1] rows: one
+transpose copy in, one out).  The other fields have no radix kernel in
+either package and run the plain radix ``NTTContext``, once per shard.
+``local="mxu"`` (Goldilocks) runs the digit-GEMM ``PrescaledMat``.  All
+give ``NTTContext(negacyclic=False)``'s bits, as the reference's XLA
+locals do.  The Goldilocks twist, twiddle and slot products are the
+``pointwise_mul`` kernel (the tables broadcast over the batch).  The
 twiddle tables are built on the host and cached per (shard, device);
 the reference builds them on its device by log-doubling.  The values
 are equal.  The 8-limb stark_prime storage carries its limb axis last
@@ -43,11 +51,12 @@ import torch
 
 from ..device import from_jax_storage, get_device, to_numpy_storage
 from ..fields import get_field
+from ..ops.fold import pointwise_mul
+from ..ops.goldilocks_ntt import GoldilocksKernelNTT
 from ..ops.mxu2 import PrescaledMat, digit_table
 from ..ops.ntt import NTTContext, find_primitive_root
 from .exchange import (EXCHANGE_FIELDS, all_to_all, twiddle_exchange_fwd,
-                       twiddle_exchange_fwd_ref, twiddle_exchange_inv,
-                       twiddle_exchange_inv_ref)
+                       twiddle_exchange_inv)
 
 __all__ = ["ShardedNTT"]
 
@@ -119,7 +128,7 @@ class ShardedNTT:
         self.k1_leaf = torch.tensor([e // 2 for e in col_leaf],
                                     dtype=torch.int64)
         self._consts = None
-        self._ctxs = {}       # (size, device) -> NTTContext
+        self._ctxs = {}       # (size, device) -> the local engine
         self._tabs = {}       # (shard, device) -> its twiddle tables
         self._mxu_dev = {}    # device -> the digit tables
         if local == "mxu":
@@ -165,12 +174,27 @@ class ShardedNTT:
             self._tabs[key] = {k: v.to(device) for k, v in tabs.items()}
         return self._tabs[key]
 
-    def _ctx(self, n: int, device) -> NTTContext:
+    def _ctx(self, n: int, device):
+        """The cyclic radix engine of size n on ``device``: the kernels'
+        ``GoldilocksKernelNTT`` for Goldilocks, else ``NTTContext``."""
         key = (n, str(device))
         if key not in self._ctxs:
-            self._ctxs[key] = NTTContext(self.f, n, negacyclic=False,
-                                         device=device)
+            if self.f.name == "goldilocks":
+                eng = GoldilocksKernelNTT(n, device=device, negacyclic=False)
+            else:
+                eng = NTTContext(self.f, n, negacyclic=False, device=device)
+            self._ctxs[key] = eng
         return self._ctxs[key]
+
+    def _mul(self, a, b):
+        """a * b, b of a's shape or broadcast over its leading axes: the
+        ``pointwise_mul`` kernel for Goldilocks, the field's ``mul``
+        (kernel S1 for stark_prime) else."""
+        if self.f.name != "goldilocks":
+            return self.f.mul(a, b)
+        if a.numel() < b.numel():
+            a, b = b, a
+        return pointwise_mul(a.contiguous(), b.contiguous())
 
     def _build_mxu_locals(self):
         """Leaf-order cyclic NTT matrices for both local sizes, as
@@ -227,13 +251,13 @@ class ShardedNTT:
     def _pre_exchange(self, x, p: int):
         """Twist and column NTT of shard p's [..., N1, C] coefficients."""
         if self.negacyclic:
-            x = self.f.mul(x, self._tables(p, x.device)["tfac"])
+            x = self._mul(x, self._tables(p, x.device)["tfac"])
         return self._apply_on_axis(self._local_fns(x.device)[0], x, 2)
 
     def _pre_transpose(self, x, p: int):
         """Everything before the transpose: twist, column NTT, twiddle."""
-        return self.f.mul(self._pre_exchange(x, p),
-                          self._tables(p, x.device)["T"])
+        return self._mul(self._pre_exchange(x, p),
+                         self._tables(p, x.device)["T"])
 
     def _rows(self, y):
         return self._apply_on_axis(self._local_fns(y.device)[2], y, 1)
@@ -242,26 +266,24 @@ class ShardedNTT:
         """Twiddle and transpose of the P column shards."""
         tws = [self._tables(p, x.device)["T"] for p, x in enumerate(xs)]
         if self.single_chip:            # the P = 1 exchange is the identity
-            return [self.f.mul(xs[0], tws[0])]
-        if self.f.limbed:               # rows split, columns joined
-            return all_to_all([self.f.mul(x, t) for x, t in zip(xs, tws)],
-                              -3, -2)
+            return [self._mul(xs[0], tws[0])]
         if self.exchange == "pallas":
             return twiddle_exchange_fwd([x.contiguous() for x in xs], tws,
                                         self.f.name)
-        return twiddle_exchange_fwd_ref(xs, tws, self.f.name)
+        nd = len(self.f.limb_shape)     # rows split, columns joined
+        return all_to_all([self._mul(x, t) for x, t in zip(xs, tws)],
+                          -2 - nd, -1 - nd)
 
     def _exchange_inv(self, ys):
         tws = [self._tables(p, y.device)["Ti"] for p, y in enumerate(ys)]
         if self.single_chip:
-            return [self.f.mul(ys[0], tws[0])]
-        if self.f.limbed:
-            return all_to_all([self.f.mul(y, t) for y, t in zip(ys, tws)],
-                              -2, -3)
+            return [self._mul(ys[0], tws[0])]
         if self.exchange == "pallas":
             return twiddle_exchange_inv([y.contiguous() for y in ys], tws,
                                         self.f.name)
-        return twiddle_exchange_inv_ref(ys, tws, self.f.name)
+        nd = len(self.f.limb_shape)
+        return all_to_all([self._mul(y, t) for y, t in zip(ys, tws)],
+                          -1 - nd, -2 - nd)
 
     def _local_forward(self, xs):
         """P shards [..., N1, C] -> P shards [..., N1/P, N2]."""
@@ -271,19 +293,18 @@ class ShardedNTT:
 
     def _local_inverse(self, ys):
         """P shards [..., N1/P, N2] -> P shards [..., N1, C]."""
-        f = self.f
         xs = self._exchange_inv([self._apply_on_axis(
             self._local_fns(y.device)[3], y, 1) for y in ys])
         out = []
         for p, x in enumerate(xs):
             x = self._apply_on_axis(self._local_fns(x.device)[1], x, 2)
             if self.negacyclic:
-                x = f.mul(x, self._tables(p, x.device)["itfac"])
+                x = self._mul(x, self._tables(p, x.device)["itfac"])
             out.append(x)
         return out
 
     def _local_mul(self, fas, fbs):
-        return [self.f.mul(a, b) for a, b in zip(fas, fbs)]
+        return [self._mul(a, b) for a, b in zip(fas, fbs)]
 
     # -- layouts ------------------------------------------------------------------
     def shard_specs(self, batch_ndim: int = 0):
@@ -440,6 +461,6 @@ class ShardedNTT:
             return self._local_inverse(on_device(y))[0]
 
         def mul(a, b):
-            return inverse(self.f.mul(forward(a), forward(b)))
+            return inverse(self._mul(forward(a), forward(b)))
 
         return forward, inverse, mul

@@ -32,9 +32,11 @@ def elem_nbytes(f) -> int:
     return (f.bits + 7) // 8
 
 
-def elements_to_bytes(f, x) -> bytes:
+def elements_to_bytes(f, x, compress: bool = True) -> bytes:
     """Every element of ``x`` (a storage tensor, or the reference's numpy
-    storage), row-major, canonical little-endian, no header."""
+    storage), row-major, canonical little-endian, no header.  Field
+    elements have no compressed form: ``compress`` changes nothing
+    (arkworks writes the same bytes in both modes)."""
     if not isinstance(x, torch.Tensor):
         x = from_jax_storage(f, x, "cpu")
     host = to_numpy_storage(f.canon(x))

@@ -1505,3 +1505,73 @@ def test_stark_step_tree_sumcheck_on_card(dev):
                                    field="stark_prime")
     assert msgs.shape == (10, 4, 8) and torch.equal(msgs.cpu(), m_c)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(finals, f_c))
+
+
+@pytest.mark.parametrize("b_shape", [(8, 64, 128), (64, 128), (1, 64, 128),
+                                     (128,), (1,)],
+                         ids=["n", "table", "batch1", "row", "one"])
+def test_pointwise_kernel_broadcast_matches_twin(dev, b_shape):
+    """pointwise_mul with b broadcast over a's leading axes: one launch,
+    read at i mod b.numel(), equal to the twin's torch broadcast."""
+    rng = np.random.default_rng(len(b_shape))
+    a = to_torch(rng.integers(0, Q, (8, 64, 128), dtype=np.uint64), dev)
+    b = to_torch(rng.integers(0, Q, b_shape, dtype=np.uint64), dev)
+    before = K.LAUNCHES["pointwise_mul"]
+    got = K.pointwise_mul(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["pointwise_mul"] == before + 1
+    assert torch.equal(got, K.pointwise_mul_ref(a, b))
+    assert torch.equal(got.cpu(), K.pointwise_mul_ref(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("N,P", [(1 << 10, "single"), (1 << 12, 4),
+                                 (1 << 16, 2), (1 << 16, "single")])
+def test_goldilocks_fourstep_runs_on_kernels(dev, N, P):
+    """The Goldilocks four-step on the card: 6 ntt_tile launches a shard
+    a mul, 7 pointwise_mul (4 with K8, which takes the twiddles), no
+    NTTContext transform, and the product of the radix engine and of the
+    CPU path."""
+    from stark_rings_tpu_torch import (GoldilocksKernelNTT, ShardedNTT,
+                                       make_mesh)
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.ops import ntt as NT
+
+    f = GOLDILOCKS
+    rng = np.random.default_rng(N)
+    a, b = f.rand((2, N), rng, dev), f.rand((2, N), rng, dev)
+    want = GoldilocksKernelNTT(N, device=dev).mul(a, b)
+    calls = []
+    orig = NT.NTTContext.forward
+    NT.NTTContext.forward = lambda self, x: calls.append(1) or orig(self, x)
+    try:
+        runs = []
+        if P == "single":
+            fs = get_power_ring("goldilocks", N.bit_length() - 1,
+                                device=dev).fourstep_ctx()
+            runs.append((1, 7, lambda: fs.mul(a, b)))
+        else:
+            mesh = make_mesh(P, device=dev)
+            for exchange in ("xla", "pallas"):
+                sn = ShardedNTT("goldilocks", N, P, exchange=exchange)
+                cspec, _ = sn.shard_specs(1)
+                sa = sn.shard(sn.to_matrix(a), cspec, mesh)
+                sb = sn.shard(sn.to_matrix(b), cspec, mesh)
+                mul = sn.make_fns(mesh, batch_ndim=1)[2]
+                runs.append((P, 4 if exchange == "pallas" else 7,
+                             lambda sn=sn, mul=mul, sa=sa, sb=sb:
+                             sn.from_matrix(sn.gather(mul(sa, sb), cspec,
+                                                      dev))))
+        for shards, products, run in runs:
+            tiles, pw = G.LAUNCHES["ntt_tile"], K.LAUNCHES["pointwise_mul"]
+            got = run()
+            torch.cuda.synchronize()
+            assert G.LAUNCHES["ntt_tile"] - tiles == 6 * shards
+            assert K.LAUNCHES["pointwise_mul"] - pw == products * shards
+            assert torch.equal(got, want)
+    finally:
+        NT.NTTContext.forward = orig
+    assert not calls
+    if P == "single":
+        cpu = get_power_ring("goldilocks", N.bit_length() - 1,
+                             device="cpu").fourstep_ctx()
+        assert torch.equal(cpu.mul(a.cpu(), b.cpu()), want.cpu())

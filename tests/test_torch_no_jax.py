@@ -144,6 +144,29 @@ c = fs.init_tables(np.random.default_rng(1))
 w = fs.rand_witness(2, np.random.default_rng(2))
 rt = fs.precompute_challenge(x[0])
 assert fs.step(c, w, w, w[:, :, :1], w[:, :, :1], rt)["ok_l2"].all()
+import stark_rings_tpu_torch.errors
+import stark_rings_tpu_torch.linalg.sparse
+import stark_rings_tpu_torch.linalg.symmetric
+import stark_rings_tpu_torch.mle.sparse
+import stark_rings_tpu_torch.utils.checkpoint
+import stark_rings_tpu_torch.utils.serialize
+import stark_rings_tpu_torch.utils.trace
+L, UT = stark_rings_tpu_torch.linalg, stark_rings_tpu_torch.utils
+e = L.FieldElems(stark_rings_tpu_torch.GOLDILOCKS, "cpu")
+S = L.SparseMatrix.from_entries(e, 2, 3, [(0, 1, 5), (1, 2, 7), (0, 1, 1)])
+assert (S.mul_vec(e.encode([1, 2, 3])) == e.encode([12, 21])).all()
+assert (S.mul_sparse(S.transpose()).to_dense().vals
+        == e.encode([[36, 0], [0, 49]])).all()
+sm = stark_rings_tpu_torch.mle.SparseMLE.from_matrix(e, S)
+dm = stark_rings_tpu_torch.mle.DenseMLE.from_matrix(e, S)
+assert (sm.to_dense().evals == dm.evals).all() and dm.num_vars == 3
+sym = L.SymmetricMatrix.from_rows(e, [[1], [2, 3]])
+assert UT.deserialize_compressed(
+    "SymmetricMatrix", e, UT.serialize_compressed(sym)).decode().tolist() \
+    == [1, 2, 3]
+with UT.trace_span("no-jax"):
+    assert stark_rings_tpu_torch.errors.ConversionError.__mro__[1] \
+        is ValueError
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked

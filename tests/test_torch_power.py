@@ -105,8 +105,14 @@ def test_pointwise_twin_matches_pallas():
     assert np.array_equal(to_numpy_u64(K.pointwise_mul(
         to_torch(a, "cpu"), to_torch(b, "cpu"))), got)
     assert K.LAUNCHES["pointwise_mul"] == 0
-    with pytest.raises(ValueError, match="differ"):
-        K.pointwise_mul(to_torch(a, "cpu"), to_torch(b[:1], "cpu"))
+    # b broadcasts over a's leading axes (read at i mod b.numel()); a
+    # shape that is not a trailing part of a's raises
+    got1 = to_numpy_u64(K.pointwise_mul(to_torch(a, "cpu"),
+                                        to_torch(b[:1], "cpu")))
+    assert np.array_equal(got1, np.asarray(pointwise_mul(
+        ja, jnp.broadcast_to(jb[:1], ja.shape), interpret=True)))
+    with pytest.raises(ValueError, match="does not broadcast"):
+        K.pointwise_mul(to_torch(a, "cpu"), to_torch(b[:, :1], "cpu"))
     with pytest.raises(ValueError, match="no kernel for device"):
         K.pointwise_mul(to_torch(a, "cpu").to("meta"),
                         to_torch(b, "cpu").to("meta"))

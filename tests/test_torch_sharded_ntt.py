@@ -24,9 +24,15 @@ from stark_rings_tpu.parallel import ShardedNTT as RefShardedNTT
 from stark_rings_tpu.parallel import make_mesh as ref_make_mesh
 from stark_rings_tpu.rings.power import get_power_ring as ref_power_ring
 
-from stark_rings_tpu_torch import (ShardedNTT, from_jax_storage, get_field,
+from stark_rings_tpu.ops.pallas_fold import pointwise_mul as ref_pointwise
+
+from stark_rings_tpu_torch import (GoldilocksKernelNTT, NTTContext,
+                                   ShardedNTT, from_jax_storage, get_field,
                                    get_power_ring, make_mesh,
                                    to_numpy_storage)
+from stark_rings_tpu_torch.ops import fold as K
+from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+from stark_rings_tpu_torch.ops import ntt as NT
 from stark_rings_tpu_torch.parallel import exchange as EX
 
 
@@ -383,3 +389,144 @@ def test_mesh_and_shards():
         ShardedNTT("goldilocks", 256, 32)
     with pytest.raises(ValueError, match="K8"):
         ShardedNTT("frog", 4, 1, exchange="pallas")
+
+
+# -- the Goldilocks four-step on the radix kernels and pointwise_mul ---------
+
+
+@pytest.mark.parametrize("logN", range(1, 14))
+def test_kernel_engine_cyclic_tables_match_ntt_context(logN):
+    """GoldilocksKernelNTT(negacyclic=False): its tables are
+    NTTContext(negacyclic=False)'s in the m + i layout, and forward,
+    inverse and mul (the cyclic product) equal NTTContext's."""
+    f = get_field("goldilocks")
+    N = 1 << logN
+    eng = GoldilocksKernelNTT(N, device="cpu", negacyclic=False)
+    ctx = NTTContext(f, N, negacyclic=False, device="cpu")
+    fwd, inv, ninv = ctx.tables()
+    wf, wi, n_inv = eng.tables()
+    assert torch.equal(wf[1:], torch.cat(fwd))
+    assert torch.equal(wi[1:], torch.cat(inv))
+    assert n_inv == int(f.decode(ninv))
+    rng = np.random.default_rng(logN)
+    a = from_jax_storage(f, _rand("goldilocks", rng, (2, N)), "cpu")
+    b = from_jax_storage(f, _rand("goldilocks", rng, (2, N)), "cpu")
+    assert torch.equal(eng.forward(a), ctx.forward(a))
+    assert torch.equal(eng.inverse(a), ctx.inverse(a))
+    if logN <= 10:
+        assert torch.equal(eng.mul(a, b), ctx.mul(a, b))
+
+
+def _count_routes(monkeypatch):
+    """Count the radix tile twin, the pointwise twin and NTTContext's
+    transforms as the four-step calls them."""
+    calls = {"ntt_tile": 0, "pointwise_mul": 0, "NTTContext": 0}
+
+    def counted(key, fn):
+        def wrap(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return wrap
+
+    monkeypatch.setattr(G, "ntt_tile_ref",
+                        counted("ntt_tile", G.ntt_tile_ref))
+    monkeypatch.setattr(K, "pointwise_mul_ref",
+                        counted("pointwise_mul", K.pointwise_mul_ref))
+    for name in ("forward", "inverse"):
+        monkeypatch.setattr(NT.NTTContext, name,
+                            counted("NTTContext", getattr(NT.NTTContext,
+                                                          name)))
+    return calls
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, "single"])
+def test_goldilocks_fourstep_runs_the_kernel_route(P, monkeypatch):
+    """Goldilocks ShardedNTT at deg 2^10 on P shards (the "xla"
+    exchange) and on one device (single_chip): the local transforms run
+    on the radix tile and the products on pointwise_mul (here their
+    twins; on the card the kernels), none on NTTContext, and forward and
+    mul equal the reference's (its P = 8 functions: the gathered
+    evaluations and products do not depend on P)."""
+    name, N = "goldilocks", 1 << 10
+    single = P == "single"
+    if single:
+        sn = ShardedNTT(name, N, 1, single_chip=True, device="cpu")
+        fwd1, inv1, mul1 = sn.make_single_chip_fns()
+        fwd, inv = ((lambda xs, fn=fn: [fn(xs[0])]) for fn in (fwd1, inv1))
+        mul = (lambda xs, ys: [mul1(xs[0], ys[0])])
+        mesh, P = make_mesh(1, device="cpu"), 1
+    else:
+        sn, mesh = _port(name, N, P)
+        fwd, inv, mul = sn.make_fns(mesh)
+    rfwd, _, rmul = _ref_fns(name, N, 8, 0)
+    rng = np.random.default_rng(P + 10 * single)
+    a = sn.to_matrix(_rand(name, rng, (N,)))
+    b = sn.to_matrix(_rand(name, rng, (N,)))
+    cspec, espec = sn.shard_specs()
+    sa, sb = sn.shard(a, cspec, mesh), sn.shard(b, cspec, mesh)
+    calls = _count_routes(monkeypatch)
+    got = mul(sa, sb)
+    # 3 transforms of P shards, a column and a row tile each; a twist
+    # and a twiddle a forward, the slot product, the inverse twiddle and
+    # the untwist
+    assert calls == {"ntt_tile": 6 * P, "pointwise_mul": 7 * P,
+                     "NTTContext": 0}
+    assert np.array_equal(sn.gather(got, cspec), np.asarray(rmul(a, b)))
+    ev = fwd(sa)
+    assert np.array_equal(sn.gather(ev, espec), np.asarray(rfwd(a)))
+    assert np.array_equal(sn.gather(inv(ev), cspec), a)
+
+
+def test_fourstep_ctx_kernel_route_at_deg_2_12(monkeypatch):
+    """fourstep_ctx() at deg 2^12 (B = 2): 6 tile and 7 pointwise calls
+    a mul, no NTTContext transform, the reference's fourstep product and
+    the radix engine's; BabyBear keeps NTTContext (no radix kernel over
+    it in either package)."""
+    name, logN = "goldilocks", 12
+    f = get_field(name)
+    fs = get_power_ring(name, logN, device="cpu").fourstep_ctx()
+    _, _, rmul = ref_power_ring(name, logN).fourstep_ctx()
+    rng = np.random.default_rng(12)
+    a, b = (_rand(name, rng, (2, 1 << logN)) for _ in range(2))
+    ta, tb = (from_jax_storage(f, x, "cpu") for x in (a, b))
+    calls = _count_routes(monkeypatch)
+    got = fs.mul(ta, tb)
+    assert calls == {"ntt_tile": 6, "pointwise_mul": 7, "NTTContext": 0}
+    monkeypatch.undo()
+    assert np.array_equal(to_numpy_storage(got),
+                          np.asarray(jax.jit(rmul)(a, b)))
+    assert torch.equal(got, GoldilocksKernelNTT(1 << logN, device="cpu")
+                       .mul(ta, tb))
+    bb = get_power_ring("babybear", 8, device="cpu").fourstep_ctx()
+    x = from_jax_storage(get_field("babybear"),
+                         _rand("babybear", rng, (1, 256)), "cpu")
+    calls = _count_routes(monkeypatch)
+    bb.mul(x, x)
+    assert calls["NTTContext"] == 6 and calls["ntt_tile"] == 0
+
+
+@pytest.mark.parametrize("b_shape", [(4, 128, 64), (128, 64), (1, 128, 64),
+                                     (64,), (1,), ()],
+                         ids=["n", "table", "batch1", "row", "one", "0d"])
+def test_pointwise_mul_broadcast_twin(b_shape):
+    """pointwise_mul with b of a's shape or broadcast over its leading
+    axes (read at i mod b.numel()): equal to the field's broadcast
+    product and to the reference's Pallas kernel (interpret mode) on the
+    broadcast operand."""
+    f = get_field("goldilocks")
+    rng = np.random.default_rng(len(b_shape))
+    a = _rand("goldilocks", rng, (4, 128, 64))
+    b = _rand("goldilocks", rng, b_shape)
+    b.reshape(-1)[:1] = f.q - 1
+    ta, tb = (from_jax_storage(f, x, "cpu") for x in (a, b))
+    got = K.pointwise_mul(ta, tb)
+    assert torch.equal(got, f.mul(ta, tb))
+    flat_b = np.broadcast_to(b, a.shape).reshape(-1, 64)
+    want = ref_pointwise(jax.numpy.asarray(a.reshape(-1, 64)),
+                         jax.numpy.asarray(np.ascontiguousarray(flat_b)),
+                         interpret=True)
+    assert np.array_equal(to_numpy_storage(got).reshape(-1, 64),
+                          np.asarray(want))
+    with pytest.raises(ValueError, match="does not broadcast"):
+        K.pointwise_mul(ta, tb.reshape(-1)[:3].contiguous()
+                        if tb.numel() > 3 else tb.expand(3).contiguous())
