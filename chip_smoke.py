@@ -343,6 +343,36 @@ The linalg slice (``slice_linalg``, BASELINE config 4's mat-vec):
      mat-vec, from_matrix) and profiles of one mat-vec and one nv = 40
      evaluation.
 
+The parallel slice (``slice_parallel``, the sharded layer on a mesh of 8
+shards of the card):
+ 56. tables: ShardedModelMul over goldilocks B = 65,536, babybear
+     B = 16,384 and stark_prime B = 4,096; ShardedMLE tables at nv = 20
+     over Goldilocks (three), BabyBear and frog (two each); config 4's A
+     (nnz 2^22, phase 51's matrix) for ShardedSparseMatVec; a 8 x 8,192
+     goldilocks ring matrix for ShardedMatVec; the step grid (n = 8,
+     L = 1,024, base 256, W = 8 and 16, psi on and off) and the 16-leaf
+     tree (L = 256), witnesses sharded on axis 1;
+ 57. the path with every count zeroed before it and read after (K3,
+     bb_fold_end, S3, K5, K7 over three fields) and the twins of those
+     kernels counted: mul, ntt_mul and the challenge multiply of each
+     model, the MLE's evaluation, fix (k = 17), hypercube sum, inner
+     product, sumcheck (k = 2 over three fields, k = 3 over Goldilocks),
+     the two mat-vecs, the four sharded steps, prove_sharded and the
+     distributed prover example;
+ 58. oracles: every result equal to its unsharded counterpart on the
+     card (TModelMul, DenseMLE and K5 on the whole table, the generic
+     lsb prover, SparseMatrix.mul_vec, Matrix.mul_vec, FoldingStep.step,
+     FoldingTree.prove); 64 rows of each model's products against the
+     integer spec, 64 sparse rows and 2 ring mat-vec rows against
+     Python-int sums; the sharded tree verified;
+ 59. launch counts of phase 57: P K5 launches an evaluation, P K7 a
+     proof, 3 K3 / bb_fold_end / S3 a shard a multiply (2 a shard and 1
+     for the challenge), 2 K3 a shard a step; no twin call;
+ 60. timings: each sharded call against its unsharded counterpart in
+     turns (CUDA-event medians);
+ 61. profiles of one sharded sumcheck and one sharded step (busy against
+     wall, the idle share, torch ops a call).
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -530,6 +560,21 @@ LA_ORACLE_ROWS = 64
 LA_FIX_K = 10
 LA_RING_LOG, LA_RING_ROWS = 16, 8
 LA_DM_LOG = 12
+# the sharded layer (slice_parallel) on 8 shards of the card, at the
+# widths of the slices above: the model multiply at bench.py:614-618's
+# batches, config 4's nv = 20 MLEs and its mat-vec, the step's commit
+# shape (n = 8 rows, M = 8,192 columns), the step grid and the 16-leaf
+# tree of benchmarks/bench_protocol.py:416-423 and :486-487
+PAR_P = 8
+PAR_MODEL_B = {"goldilocks": 65536, "babybear": 16384, "stark_prime": 4096}
+PAR_NV = 20
+PAR_FIX_K = 17
+PAR_K = 3
+PAR_SC_FIELDS = ("goldilocks", "babybear", "frog")
+PAR_MV = (8, 8192)
+PAR_MV_INT_ROWS = (0, 7)
+PAR_SPEC_ROWS = 64
+PAR_REPS = 5            # timed groups a median: the sharded calls are long
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -570,8 +615,8 @@ def record(name, source, replaces, launches, err, ms, plain_ms, moved,
             "library_ms": None}
 
 
-def time_ms(fn, inner=1, before=None):
-    """Median ms per call over REPS timed groups of ``inner`` calls,
+def time_ms(fn, inner=1, before=None, reps=REPS):
+    """Median ms per call over ``reps`` timed groups of ``inner`` calls,
     after two warm-up calls (CUDA events).  ``before``, where given, runs
     ahead of each group, outside its events."""
     import torch
@@ -580,7 +625,7 @@ def time_ms(fn, inner=1, before=None):
         fn()
     torch.cuda.synchronize()
     samples = []
-    for _ in range(REPS):
+    for _ in range(reps):
         if before is not None:
             before()
         start = torch.cuda.Event(enable_timing=True)
@@ -594,9 +639,9 @@ def time_ms(fn, inner=1, before=None):
     return statistics.median(samples)
 
 
-def in_turns(first, second):
+def in_turns(first, second, reps=REPS):
     """first, second, second, first: each one's two medians (ms)."""
-    t = [time_ms(f) for f in (first, second, second, first)]
+    t = [time_ms(f, reps=reps) for f in (first, second, second, first)]
     return (t[0], t[3]), (t[1], t[2])
 
 
@@ -3589,12 +3634,12 @@ def eq_table(F, pts, dev):
     return t
 
 
-def slice_linalg(dev, smi, rng) -> list:
+def slice_linalg(dev, smi, rng, keep) -> list:
     """Phases 51-55: BASELINE config 4's mat-vec into its MLEs at full
     width, ``SparseMatrix`` / ``SparseMLE`` / ``DenseMLE.from_matrix``
     over Goldilocks on the card, with K5 and K6 on the path.  No kernel
     of its own (the reference runs sparse linalg in XLA): returns no
-    record."""
+    record.  Leaves A and z in ``keep`` for the sharded mat-vec."""
     import struct
 
     import numpy as np
@@ -3781,6 +3826,398 @@ def slice_linalg(dev, smi, rng) -> list:
         phase("linalg profile", f"{label}: device busy {busy_ms:.3f} ms of "
               f"{wall_ms:.3f} ms wall, idle share "
               f"{1 - busy_ms / wall_ms:.3f}; per call: {top}  ({smi})")
+    keep.update(A=A, z=z)
+    return []
+
+
+def count_twins(mods):
+    """Wrap each ``(module, twin name)`` of ``mods`` so its calls are
+    counted: returns (the counts by twin name, a function that puts the
+    twins back)."""
+    calls, saved = {}, []
+    for mod, name in mods:
+        fn = getattr(mod, name)
+        calls[name] = 0
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls, restore
+
+
+def slice_parallel(dev, smi, rng, linalg) -> list:
+    """Phases 56-61: the sharded layer (``stark_rings_tpu_torch.parallel``
+    and the witness-sharded folding step and tree) on 8 shards of the
+    card at the widths the earlier slices run, with K3, ``bb_fold_end``,
+    S3, K5 and K7 on its path.  No kernel of its own: returns no
+    record."""
+    import contextlib
+    import io
+
+    import torch
+
+    from stark_rings_tpu_torch import GOLDILOCKS as F, get_field
+    from stark_rings_tpu_torch.examples import distributed_prover
+    from stark_rings_tpu_torch.linalg import FieldElems, Matrix, RingElems
+    from stark_rings_tpu_torch.mle import DenseMLE, bit_reverse_table
+    from stark_rings_tpu_torch.mle import fix as FX, sumcheck_kernel as SK
+    from stark_rings_tpu_torch.mle.sumcheck import (
+        sumcheck_prove_many_with_challenges)
+    from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.ops import stark as ST
+    from stark_rings_tpu_torch.parallel import (ShardedMatVec, ShardedMLE,
+                                                ShardedModelMul,
+                                                ShardedSparseMatVec,
+                                                make_mesh, shard)
+    from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree
+    from stark_rings_tpu_torch.rings import get_ring
+
+    P, nv = PAR_P, PAR_NV
+
+    # -- 56. tables -----------------------------------------------------------
+    t0 = time.perf_counter()
+    mesh = make_mesh(P, device=dev)
+    rings = {n: get_ring(n, device=dev) for n in PAR_MODEL_B}
+    smms = {n: ShardedModelMul(r, mesh) for n, r in rings.items()}
+    mops, msh = {}, {}
+    for n, Bn in PAR_MODEL_B.items():
+        r = rings[n]
+        a, b = r.rand_coeff((Bn,), rng), r.rand_coeff((Bn,), rng)
+        mops[n] = (a, b, r.crt(a), r.crt(b), b[:1].contiguous())
+        msh[n] = [smms[n].shard(x) for x in mops[n][:4]]
+    fields = {n: get_field(n) for n in PAR_SC_FIELDS}
+    sms = {n: ShardedMLE(f, nv, mesh) for n, f in fields.items()}
+    mle_t = {n: [f.rand((1 << nv,), rng, dev)
+                 for _ in range(PAR_K if n == "goldilocks" else 2)]
+             for n, f in fields.items()}
+    mle_s = {n: [sms[n].shard(T) for T in ts] for n, ts in mle_t.items()}
+    chal = {n: list(f.rand((nv,), rng, dev)) for n, f in fields.items()}
+    sm, T0, T1 = sms["goldilocks"], *mle_t["goldilocks"][:2]
+    pts = chal["goldilocks"]
+    A, z = linalg["A"], linalg["z"]
+    ssmv = ShardedSparseMatVec(FieldElems(F, dev), mesh)
+    sp = ssmv.shard(A)
+    gl = rings["goldilocks"]
+    n_mv, m_mv = PAR_MV
+    Amv, vmv = gl.rand_ntt((n_mv, m_mv), rng), gl.rand_ntt((m_mv,), rng)
+    smv = ShardedMatVec(RingElems(gl), mesh)
+    dA, dv = smv.shard(Amv, vmv)
+    n_rows, L, base = PROTO
+    steps = {(W, psi): FoldingStep(gl, n_rows, L, base, psi_check=psi)
+             for W in PROTO_WS for psi in (False, True)}
+    fs = steps[(PROTO_WS[-1], True)]
+    c = fs.init_tables(rng)
+    rt = fs.precompute_challenge(gl.rand_coeff((), rng))
+    ins, sins = {}, {}
+    for W in PROTO_WS:
+        ins[W] = (fs.rand_witness(W, rng), fs.rand_witness(W, rng),
+                  *(fs.tm.to_t(gl.rand_ntt((W, n_rows), rng)).contiguous()
+                    for _ in range(2)))
+        sins[W] = [shard(x, mesh, 1) for x in ins[W]]
+    sfns = {key: st.make_sharded_step_fn(mesh) for key, st in steps.items()}
+    Wt, Lt = PROTO_TREE
+    ft = FoldingTree(gl, n_rows, Lt, base=base)
+    tc = ft.init_tables(rng)
+    wt = ft.rand_witnesses(Wt, rng)
+    cw = ft.commit_witnesses(tc, wt)
+    rts = ft.precompute_challenges([gl.rand_coeff((), rng)
+                                    for _ in range(Wt.bit_length() - 1)])
+    torch.cuda.synchronize()
+    phase("parallel tables", f"a mesh of {P} shards of {dev}; model batches "
+          f"{PAR_MODEL_B}, {P} shards each; nv = {nv} tables over "
+          f"{list(fields)} ({P} shards of 2^{nv - sm.logP}); config 4's A "
+          f"({A.nrows} x {A.ncols}, nnz {A.nnz}: {sp[0][0].shape[0]} entries "
+          f"a shard); the ring mat-vec {n_mv} x {m_mv} ({m_mv // P} columns "
+          f"a shard); the step n={n_rows}, L={L}, base={base}, W in "
+          f"{list(PROTO_WS)} ({[W // P for W in PROTO_WS]} witnesses a "
+          f"shard); the {Wt}-leaf tree L={Lt}; drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 57. the path, launches and twin calls counted ------------------------
+    mods = (K, KB, ST, FX, SK)
+    path = ("fold_end", "bb_fold_end", "limb_fold", "evaluate_goldilocks",
+            *(f"sumcheck_prove_many_{n}" for n in PAR_SC_FIELDS))
+
+    def counts():
+        every = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        return {k: every[k] for k in path}
+
+    fns = {}
+    for n, smm in smms.items():
+        sa, sb, sna, snb = msh[n]
+        fns[f"{n} mul"] = functools.partial(smm.make_mul_fn(), sa, sb)
+        fns[f"{n} ntt_mul"] = functools.partial(smm.make_ntt_mul_fn(), sna,
+                                                snb)
+        fns[f"{n} challenge"] = functools.partial(
+            smm.make_challenge_mul_fn(), sa, mops[n][4])
+    T0s, T1s = mle_s["goldilocks"][:2]
+    fns.update({
+        "eval": functools.partial(sm.make_eval_fn(), T0s, *pts),
+        f"fix k={PAR_FIX_K}": functools.partial(sm.make_fix_fn(PAR_FIX_K),
+                                                T0s, *pts[:PAR_FIX_K]),
+        "hypercube sum": functools.partial(sm.make_hypercube_sum_fn(), T0s),
+        "inner product": functools.partial(sm.make_inner_product_fn(), T0s,
+                                           T1s),
+        **{f"sumcheck {n} k=2": functools.partial(
+            sms[n].make_sumcheck_fn(), *mle_s[n][:2], *chal[n])
+           for n in PAR_SC_FIELDS},
+        f"sumcheck goldilocks k={PAR_K}": functools.partial(
+            sm.make_sumcheck_many_fn(PAR_K), *mle_s["goldilocks"], *pts),
+        "sparse mat-vec": functools.partial(
+            ssmv.make_matvec_fn(A.nrows), *sp, z),
+        "ring mat-vec": functools.partial(smv.make_matvec_fn(), dA, dv),
+        **{f"step W={W} psi={psi}": functools.partial(
+            sfns[(W, psi)], c, *sins[W], rt) for W, psi in steps},
+        "tree": functools.partial(ft.prove_sharded, mesh, tc, wt, cw, rts),
+    })
+    text = io.StringIO()
+
+    def example():
+        with contextlib.redirect_stdout(text):
+            distributed_prover.main(device=dev, P=P)
+
+    fns["distributed prover"] = example
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launches()
+    twins, restore = count_twins(
+        ((K, "fold_end_ref"), (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref"),
+         (FX, "evaluate_goldilocks_ref"), (SK, "sumcheck_prove_many_ref")))
+    t0 = time.perf_counter()
+    outs, per_run = {}, {}
+    try:
+        for name, fn in fns.items():
+            before = counts()
+            outs[name] = fn()
+            per_run[name] = {k: v - before[k] for k, v in counts().items()
+                             if v != before[k]}
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = counts()
+    phase("parallel path", f"{len(fns)} sharded calls in "
+          f"{time.perf_counter() - t0:.2f} s; launches {per_run}; twin "
+          f"calls {twins}")
+    print(text.getvalue().rstrip())
+
+    # -- 58. oracles ----------------------------------------------------------
+    t0 = time.perf_counter()
+
+    def same(what, got, want):
+        if u64_err(got, want, what):
+            raise AssertionError(f"{what}: differs")
+
+    def cat(xs, dim=0):
+        return torch.cat(list(xs), dim=dim)
+
+    for n in PAR_MODEL_B:
+        ring, tm = rings[n], smms[n].tm
+        a, b, na, nb, ch = mops[n]
+        at, bt = tm.to_t(a), tm.to_t(b)
+        got, got_c = cat(outs[f"{n} mul"]), cat(outs[f"{n} challenge"])
+        same(f"{n} mul", got, tm.from_t(tm.mul_t(at, bt)))
+        same(f"{n} ntt_mul", cat(outs[f"{n} ntt_mul"]),
+             tm.from_t(tm.ntt_mul_t(tm.to_t(na), tm.to_t(nb))))
+        same(f"{n} challenge", got_c, tm.from_t(tm.mul_cached_t(
+            at, tm.precompute_t(tm.to_t(ch)))))
+        ai, bi, ci = (ring.decode(x) for x in (a[:PAR_SPEC_ROWS],
+                                               b[:PAR_SPEC_ROWS], ch))
+        gi, gci = (ring.decode(x[:PAR_SPEC_ROWS]) for x in (got, got_c))
+        for r in range(PAR_SPEC_ROWS):
+            for rhs, res, what in ((bi[r], gi, "mul"), (ci[0], gci,
+                                                        "challenge")):
+                want = ring.spec.coeff_mul([int(v) for v in ai[r]],
+                                           [int(v) for v in rhs])
+                if [int(v) for v in res[r]] != want:
+                    raise AssertionError(f"{n} sharded {what} row {r} "
+                                         "differs from the integer spec")
+    e = FieldElems(F, dev)
+    dm = DenseMLE(e, nv, T0)
+    same("eval", outs["eval"], dm.evaluate(pts))
+    same("eval K5 whole", outs["eval"], FX.evaluate_goldilocks(T0, pts))
+    same(f"fix k={PAR_FIX_K}", cat(outs[f"fix k={PAR_FIX_K}"]),
+         dm.fix_variables(pts[:PAR_FIX_K]).evals)
+    same("hypercube sum", outs["hypercube sum"], F.sum(T0, 0))
+    ip = outs["inner product"]
+    same("inner product", ip, F.sum(F.mul(T0, T1), 0))
+    for n in PAR_SC_FIELDS:
+        f = fields[n]
+        for k in (2, PAR_K) if n == "goldilocks" else (2,):
+            got = outs[f"sumcheck {n} k={k}"]
+            msgs, finals = (got[0], list(got[1:])) if k == 2 else got
+            want_m, want_f = sumcheck_prove_many_with_challenges(
+                f, mle_t[n][:k], chal[n])
+            same(f"sumcheck {n} k={k} msgs", msgs, want_m)
+            for j, (g, w) in enumerate(zip(finals, want_f)):
+                same(f"sumcheck {n} k={k} final {j}", g, w)
+    m0 = F.decode(outs["sumcheck goldilocks k=2"][0][0])
+    if (int(m0[0]) + int(m0[1])) % F.q != int(F.decode(ip)):
+        raise AssertionError("sumcheck round 0: p(0) + p(1) is not the "
+                             "inner product (Python ints)")
+    y = outs["sparse mat-vec"]
+    same("sparse mat-vec", y, A.mul_vec(z))
+    pick = torch.from_numpy(rng.choice(A.nrows, LA_ORACLE_ROWS,
+                                       replace=False)).to(dev)
+    for i, yi in zip(pick.tolist(), F.decode(y[pick]).tolist()):
+        ent = (A.rows == i).nonzero().reshape(-1)
+        s_ = sum(int(d) * int(v) for d, v in zip(
+            F.decode(A.data[ent]), F.decode(z[A.cols[ent].long()]))) % F.q
+        if int(yi) != s_:
+            raise AssertionError(f"sparse mat-vec row {i}: {yi} != {s_} "
+                                 "(Python ints)")
+    cv = outs["ring mat-vec"]
+    same("ring mat-vec", cv, Matrix(RingElems(gl), Amv).mul_vec(vmv))
+    vi = gl.decode(vmv)
+    for i in PAR_MV_INT_ROWS:
+        Ai = gl.decode(Amv[i])
+        acc = [0] * gl.D
+        for j in range(m_mv):
+            prod = gl.spec.ntt_mul([int(v) for v in Ai[j]],
+                                   [int(v) for v in vi[j]])
+            acc = [(x + y_) % gl.q for x, y_ in zip(acc, prod)]
+        if gl.decode(cv[i]).tolist() != acc:
+            raise AssertionError(f"ring mat-vec row {i} differs from the "
+                                 "spec's slot products in Python ints")
+    for (W, psi), st in steps.items():
+        got = outs[f"step W={W} psi={psi}"]
+        want = st.step(c, *ins[W], rt)
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"step W={W} psi={psi}: keys {sorted(got)}")
+        for key, val in want.items():
+            same(f"step W={W} psi={psi} {key}",
+                 cat(got[key], 0 if key.startswith("ok_") else 1), val)
+    levels, rw, rc = outs["tree"]
+    lv_l, rw_l, rc_l = ft.prove(tc, wt, cw, rts)
+    same("tree root witness", rw, rw_l)
+    same("tree root commitment", rc, rc_l)
+    for lvl, (got, want) in enumerate(zip(levels, lv_l)):
+        for key, val in want.items():
+            same(f"tree level {lvl} {key}", got[key], val)
+    if not ft.verify(tc, wt, cw, levels, rts):
+        raise AssertionError("the sharded tree was not accepted")
+    if "sharded sumcheck verified" not in text.getvalue():
+        raise AssertionError("the distributed prover did not verify")
+    phase("parallel oracle", f"each sharded result equals its unsharded "
+          "counterpart on the card (TModelMul mul_t / ntt_mul_t / "
+          "mul_cached_t, DenseMLE.evaluate and K5 on the whole table, "
+          "fix_variables, the field's sums, the generic lsb prover, "
+          "SparseMatrix.mul_vec, Matrix.mul_vec, FoldingStep.step, "
+          f"FoldingTree.prove); {PAR_SPEC_ROWS} rows of each model's mul and "
+          f"challenge multiply equal the integer spec, {LA_ORACLE_ROWS} rows "
+          "of the sparse mat-vec and rows "
+          f"{list(PAR_MV_INT_ROWS)} of the ring mat-vec equal Python-int "
+          "sums, round 0's p(0) + p(1) the inner product; the sharded tree "
+          "verified; the distributed prover verified "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 59. launch counts ----------------------------------------------------
+    phase("parallel launches", json.dumps(launches))
+    fold = {"goldilocks": "fold_end", "babybear": "bb_fold_end",
+            "stark_prime": "limb_fold"}
+    expect = {}
+    for n in PAR_MODEL_B:
+        expect[f"{n} mul"] = {fold[n]: 3 * P}
+        expect[f"{n} ntt_mul"] = {}
+        expect[f"{n} challenge"] = {fold[n]: 2 * P + 1}
+    expect.update({"eval": {"evaluate_goldilocks": P},
+                   f"fix k={PAR_FIX_K}": {}, "hypercube sum": {},
+                   "inner product": {}, "sparse mat-vec": {},
+                   "ring mat-vec": {}})
+    for n in PAR_SC_FIELDS:
+        expect[f"sumcheck {n} k=2"] = {f"sumcheck_prove_many_{n}": P}
+    expect[f"sumcheck goldilocks k={PAR_K}"] = {
+        "sumcheck_prove_many_goldilocks": P}
+    for W, psi in steps:
+        expect[f"step W={W} psi={psi}"] = {"fold_end": 2 * P}
+    sharded_levels = sum(1 for i in range(Wt.bit_length() - 1)
+                         if (Wt >> (i + 1)) % P == 0)
+    expect["tree"] = {"fold_end": 2 * P * sharded_levels
+                      + 2 * (Wt.bit_length() - 1 - sharded_levels)}
+    # the example: a sharded mul and two ring.crt calls of the commit, and
+    # one sharded proof
+    expect["distributed prover"] = {"fold_end": 3 * P + 2,
+                                    "sumcheck_prove_many_goldilocks": P}
+    if per_run != expect:
+        raise AssertionError(f"parallel launches {per_run}, expected "
+                             f"{expect}")
+    if any(twins.values()):
+        raise AssertionError(f"a twin ran on the card: {twins}")
+    phase("parallel launches", f"as expected: {P} K5 launches an evaluation, "
+          f"{P} K7 launches a proof over each field, 3 K3 / bb_fold_end / S3 "
+          "launches a shard a multiply, 2 K3 a shard a step; no twin call")
+
+    # -- 60. timings ----------------------------------------------------------
+    tms = {n: smms[n].tm for n in PAR_MODEL_B}
+    pairs = {}
+    for n in PAR_MODEL_B:
+        tm, (a, b, na, nb, ch) = tms[n], mops[n]
+        at, bt, nat, nbt, cht = (tm.to_t(x).contiguous()
+                                 for x in (a, b, na, nb, ch))
+        pairs[f"{n} mul B={a.shape[0]}"] = (fns[f"{n} mul"],
+                                           lambda tm=tm, at=at, bt=bt:
+                                           tm.mul_t(at, bt))
+        pairs[f"{n} ntt_mul"] = (fns[f"{n} ntt_mul"],
+                                 lambda tm=tm, x=nat, y=nbt:
+                                 tm.ntt_mul_t(x, y))
+        pairs[f"{n} challenge"] = (fns[f"{n} challenge"],
+                                   lambda tm=tm, at=at, cht=cht:
+                                   tm.mul_cached_t(at, tm.precompute_t(cht)))
+    rev = {n: [bit_reverse_table(T) for T in ts] for n, ts in mle_t.items()}
+    pairs.update({
+        f"eval nv={nv} (K5 on the whole table)": (
+            fns["eval"], lambda: FX.evaluate_goldilocks(T0, pts)),
+        f"fix k={PAR_FIX_K} (DenseMLE.fix_variables)": (
+            fns[f"fix k={PAR_FIX_K}"],
+            lambda: dm.fix_variables(pts[:PAR_FIX_K])),
+        "hypercube sum (F.sum)": (fns["hypercube sum"],
+                                  lambda: F.sum(T0, 0)),
+        "inner product (F.sum of F.mul)": (
+            fns["inner product"], lambda: F.sum(F.mul(T0, T1), 0)),
+        **{f"sumcheck {n} k=2 (K7 on the whole bit-reversed tables)": (
+            fns[f"sumcheck {n} k=2"], lambda n=n: SK.sumcheck_prove_many(
+                rev[n][:2], chal[n], n)) for n in PAR_SC_FIELDS},
+        f"sumcheck goldilocks k={PAR_K} (K7 whole)": (
+            fns[f"sumcheck goldilocks k={PAR_K}"],
+            lambda: SK.sumcheck_prove_many(rev["goldilocks"], pts)),
+        "sparse mat-vec (SparseMatrix.mul_vec)": (
+            fns["sparse mat-vec"], lambda: A.mul_vec(z)),
+        f"ring mat-vec {n_mv} x {m_mv} (Matrix.mul_vec)": (
+            fns["ring mat-vec"],
+            lambda: Matrix(RingElems(gl), Amv).mul_vec(vmv)),
+        **{f"step W={W} psi={psi}": (
+            fns[f"step W={W} psi={psi}"],
+            lambda key=(W, psi): steps[key].step(c, *ins[key[0]], rt))
+           for W, psi in steps},
+        f"tree {Wt} leaves L={Lt}": (fns["tree"],
+                                     lambda: ft.prove(tc, wt, cw, rts)),
+    })
+    for label, (sharded, whole) in pairs.items():
+        ms_s, ms_w = in_turns(sharded, whole, PAR_REPS)
+        phase("parallel time", f"{label}: sharded on {P} shards "
+              f"{ms_s[0]:.4f}, {ms_s[1]:.4f} ms; unsharded {ms_w[0]:.4f}, "
+              f"{ms_w[1]:.4f} ms (in turns)  ({smi})")
+    generic = time_ms(lambda: sumcheck_prove_many_with_challenges(
+        F, [T0, T1], pts), reps=PAR_REPS)
+    phase("parallel time", f"the generic lsb prover on the whole nv = {nv} "
+          f"Goldilocks tables (the oracle): {generic:.4f} ms  ({smi})")
+
+    # -- 61. where the device time goes ---------------------------------------
+    for label, fn in (("sumcheck goldilocks k=2", fns["sumcheck goldilocks "
+                                                      "k=2"]),
+                      (f"step W={PROTO_WS[-1]} psi=True",
+                       fns[f"step W={PROTO_WS[-1]} psi=True"])):
+        busy_ms, wall_ms, top = device_profile(fn, 3, dev, 5)
+        phase("parallel profile", f"sharded {label} on {P} shards: device "
+              f"busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall (profiled), "
+              f"idle share {1 - busy_ms / wall_ms:.3f}; {torch_ops(fn)} torch "
+              f"ops a call; per call: {top}  ({smi})")
     return []
 
 
@@ -4092,17 +4529,28 @@ def main() -> None:
 
     records = [record(name, SOURCE, KERNELS[name], launches[name],
                       max_err[name], *times[name]) for name in KERNELS]
-    records += slice_e(dev, smi, rng)
     gl = {"eng": eng, "a": a, "b": b, "ch": ch, "results": results,
           "orc": orc}
-    records += slice_b(dev, smi, rng, gl)
-    records += slice_c(dev, smi, rng)
-    records += slice_ntt(dev, smi, rng, gl)
-    records += slice_sharded(dev, smi, rng)
-    records += slice_models(dev, smi, rng)
-    records += slice_protocol(dev, smi, rng)
-    records += slice_stark(dev, smi, rng)
-    records += slice_linalg(dev, smi, rng)
+    linalg = {}
+    seconds = {"slice A": time.perf_counter() - started}
+    for name, run in (("slice_e", lambda: slice_e(dev, smi, rng)),
+                      ("slice_b", lambda: slice_b(dev, smi, rng, gl)),
+                      ("slice_c", lambda: slice_c(dev, smi, rng)),
+                      ("slice_ntt", lambda: slice_ntt(dev, smi, rng, gl)),
+                      ("slice_sharded", lambda: slice_sharded(dev, smi,
+                                                              rng)),
+                      ("slice_models", lambda: slice_models(dev, smi, rng)),
+                      ("slice_protocol", lambda: slice_protocol(dev, smi,
+                                                                rng)),
+                      ("slice_stark", lambda: slice_stark(dev, smi, rng)),
+                      ("slice_linalg", lambda: slice_linalg(dev, smi, rng,
+                                                            linalg)),
+                      ("slice_parallel", lambda: slice_parallel(
+                          dev, smi, rng, linalg))):
+        t0 = time.perf_counter()
+        records += run()
+        seconds[name] = time.perf_counter() - t0
+    phase("seconds", ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     phase("done", f"every phase passed in {time.perf_counter() - started:.1f} "
           "s, build included")
     print(json.dumps({"kernels": records}))

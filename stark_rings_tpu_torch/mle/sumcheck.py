@@ -16,6 +16,8 @@ gives exactly the lsb-order messages and finals for T.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["sumcheck_round", "sumcheck_fold",
@@ -34,18 +36,25 @@ def _halves(T, order):
     return T[:h], T[h:]
 
 
+@functools.lru_cache(maxsize=64)
+def _bit_reversal(n: int, device: torch.device) -> torch.Tensor:
+    """rev(i) for i < n = 2^nv, on ``device`` (built once per n and
+    device: a sharded prover reverses every shard's tables)."""
+    nv = n.bit_length() - 1
+    i = torch.arange(n, device=device)
+    rev = torch.zeros_like(i)
+    for b in range(nv):
+        rev |= ((i >> b) & 1) << (nv - 1 - b)
+    return rev
+
+
 def bit_reverse_table(T: torch.Tensor) -> torch.Tensor:
     """Little-endian bit-reversal permutation of a 2^nv table:
     out[rev(i)] = T[i].  Written as a gather, so any nv works."""
     n = T.shape[0]
-    nv = n.bit_length() - 1
-    if 1 << nv != n:
+    if n & (n - 1) or not n:
         raise ValueError(f"table length {n} is not a power of two")
-    i = torch.arange(n, device=T.device)
-    rev = torch.zeros_like(i)
-    for b in range(nv):
-        rev |= ((i >> b) & 1) << (nv - 1 - b)
-    return T[rev]
+    return T[_bit_reversal(n, T.device)]
 
 
 def sumcheck_round(f, G, H, order: str = "lsb"):

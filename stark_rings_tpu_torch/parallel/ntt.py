@@ -49,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import from_jax_storage, get_device, to_numpy_storage
+from ..device import get_device
 from ..fields import get_field
 from ..ops.fold import pointwise_mul
 from ..ops.goldilocks_ntt import GoldilocksKernelNTT
@@ -57,6 +57,7 @@ from ..ops.mxu2 import PrescaledMat, digit_table
 from ..ops.ntt import NTTContext, find_primitive_root
 from .exchange import (EXCHANGE_FIELDS, all_to_all, twiddle_exchange_fwd,
                        twiddle_exchange_inv)
+from .mesh import check_shards, gather, shard, with_index
 
 __all__ = ["ShardedNTT"]
 
@@ -68,13 +69,6 @@ def _pow_table(f, base: int, n: int) -> torch.Tensor:
         step = f.const(pow(base, tab.shape[0], f.q), "cpu")
         tab = torch.cat([tab, f.mul(tab, step)])
     return tab[:n]
-
-
-def _with_index(dev: torch.device) -> torch.device:
-    """``dev`` with its index: "cuda" is the current card."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 class ShardedNTT:
@@ -120,7 +114,7 @@ class ShardedNTT:
         self.local = local
         self.exchange = exchange
         self.single_chip = bool(single_chip)
-        self.device = _with_index(get_device(device)) if single_chip else None
+        self.device = with_index(get_device(device)) if single_chip else None
         g = find_primitive_root(f.q)
         self.psi_int = pow(g, (f.q - 1) // (2 * N), f.q)
         self.omega_int = pow(self.psi_int, 2, f.q)
@@ -324,21 +318,12 @@ class ShardedNTT:
         storage tensor) -> its P shards under ``spec``, shard p on
         ``mesh.devices[p]``."""
         self._check_mesh(mesh)
-        ax = self._split_axis(spec)
-        if isinstance(x, np.ndarray):
-            parts = np.split(x, self.P, axis=ax)
-            return [from_jax_storage(self.f, part, dev)
-                    for part, dev in zip(parts, mesh.devices)]
-        return [part.to(dev).contiguous()
-                for part, dev in zip(x.chunk(self.P, ax), mesh.devices)]
+        return shard(x, mesh, self._split_axis(spec), self.f)
 
     def gather(self, shards, spec, device=None):
         """The shards under ``spec`` -> the whole matrix: the reference's
         numpy storage, or with ``device`` a storage tensor there."""
-        ax = self._split_axis(spec)
-        dev = torch.device("cpu") if device is None else get_device(device)
-        whole = torch.cat([s.to(dev) for s in shards], dim=ax)
-        return to_numpy_storage(whole) if device is None else whole
+        return gather(shards, self._split_axis(spec), device)
 
     def to_matrix(self, coeffs):
         """[..., N(, L)] -> [..., N1, N2(, L)] (row-major n = n1*N2 + n2;
@@ -366,13 +351,7 @@ class ShardedNTT:
         def call(*args):
             if len(args) != n_in:
                 raise TypeError(f"expected {n_in} sharded operands")
-            for shards in args:
-                if len(shards) != self.P or any(
-                        s.device != d or s.dtype != self.f.dtype
-                        for s, d in zip(shards, mesh.devices)):
-                    raise ValueError(f"expected {self.P} {self.f.dtype} "
-                                     "shards on the mesh's devices")
-            return fn(*[list(a) for a in args])
+            return fn(*[check_shards(mesh, a, self.f.dtype) for a in args])
         return call
 
     def make_fns(self, mesh, batch_ndim: int = 0,

@@ -28,6 +28,8 @@ stark_prime every field product, add and subtract is kernel S1 or S2
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -190,8 +192,51 @@ class FoldingStep:
         return out
 
     # -- multi-device -------------------------------------------------------
+    def on_device(self, device) -> "FoldingStep":
+        """This step, or the same step over the ring model's tables on
+        ``device``."""
+        from ..parallel.mesh import ring_on
+
+        ring = ring_on(self.ring, device)
+        if ring is self.ring:
+            return self
+        other = copy.copy(self)
+        other.ring, other.f, other.tm = ring, ring.field, TModelMul(ring)
+        return other
+
     def make_sharded_step_fn(self, mesh, axis: str = "x"):
-        """The witness-sharded step: ROADMAP queue 1 step 6."""
-        raise NotImplementedError(
-            "FoldingStep.make_sharded_step_fn is ROADMAP queue 1 step 6 "
-            "(the rest of the multi-device layer)")
+        """The witness-sharded step over ``mesh``: (c, s0t, s1t, c0t,
+        c1t, rt) -> the step's dict, every entry a list of P shards.
+
+        The witnesses and commitments are shard lists along the witness
+        axis W (axis 1 of ``[D, W, ...]``: shard p ``[D, W_p, ...]``,
+        ``shard(x, mesh, 1)``); the tables ``c`` and the challenge
+        ``rt`` are replicated (one copy a shard device).  Every stage is
+        elementwise over W or a per-witness reduction, so each shard
+        runs :meth:`step` on its own block with no traffic between
+        shards (rayon over witnesses, SURVEY section 2.5, across
+        shards).  ``s``, ``c``, ``digits`` and ``cd`` come back sharded
+        on axis 1, ``ok_l2`` and ``ok_psi`` on axis 0."""
+        from ..parallel.mesh import check_shards, replicate
+
+        dtype = self.f.dtype
+
+        def call(c, s0t, s1t, c0t, c1t, rt):
+            ins = [check_shards(mesh, x, dtype, what) for x, what in
+                   ((s0t, "s0t"), (s1t, "s1t"), (c0t, "c0t"), (c1t, "c1t"))]
+            steps, tabs, rts = {}, {}, replicate(rt, mesh)
+            for dev in rts:
+                steps[dev] = self.on_device(dev)
+                tabs[dev] = _tables_on(c, dev)
+            outs = [steps[x[0].device].step(tabs[x[0].device], *x,
+                                            rts[x[0].device])
+                    for x in zip(*ins)]
+            return {key: [o[key] for o in outs] for key in outs[0]}
+        return call
+
+
+def _tables_on(c, device):
+    """The step's tables ``c`` (tensors, or dicts of them) on ``device``."""
+    if isinstance(c, dict):
+        return {k: _tables_on(v, device) for k, v in c.items()}
+    return c.to(device) if isinstance(c, torch.Tensor) else c

@@ -91,10 +91,54 @@ class FoldingTree:
         return levels, wt, ct
 
     def prove_sharded(self, mesh, c, wt, ct, rts, axis: str = "x"):
-        """The witness-sharded tree: ROADMAP queue 1 step 6."""
-        raise NotImplementedError(
-            "FoldingTree.prove_sharded is ROADMAP queue 1 step 6 (the rest "
-            "of the multi-device layer)")
+        """The witness-sharded tree over ``mesh``: a level whose PAIR count
+        P divides runs :meth:`FoldingStep.make_sharded_step_fn` (no
+        traffic between shards), the smaller levels near the root the
+        step on the mesh's first device.  ``wt`` and ``ct`` are whole
+        tensors, or shard lists along the witness axis (axis 1).
+
+        Witnesses shard in contiguous blocks of an even count, so every
+        pair (2i, 2i+1) lies in one shard and a sharded level's outputs
+        are the next level's shards as they stand.  Returns (levels, wt,
+        ct) as :meth:`prove` does, each level's outputs gathered to
+        whole tensors on the mesh's first device; bit-equal to
+        :meth:`prove`."""
+        from ..parallel.mesh import shard
+        from .folding import _tables_on
+
+        P, dev = mesh.size, mesh.devices[0]
+        sfn = self.fs.make_sharded_step_fn(mesh, axis)
+        local = self.fs.on_device(dev)
+
+        def whole(shards, axis=1):
+            return torch.cat([x.to(dev) for x in shards], dim=axis)
+
+        sharded = isinstance(wt, (list, tuple))
+        levels = []
+        for rt in rts:
+            W = sum(w.shape[1] for w in wt) if sharded else wt.shape[1]
+            if (W // 2) % P == 0:
+                if not sharded:
+                    wt, ct = shard(wt, mesh, 1), shard(ct, mesh, 1)
+                    sharded = True
+                out = sfn(c, [w[:, 0::2] for w in wt],
+                          [w[:, 1::2] for w in wt],
+                          [x[:, 0::2] for x in ct],
+                          [x[:, 1::2] for x in ct], rt)
+                wt, ct = out["s"], out["c"]
+                out = {k: whole(v, 0 if k.startswith("ok_") else 1)
+                       for k, v in out.items()}
+            else:
+                if sharded:
+                    wt, ct = whole(wt), whole(ct)
+                    sharded = False
+                out = local.step(_tables_on(c, dev), wt[:, 0::2], wt[:, 1::2],
+                                 ct[:, 0::2], ct[:, 1::2], rt.to(dev))
+                wt, ct = out["s"], out["c"]
+            levels.append(out)
+        if sharded:
+            wt, ct = whole(wt), whole(ct)
+        return levels, wt, ct
 
     # -- verifier ---------------------------------------------------------
     def verify(self, c, wt0, ct0, levels, rts) -> bool:

@@ -12,7 +12,9 @@ CRT folds (K3 at R = 24, K4's bb_fold_end at R = 72) and TModelMul on
 the card against the CPU twin path; the stark prime's kernels S1-S3
 against their twins, and MxuLimbNTT, the D = 16 model, the limbed
 folding step and tree and the generic sumcheck over it on the card
-against the radix engine and the CPU path.  Marked ``cuda``:
+against the radix engine and the CPU path; the sharded layer on 8
+shards of the card (K7 and K5 once a shard, the model folds' launch
+counts) against the unsharded functions.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -1575,3 +1577,111 @@ def test_goldilocks_fourstep_runs_on_kernels(dev, N, P):
         cpu = get_power_ring("goldilocks", N.bit_length() - 1,
                              device="cpu").fourstep_ctx()
         assert torch.equal(cpu.mul(a.cpu(), b.cpu()), want.cpu())
+
+
+# -- the sharded layer on P = 8 shards of the card ----------------------------
+
+
+@pytest.fixture
+def no_twins(monkeypatch):
+    """Make the K5, K7 and model-fold twins fail if the card route calls
+    them."""
+    from stark_rings_tpu_torch.ops import stark as ST
+
+    def refuse(*args, **kw):
+        raise AssertionError("a twin ran on the card")
+
+    for mod, name in ((FX, "evaluate_goldilocks_ref"),
+                      (SK, "sumcheck_prove_many_ref"), (K, "fold_end_ref"),
+                      (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
+def test_sharded_sumcheck_runs_k7_per_shard(dev, name, no_twins):
+    """ShardedMLE's provers on 8 shards of the card at nv = 20: one K7
+    launch a shard a proof (k = 2 and 3), no twin call, and the
+    messages and finals of the generic lsb prover on the whole
+    tables."""
+    from stark_rings_tpu_torch.mle.sumcheck import (
+        sumcheck_prove_many_with_challenges)
+    from stark_rings_tpu_torch.parallel import ShardedMLE, make_mesh
+
+    f = get_field(name)
+    nv, P = 20, 8
+    rng = np.random.default_rng(nv)
+    tables = [f.rand((1 << nv,), rng, dev) for _ in range(3)]
+    chal = list(f.rand((nv,), rng, dev))
+    sm = ShardedMLE(f, nv, make_mesh(P, device=dev))
+    shards = [sm.shard(T) for T in tables]
+    key = f"sumcheck_prove_many_{name}"
+    for k in (2, 3):
+        before = SK.LAUNCHES[key]
+        if k == 2:
+            msgs, g, h = sm.make_sumcheck_fn()(*shards[:2], *chal)
+            finals = [g, h]
+        else:
+            msgs, finals = sm.make_sumcheck_many_fn(k)(*shards[:k], *chal)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES[key] - before == P
+        want_m, want_f = sumcheck_prove_many_with_challenges(
+            f, tables[:k], chal)
+        assert msgs.shape == (nv, k + 1) and msgs.device == dev
+        assert torch.equal(msgs, want_m)
+        assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("nv", [3, 9, 20])
+def test_sharded_eval_runs_k5_per_shard(dev, nv, no_twins):
+    """ShardedMLE.make_eval_fn on 8 shards of the card: one K5 launch a
+    shard (none at nv = 3, one entry a shard), equal to
+    DenseMLE.evaluate; the sums equal the field's sum."""
+    from stark_rings_tpu_torch.parallel import ShardedMLE, make_mesh
+
+    f, P = GOLDILOCKS, 8
+    rng = np.random.default_rng(nv)
+    T = f.rand((1 << nv,), rng, dev)
+    pts = list(f.rand((nv,), rng, dev))
+    sm = ShardedMLE(f, nv, make_mesh(P, device=dev))
+    before = FX.LAUNCHES["evaluate_goldilocks"]
+    got = sm.make_eval_fn()(sm.shard(T), *pts)
+    torch.cuda.synchronize()
+    assert FX.LAUNCHES["evaluate_goldilocks"] - before == (P if nv > 3
+                                                          else 0)
+    assert torch.equal(got, DenseMLE(FieldElems(f, dev), nv, T)
+                       .evaluate(pts))
+    assert torch.equal(sm.make_hypercube_sum_fn()(sm.shard(T)), f.sum(T, 0))
+
+
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "stark_prime"])
+def test_sharded_model_mul_launch_counts(dev, name, no_twins):
+    """ShardedModelMul on 8 shards of the card: the model CRT fold (K3,
+    bb_fold_end, S3) three times a shard a mul, none for ntt_mul, two a
+    shard and one for the challenge; equal to TModelMul on the whole
+    batch."""
+    from stark_rings_tpu_torch.ops import stark as ST
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.parallel import ShardedModelMul, make_mesh
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring, P, B = get_ring(name, device=dev), 8, 1024
+    counts, key = {"goldilocks": (K.LAUNCHES, "fold_end"),
+                   "babybear": (KB.LAUNCHES, "bb_fold_end"),
+                   "stark_prime": (ST.LAUNCHES, "limb_fold")}[name]
+    rng = np.random.default_rng(B)
+    a, b = ring.rand_coeff((B,), rng), ring.rand_coeff((B,), rng)
+    smm, tm = ShardedModelMul(ring, make_mesh(P, device=dev)), TModelMul(ring)
+    sa, sb = smm.shard(a), smm.shard(b)
+    na, nb = ring.crt(a), ring.crt(b)
+    runs = ((3 * P, lambda: smm.make_mul_fn()(sa, sb), tm.mul(a, b)),
+            (0, lambda: smm.make_ntt_mul_fn()(smm.shard(na), smm.shard(nb)),
+             ring.ntt_mul(na, nb)),
+            (2 * P + 1, lambda: smm.make_challenge_mul_fn()(sa, b[:1]),
+             tm.mul(a, b[:1].expand(a.shape).contiguous())))
+    for launches, run, want in runs:
+        torch.cuda.synchronize()
+        before = counts[key]
+        got = run()
+        torch.cuda.synchronize()
+        assert counts[key] - before == launches
+        assert torch.equal(smm.gather(got, dev), want)

@@ -167,6 +167,15 @@ assert UT.deserialize_compressed(
 with UT.trace_span("no-jax"):
     assert stark_rings_tpu_torch.errors.ConversionError.__mro__[1] \
         is ValueError
+import stark_rings_tpu_torch.parallel.collectives
+import stark_rings_tpu_torch.parallel.linalg
+import stark_rings_tpu_torch.parallel.mle
+import stark_rings_tpu_torch.parallel.model
+import stark_rings_tpu_torch.examples.distributed_prover
+stark_rings_tpu_torch.examples.distributed_prover.main(device="cpu", P=4)
+assert all(hasattr(par, n) for n in (
+    "make_mesh", "ShardedNTT", "ShardedMLE", "ShardedMatVec",
+    "ShardedSparseMatVec", "ShardedModelMul", "psum_words"))
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked

@@ -23,7 +23,7 @@ from stark_rings_tpu.protocol import FoldingTree as RefFoldingTree
 from stark_rings_tpu.rings import get_ring as ref_ring
 
 from stark_rings_tpu_torch import (from_jax_consts, from_jax_storage,
-                                   to_numpy_storage)
+                                   make_mesh, to_numpy_storage)
 from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree, ntt_matvec
 from stark_rings_tpu_torch.protocol.tree import _is_negacyclic
 from stark_rings_tpu_torch.rings import get_ring
@@ -197,8 +197,10 @@ def test_tree_prove_verify_and_tamper(name):
 
 
 def test_step_chains_and_multi_device_raises():
-    """Output shapes feed the next step; the E == 1 matvec and the sharded
-    entry points name the ROADMAP steps that port them."""
+    """Output shapes feed the next step; the E == 1 matvec; the sharded
+    entry points run on a mesh of 2 CPU shards, equal the local step and
+    tree, and raise on a shard list that does not fit the mesh (held to
+    the reference in test_torch_sharded_protocol.py)."""
     ring = get_ring("goldilocks", device="cpu")
     fs = FoldingStep(ring, n_rows=2, wit_len=2, base=256)
     rng = np.random.default_rng(5)
@@ -217,7 +219,21 @@ def test_step_chains_and_multi_device_raises():
     assert full.shape == (ring.D, 2, 2)
     assert torch.equal(ntt_matvec(f, fs.tm, 1, c["Agt"], out["digits"],
                                   block=3), full)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        fs.make_sharded_step_fn(None)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        FoldingTree(ring, 2, 2).prove_sharded(None, c, s0, c0, [rt])
+    mesh = make_mesh(2, device="cpu")
+    sfn = fs.make_sharded_step_fn(mesh)
+    got = sfn(c, *([x[:, :1], x[:, 1:]] for x in (s0, s1, c0, c1)), rt)
+    for key, val in out.items():
+        assert torch.equal(torch.cat(got[key], dim=0 if key == "ok_l2"
+                                     else 1), val), key
+    with pytest.raises(ValueError, match="2 torch.int64 shards"):
+        sfn(c, [s0], [s1], [c0], [c1], rt)
+    ft = FoldingTree(ring, 2, 2)
+    tabs = ft.init_tables(rng)
+    wt = ft.rand_witnesses(4, rng)
+    ct = ft.commit_witnesses(tabs, wt)
+    rts = [rt, rt]
+    lv_s, rw_s, rc_s = ft.prove_sharded(mesh, tabs, wt, ct, rts)
+    lv_l, rw_l, rc_l = ft.prove(tabs, wt, ct, rts)
+    assert torch.equal(rw_s, rw_l) and torch.equal(rc_s, rc_l)
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(lv_s, lv_l)
+               for k in a)
