@@ -31,6 +31,12 @@ pass kernels ``ntt_tile`` and ``ntt_stage``) at deg 2^16, batch 80, on
 Slice A's operands, ``MatmulNTT`` at deg 2^14, batch 80, on ``MxuModMat``
 and on the fused mod-mat kernel ``mxu_mod_mat``, and ``pointwise_chain``.
 
+The entry slice is the entry points: the flagship step of
+``entry()`` (the Goldilocks model CRT, slot product and ICRT with a
+base-256 decompose and recompose; K3 folds its CRT and ICRT),
+``dryrun_multichip`` on shards of the card, and the (dp, sp) grid step
+at deg 2^20 (the radix tile, ``pointwise_mul`` and K8).
+
 Slice H (sharded) is the four-step NTT of ``parallel/ntt.py`` at deg
 2^20 (BASELINE config 5), batch 8: ``ShardedNTT(..., exchange="pallas")``
 on a mesh of 8 shards of the one card, whose every exchange is one
@@ -373,6 +379,30 @@ shards of the card):
  61. profiles of one sharded sumcheck and one sharded step (busy against
      wall, the idle share, torch ops a call).
 
+The entry slice (``slice_entry``, the entry points of
+``stark_rings_tpu_torch.entry``):
+ 62. inputs: entry()'s own at B = 32 and a drawn batch at B = 65,536
+     (bench.py:614's goldilocks batch); config 5's deg 2^20, B = 8 on a
+     (dp, sp) = (2, 4) grid of shards of the card, for both exchanges;
+ 63. expected launches: the same calls on CPU shards with the kernels'
+     twins counted (the step at both batches, dryrun_multichip(8) and
+     (6), the grid step at deg 2^12 with the same grid and batch);
+ 64. the path with every count zeroed before it and read after (K3,
+     ntt_tile, pointwise_mul, K7, K8) and the twins counted: the step
+     at both batches, dryrun_multichip(8) (dp 1 x sp 8) and (6) (dp 3 x
+     sp 2) on shards of the card, the grid step through the plain
+     transpose and through K8; each call's launches equal to its CPU
+     twin calls, no twin call on the card;
+ 65. oracles: the step's difference zero, 64 rows of the B = 65,536
+     product against the integer spec; both grid products bit-equal to
+     fourstep_ctx().mul on the whole batch, the checksum to one
+     reduce_words of the product's widened words (each dry-run section
+     holds its own results to their local twins);
+ 66. timings: the step at both batches (steps/s), the grid step against
+     the 1-D P = 8 sharded mul and fourstep_ctx().mul in turns, each dry
+     run's seconds and torch ops; profiles of the B = 65,536 step, the
+     grid step and the P = 8 mul (busy against wall, torch ops a call).
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -575,6 +605,14 @@ PAR_MV = (8, 8192)
 PAR_MV_INT_ROWS = (0, 7)
 PAR_SPEC_ROWS = 64
 PAR_REPS = 5            # timed groups a median: the sharded calls are long
+# the entry points (slice_entry): the step at entry()'s batch and
+# at bench.py:614's goldilocks mul_t batch, the dry run's two layouts,
+# and config 5 (deg 2^20, B = 8) on a 2 x 4 grid of shards
+ENTRY_BIG_B = 65536
+ENTRY_SPEC_ROWS = 64
+ENTRY_DRYRUNS = (8, 6)
+ENTRY_GRID = (2, 4)         # (dp, sp)
+ENTRY_COUNT_N = 1 << 12     # the grid's degree in the CPU count
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -1809,7 +1847,7 @@ def slice_c(dev, smi, rng) -> list:
         f"W={SC_W} batch equals {SC_W} single K7 proofs and its twin; "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # -- 21. launch counts -----------------------------------------------------
+    # -- 21. launch counts ----------------------------------------------------
     phase("fields launches", json.dumps(launches))
     for name in FIELD_KERNELS:
         if launches[name] <= 0:
@@ -1819,7 +1857,7 @@ def slice_c(dev, smi, rng) -> list:
             raise AssertionError(f"{name}: {launches[name]} launches for "
                                  "one proof, not 1")
 
-    # -- 22. timings -------------------------------------------------------------
+    # -- 22. timings ----------------------------------------------------------
     times = {}
     timed = []
     for name, f in fields.items():
@@ -1887,7 +1925,7 @@ def slice_c(dev, smi, rng) -> list:
         if n != 1:
             raise AssertionError(f"K7 nv={nv} k={k}: {n} launches a proof")
 
-    # -- 23. where the device time goes -------------------------------------------
+    # -- 23. where the device time goes ---------------------------------------
     for name, label, kern, _, _, with_twin in timed:
         if not with_twin:
             continue
@@ -2528,7 +2566,7 @@ def slice_sharded(dev, smi, rng) -> list:
         if launches[name.split("[")[0]] <= 0:
             raise AssertionError(f"{name} was never launched on the path")
 
-    # -- 32. timings -----------------------------------------------------------
+    # -- 32. timings ----------------------------------------------------------
     rate = modmul_peak(dev)[0]
     times, ops_ms = {}, {}
     R1, C = N1 // SH_P, N2 // SH_P
@@ -2631,7 +2669,7 @@ def slice_sharded(dev, smi, rng) -> list:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in phase_ms.items())
           + f"  ({smi})")
 
-    # -- 33. where the device time of one sharded mul goes ---------------------
+    # -- 33. where the device time of one sharded mul goes --------------------
     for label, fn in ((f"sharded mul P={SH_P}", lambda: mul(sa, sb)),
                       ("fourstep_ctx().mul", lambda: fs["goldilocks"].mul(
                           a, b))):
@@ -3658,7 +3696,7 @@ def slice_linalg(dev, smi, rng, keep) -> list:
     n = 1 << LA_LOG
     nnz = n * LA_TERMS
 
-    # -- 51. tables ------------------------------------------------------------
+    # -- 51. tables -----------------------------------------------------------
     t0 = time.perf_counter()
     e = FieldElems(F, dev)
     cols_np = rng.integers(0, n, nnz, dtype=np.int64).astype(np.int32)
@@ -3718,7 +3756,7 @@ def slice_linalg(dev, smi, rng, keep) -> list:
           f"(nv = {mdd.num_vars}) through K5 in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # -- 53. oracles -------------------------------------------------------------
+    # -- 53. oracles ----------------------------------------------------------
     t0 = time.perf_counter()
     if y.shape != (n,) or sm.num_vars != 2 * LA_LOG:
         raise AssertionError(f"y {tuple(y.shape)}, nv {sm.num_vars}")
@@ -3790,13 +3828,13 @@ def slice_linalg(dev, smi, rng, keep) -> list:
           f"slot products in Python ints; {', '.join(golden)} serialize to "
           f"the golden bytes ({time.perf_counter() - t0:.1f} s)")
 
-    # -- 54. launch counts --------------------------------------------------------
+    # -- 54. launch counts ----------------------------------------------------
     phase("linalg launches", json.dumps(launches))
     if launches != {"evaluate_goldilocks": 3, "fix_last_goldilocks": 1}:
         raise AssertionError(f"K5 / K6 launches on the path: {launches}, "
                              "expected 3 and 1")
 
-    # -- 55. timings and profile ---------------------------------------------------
+    # -- 55. timings and profile ----------------------------------------------
     nv_s, nv_d = sm.num_vars, mdd.num_vars
     ms = {
         "mul_vec": time_ms(lambda: A.mul_vec(z)),
@@ -4221,6 +4259,224 @@ def slice_parallel(dev, smi, rng, linalg) -> list:
     return []
 
 
+def slice_entry(dev, smi, rng) -> list:
+    """Phases 62-66: the entry points (``stark_rings_tpu_torch.
+    entry``) on the card, with K3, ``ntt_tile``, ``pointwise_mul``, K7
+    and K8 on their path, each launched as often as the same calls on
+    CPU shards call its twin.  No kernel of its own: returns no
+    record."""
+    import torch
+
+    from stark_rings_tpu_torch import (GOLDILOCKS as F, ShardedNTT,
+                                       get_power_ring, make_mesh)
+    from stark_rings_tpu_torch import entry as E
+    from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+    from stark_rings_tpu_torch.ops import fold as K
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.parallel import exchange as EX
+    from stark_rings_tpu_torch.rings import get_ring
+    from stark_rings_tpu_torch.spec import get_model
+
+    dp, sp = ENTRY_GRID
+
+    # -- 62. inputs ---------------------------------------------------------
+    t0 = time.perf_counter()
+    step, (a, b) = E.entry(dev)
+    ring = get_ring("goldilocks", dev)
+    big = (ring.rand_coeff((ENTRY_BIG_B,), rng),
+           ring.rand_coeff((ENTRY_BIG_B,), rng))
+    rows = [make_mesh(sp, axis="sp", device=dev)] * dp
+
+    def grid_case(N, device, src=None):
+        """{exchange: (sn, rows, a grid, b grid)} at degree N, B = SH_B."""
+        on = [make_mesh(sp, axis="sp", device=device)] * dp
+        x, y = src if src is not None else (
+            F.rand((SH_B, N), rng, device) for _ in range(2))
+        out = {}
+        for ex in ("xla", "pallas"):
+            sn = ShardedNTT("goldilocks", N, sp, axis="sp", exchange=ex)
+            out[ex] = (sn, on, *(E.shard_grid(sn, on, sn.to_matrix(v))
+                                  for v in (x, y)))
+        return out
+
+    ga, gb = (F.rand((SH_B, SH_N), rng, dev) for _ in range(2))
+    grids = grid_case(SH_N, dev, (ga, gb))
+    fs = get_power_ring("goldilocks", SH_N.bit_length() - 1,
+                        device=dev).fourstep_ctx()
+    mesh8 = make_mesh(SH_P, device=dev)
+    s8 = ShardedNTT("goldilocks", SH_N, SH_P, exchange="pallas")
+    mul8 = s8.make_fns(mesh8, batch_ndim=1)[2]
+    cspec = s8.shard_specs(1)[0]
+    sa8, sb8 = (s8.shard(s8.to_matrix(x), cspec, mesh8) for x in (ga, gb))
+    torch.cuda.synchronize()
+    phase("entry inputs", f"entry()'s a, b [{a.shape[0]}, {ring.D}] and a "
+          f"drawn batch of {ENTRY_BIG_B}; the grid dp={dp} x sp={sp} at deg "
+          f"{SH_N}, B={SH_B} ({list(grids['xla'][2][0][0].shape)} a shard), "
+          f"both exchanges; fourstep_ctx() and the P={SH_P} sharded mul "
+          f"beside it; drawn in {time.perf_counter() - t0:.1f} s")
+
+    # -- 63. the same calls on CPU shards, the twins counted ------------------
+    twin_names = ("fold_end_ref", "ntt_tile_ref", "pointwise_mul_ref",
+                  "sumcheck_prove_many_ref", "twiddle_exchange_fwd_ref",
+                  "twiddle_exchange_inv_ref")
+    twin_mods = ((K, "fold_end_ref"), (G, "ntt_tile_ref"),
+                 (K, "pointwise_mul_ref"), (SK, "sumcheck_prove_many_ref"),
+                 (EX, "twiddle_exchange_fwd_ref"),
+                 (EX, "twiddle_exchange_inv_ref"))
+
+    def runs(device, step_fn, ins, gcase):
+        out = {f"step B={x.shape[0]}": functools.partial(step_fn, x, y)
+               for x, y in ins}
+        for n in ENTRY_DRYRUNS:
+            out[f"dryrun {n}"] = functools.partial(E.dryrun_multichip, n,
+                                                   device)
+        for ex, (sn, on, xa, xb) in gcase.items():
+            out[f"grid {ex}"] = functools.partial(E.grid_step, sn, on, xa,
+                                                  xb)
+        return out
+
+    t0 = time.perf_counter()
+    cpu_step = E.entry("cpu")[0]
+    cpu_runs = runs("cpu", cpu_step, ((a.cpu(), b.cpu()),
+                                      tuple(x.cpu() for x in big)),
+                    grid_case(ENTRY_COUNT_N, "cpu"))
+    expect = {}
+    for name, fn in cpu_runs.items():
+        calls, restore = count_twins(twin_mods)
+        try:
+            fn()
+        finally:
+            restore()
+        expect[name] = {k: v for k, v in calls.items() if v}
+    phase("entry expect", f"the calls on CPU shards (the grid at deg "
+          f"{ENTRY_COUNT_N}) in {time.perf_counter() - t0:.1f} s; twin "
+          f"calls {expect}")
+
+    # -- 64. the path, launches counted ---------------------------------------
+    def counts():
+        return {"fold_end_ref": K.LAUNCHES["fold_end"],
+                "ntt_tile_ref": G.LAUNCHES["ntt_tile"],
+                "pointwise_mul_ref": K.LAUNCHES["pointwise_mul"],
+                "sumcheck_prove_many_ref": SK.LAUNCHES[
+                    "sumcheck_prove_many_goldilocks"],
+                "twiddle_exchange_fwd_ref": sum(
+                    v for k, v in EX.LAUNCHES.items() if "_fwd_" in k),
+                "twiddle_exchange_inv_ref": sum(
+                    v for k, v in EX.LAUNCHES.items() if "_inv_" in k)}
+
+    fns = runs(dev, step, ((a, b), big), grids)
+    torch.cuda.synchronize()
+    for mod in (K, G, SK, EX):
+        mod.reset_launches()
+    twins, restore = count_twins(twin_mods)
+    t0 = time.perf_counter()
+    outs, per_run, secs = {}, {}, {}
+    try:
+        for name, fn in fns.items():
+            before = counts()
+            t1 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t1
+            per_run[name] = {k: v - before[k] for k, v in counts().items()
+                             if v != before[k]}
+    finally:
+        restore()
+    launches = counts()
+    phase("entry path", f"{len(fns)} calls in {time.perf_counter() - t0:.2f}"
+          f" s ({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}); "
+          f"launches {per_run}; twin calls {twins}")
+    if per_run != expect:
+        raise AssertionError(f"entry launches {per_run}, expected the CPU "
+                             f"twin calls {expect}")
+    if any(twins.values()):
+        raise AssertionError(f"a twin ran on the card: {twins}")
+    for name in twin_names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name[:-4]} was never launched on the "
+                                 "entry path")
+    phase("entry launches", f"{json.dumps(launches)}: each call's launches "
+          "equal its CPU twin calls; no twin call")
+
+    # -- 65. oracles ----------------------------------------------------------
+    t0 = time.perf_counter()
+    for x, y in ((a, b), big):
+        name = f"step B={x.shape[0]}"
+        got = outs[name]
+        if got.shape != x.shape or got.any():
+            raise AssertionError(f"{name}: prod - recompose(decompose(prod)) "
+                                 "is not zero")
+    spec = get_model("goldilocks")
+    n_rows = ENTRY_SPEC_ROWS
+    prod = E.step_stages(ring, big[0][:n_rows], big[1][:n_rows])["prod"]
+    ai, bi, pi = (ring.decode(v) for v in (big[0][:n_rows], big[1][:n_rows],
+                                           prod))
+    for r in range(n_rows):
+        want = spec.coeff_mul([int(v) for v in ai[r]],
+                              [int(v) for v in bi[r]])
+        if [int(v) for v in pi[r]] != want:
+            raise AssertionError(f"entry step row {r} differs from the "
+                                 "integer spec")
+    want = fs.mul(ga, gb)
+    wsum = F.reduce_words(F.widen(want).reshape(-1, 2).sum(dim=0))
+    for ex, (sn, on, _, _) in grids.items():
+        gprod, ck = outs[f"grid {ex}"]
+        if u64_err(sn.from_matrix(E.gather_grid(sn, gprod, dev)), want,
+                   f"grid {ex}"):
+            raise AssertionError(f"grid {ex}: the product differs from "
+                                 "fourstep_ctx().mul")
+        if u64_err(ck, wsum, f"grid {ex} checksum"):
+            raise AssertionError(f"grid {ex}: the checksum differs from the "
+                                 "sum of the product's entries")
+    phase("entry oracle", f"the step's difference is zero at B = 32 and "
+          f"{ENTRY_BIG_B}; {n_rows} rows of the B = {ENTRY_BIG_B} product "
+          f"equal the integer spec; both grid products equal "
+          f"fourstep_ctx().mul on the whole batch and their checksums one "
+          f"reduce_words of its words; dryrun_multichip({ENTRY_DRYRUNS[0]}) "
+          f"and ({ENTRY_DRYRUNS[1]}) held each section to its local twin "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 66. timings ----------------------------------------------------------
+    for x, y in ((a, b), big):
+        ms = time_ms(lambda: step(x, y), reps=PAR_REPS)
+        phase("entry time", f"step B={x.shape[0]}: {ms:.4f} ms = "
+              f"{1e3 / ms:.1f} steps/s = {x.shape[0] / ms * 1e3:.0f} "
+              f"elements/s; {torch_ops(lambda: step(x, y))} torch ops a "
+              f"step  ({smi})")
+    grid_fns = {ex: functools.partial(E.grid_step, *g)
+                for ex, g in grids.items()}
+    for label, other in ((f"the P={SH_P} sharded mul (K8)",
+                          lambda: mul8(sa8, sb8)),
+                         ("fourstep_ctx().mul", lambda: fs.mul(ga, gb))):
+        ms_g, ms_o = in_turns(grid_fns["pallas"], other, PAR_REPS)
+        phase("entry time", f"grid step dp={dp} x sp={sp} (K8) deg {SH_N} "
+              f"B={SH_B}: {ms_g[0]:.4f}, {ms_g[1]:.4f} ms; {label} "
+              f"{ms_o[0]:.4f}, {ms_o[1]:.4f} ms (in turns)  ({smi})")
+    ms_x = time_ms(grid_fns["xla"], reps=PAR_REPS)
+    phase("entry time", f"grid step dp={dp} x sp={sp} (plain transpose): "
+          f"{ms_x:.4f} ms  ({smi})")
+    for label, fn in ((f"step B={ENTRY_BIG_B}", lambda: step(*big)),
+                      (f"grid step dp={dp} x sp={sp} (K8)",
+                       grid_fns["pallas"]),
+                      (f"the P={SH_P} sharded mul (K8)",
+                       lambda: mul8(sa8, sb8))):
+        busy_ms, wall_ms, top = device_profile(fn, 3, dev, 6)
+        phase("entry profile", f"{label}: device busy {busy_ms:.4f} ms of "
+              f"{wall_ms:.4f} ms wall (profiled), idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; {torch_ops(fn)} torch ops a "
+              f"call; per call: {top}  ({smi})")
+    for n in ENTRY_DRYRUNS:
+        t0 = time.perf_counter()
+        E.dryrun_multichip(n, dev)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        ops_n = torch_ops(lambda: E.dryrun_multichip(n, dev))
+        phase("entry time", f"dryrun_multichip({n}) on shards of the card: "
+              f"{secs[f'dryrun {n}']:.3f} s first, {again:.3f} s again; "
+              f"{ops_n} torch ops  ({smi})")
+    return []
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -4546,7 +4802,8 @@ def main() -> None:
                       ("slice_linalg", lambda: slice_linalg(dev, smi, rng,
                                                             linalg)),
                       ("slice_parallel", lambda: slice_parallel(
-                          dev, smi, rng, linalg))):
+                          dev, smi, rng, linalg)),
+                      ("slice_entry", lambda: slice_entry(dev, smi, rng))):
         t0 = time.perf_counter()
         records += run()
         seconds[name] = time.perf_counter() - t0

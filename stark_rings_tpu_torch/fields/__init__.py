@@ -1,8 +1,9 @@
 """Prime-field layer of the PyTorch port: Goldilocks, BabyBear, frog and
-the 8-limb stark prime."""
+the 8-limb stark prime.  ``Field`` is the base class the four share."""
 
 from .field import (BABYBEAR, FIELDS, FROG, GOLDILOCKS, STARK, BabyBear,
                     Frog, Goldilocks, Stark, get_field)
+from .field import _PrimeField as Field
 
-__all__ = ["GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear", "FROG",
-           "Frog", "STARK", "Stark", "FIELDS", "get_field"]
+__all__ = ["Field", "GOLDILOCKS", "Goldilocks", "BABYBEAR", "BabyBear",
+           "FROG", "Frog", "STARK", "Stark", "FIELDS", "get_field"]

@@ -677,7 +677,7 @@ def test_sumcheck_batch_many_claims(dev):
                                            chal[:1])
 
 
-# -- K7's card limits: the inputs the reference proves -------------------------
+# -- K7's card limits: the inputs the reference proves ------------------------
 
 
 @pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
@@ -1685,3 +1685,128 @@ def test_sharded_model_mul_launch_counts(dev, name, no_twins):
         torch.cuda.synchronize()
         assert counts[key] - before == launches
         assert torch.equal(smm.gather(got, dev), want)
+
+
+# -- the entry points --------------------------------------------------
+
+
+def _twin_counts(run):
+    """{twin: calls} of the kernels' twins on the entry points' path
+    while ``run()`` runs (each twin call is one launch on the card)."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    mods = ((K, "fold_end_ref"), (G, "ntt_tile_ref"),
+            (K, "pointwise_mul_ref"), (SK, "sumcheck_prove_many_ref"),
+            (EX, "twiddle_exchange_fwd_ref"), (EX, "twiddle_exchange_inv_ref"))
+    calls, saved = {}, []
+    for mod, name in mods:
+        fn = getattr(mod, name)
+        calls[name] = 0
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    try:
+        run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return calls
+
+
+def _entry_launches():
+    """{twin name: the launches of its kernel so far} on the card."""
+    from stark_rings_tpu_torch.ops import goldilocks_ntt as G
+    from stark_rings_tpu_torch.parallel import exchange as EX
+
+    return {"fold_end_ref": K.LAUNCHES["fold_end"],
+            "ntt_tile_ref": G.LAUNCHES["ntt_tile"],
+            "pointwise_mul_ref": K.LAUNCHES["pointwise_mul"],
+            "sumcheck_prove_many_ref": SK.LAUNCHES[
+                "sumcheck_prove_many_goldilocks"],
+            "twiddle_exchange_fwd_ref": sum(
+                v for k, v in EX.LAUNCHES.items() if "fwd" in k),
+            "twiddle_exchange_inv_ref": sum(
+                v for k, v in EX.LAUNCHES.items() if "inv" in k)}
+
+
+def test_entry_on_card(dev):
+    """entry() on the card: the zero difference, the product and digits
+    of the CPU path on the same inputs, 3 K3 launches a step."""
+    from stark_rings_tpu_torch import entry as E
+    from stark_rings_tpu_torch.rings import get_ring
+
+    step, (a, b) = E.entry()
+    assert a.device == dev
+    before = K.LAUNCHES["fold_end"]
+    out = step(a, b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fold_end"] - before == 3
+    assert out.shape == (32, 24) and not out.any()
+    got = E.step_stages(get_ring("goldilocks", device=dev), a, b)
+    want = E.step_stages(get_ring("goldilocks", device="cpu"), a.cpu(),
+                         b.cpu())
+    for key in ("prod", "digits", "back", "zero"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.parametrize("n", [6, 8])
+def test_dryrun_multichip_on_card(dev, n):
+    """dryrun_multichip(n) on n shards of the card runs to its end, and
+    launches each kernel of its path as often as the CPU run calls the
+    kernel's twin; no twin runs on the card."""
+    from stark_rings_tpu_torch import entry as E
+
+    want = _twin_counts(lambda: E.dryrun_multichip(n, "cpu"))
+    torch.cuda.synchronize()
+    before = _entry_launches()
+    twins = _twin_counts(lambda: E.dryrun_multichip(n))
+    torch.cuda.synchronize()
+    assert not any(twins.values()), twins
+    got = {k: v - before[k] for k, v in _entry_launches().items()}
+    assert got == want
+    assert all(want.values())
+
+
+@pytest.mark.parametrize("exchange", ["xla", "pallas"])
+@pytest.mark.parametrize("n", [6, 8])
+def test_grid_step_launch_counts_on_card(dev, n, exchange):
+    """grid_step at N = 2^12 on dp x sp shards of the card: a product is
+    6 ntt_tile and 7 pointwise_mul launches a shard (4 with K8), 2 + 1
+    K8 launches a row; the product equals fourstep_ctx().mul and the
+    checksum the sum of its entries."""
+    from stark_rings_tpu_torch import ShardedNTT
+    from stark_rings_tpu_torch import entry as E
+
+    N, f = 1 << 12, GOLDILOCKS
+    dp, sp = E.grid_shape(n)
+    rows = E.make_grid(n, dev)
+    sn = ShardedNTT("goldilocks", N, sp, axis="sp", exchange=exchange)
+    rng = np.random.default_rng(n)
+    a, b = (f.rand((2 * dp, N), rng, dev) for _ in range(2))
+    ga, gb = (E.shard_grid(sn, rows, sn.to_matrix(x)) for x in (a, b))
+    torch.cuda.synchronize()
+    before = _entry_launches()
+    out = {}
+    twins = _twin_counts(lambda: out.update(
+        step=E.grid_step(sn, rows, ga, gb)))
+    torch.cuda.synchronize()
+    prod, checksum = out["step"]
+    assert not any(twins.values()), twins
+    got = {k: v - before[k] for k, v in _entry_launches().items()}
+    k8 = exchange == "pallas"
+    assert got == {"fold_end_ref": 0, "ntt_tile_ref": 6 * n,
+                   "pointwise_mul_ref": (4 if k8 else 7) * n,
+                   "sumcheck_prove_many_ref": 0,
+                   "twiddle_exchange_fwd_ref": 2 * dp if k8 else 0,
+                   "twiddle_exchange_inv_ref": dp if k8 else 0}
+    whole = sn.from_matrix(E.gather_grid(sn, prod, dev))
+    want = get_power_ring("goldilocks", 12, device=dev).fourstep_ctx().mul(
+        a, b)
+    assert torch.equal(whole, want)
+    assert torch.equal(checksum, f.reduce_words(
+        f.widen(want).reshape(-1, 2).sum(dim=0)))

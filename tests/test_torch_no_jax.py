@@ -176,6 +176,17 @@ stark_rings_tpu_torch.examples.distributed_prover.main(device="cpu", P=4)
 assert all(hasattr(par, n) for n in (
     "make_mesh", "ShardedNTT", "ShardedMLE", "ShardedMatVec",
     "ShardedSparseMatVec", "ShardedModelMul", "psum_words"))
+from stark_rings_tpu_torch.ops import (NTTContext, StageTable, TModelMul,
+                                       derive_linear_table,
+                                       derive_stage_tables,
+                                       find_primitive_root, get_ntt)
+from stark_rings_tpu_torch.native import HostGoldilocks, HostRing, get_host_lib
+from stark_rings_tpu_torch.fields import Field
+import stark_rings_tpu_torch.entry
+assert isinstance(stark_rings_tpu_torch.GOLDILOCKS, Field)
+assert NTTContext is stark_rings_tpu_torch.ops.ntt.NTTContext
+step, (a, b) = stark_rings_tpu_torch.entry.entry("cpu")
+assert not step(a, b).any()
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "stark_rings_tpu")]
 assert not leaked, leaked
@@ -188,6 +199,43 @@ def test_port_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "imported without jax" in proc.stdout
+
+
+def test_subpackages_export_the_reference_names():
+    """Every name in the ``__all__`` of each subpackage of the reference
+    is exported by the port's subpackage at the same path.  The one
+    exception is ``linalg.rounded_div_jnp``, which the port names
+    ``rounded_div_torch``.  ``models`` resolves its ring names lazily on
+    the card, so names are read from ``__all__`` and ``dir``; ``ops``
+    resolves its names on first access, which is checked with
+    ``getattr``."""
+    import importlib
+    import pkgutil
+
+    import stark_rings_tpu
+
+    renamed = {("stark_rings_tpu.linalg", "rounded_div_jnp"):
+               "rounded_div_torch"}
+    seen = 0
+    for info in pkgutil.walk_packages(stark_rings_tpu.__path__,
+                                      "stark_rings_tpu."):
+        if not info.ispkg:
+            continue
+        ref = importlib.import_module(info.name)
+        port = importlib.import_module(info.name.replace(
+            "stark_rings_tpu", "stark_rings_tpu_torch", 1))
+        names = set(getattr(port, "__all__", ())) | set(dir(port))
+        for name in ref.__all__:
+            want = renamed.get((info.name, name), name)
+            assert want in names, (info.name, name)
+            if info.name != "stark_rings_tpu.models":
+                getattr(port, want)
+            seen += 1
+    assert seen > 100
+    import stark_rings_tpu_torch
+
+    missing = set(stark_rings_tpu.__all__) - set(stark_rings_tpu_torch.__all__)
+    assert not missing
 
 
 def test_port_sources_never_import_jax():
