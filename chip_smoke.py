@@ -70,6 +70,15 @@ the reference runs in XLA: S1 (``stark_mul``, the CIOS Montgomery
 product), S2 (``stark_add``, ``stark_sub``) and S3 (``limb_fold``, the
 digit GEMM's bucket fold).
 
+The jit slice is the compiled multiplies (``ops/graphed.py``): each
+call captured once as a CUDA graph and replayed as one launch, the
+port's counterpart of the reference's ``jax.jit``: ``jit_mul``,
+``jit_mul_cached`` (batch-B and batch-1 states), ``jit_square`` and
+``staged_mul`` in its four granularities on ``Mxu2FusedNTT`` and
+``Mxu2KernelNTT`` at config 1 (deg 2^16, B = 80 and B = 1) and on
+``MxuBBFusedNTT`` at config 2 (deg 2^12, B = 4,096), and
+``MxuLimbNTT.jit_mul`` at config 3 (deg 2^12, B = 256).
+
 Run from the root of a checkout, on a machine with one CUDA card of
 compute capability 9.x and ``nvcc``:
 
@@ -401,7 +410,21 @@ The entry slice (``slice_entry``, the entry points of
  66. timings: the step at both batches (steps/s), the grid step against
      the 1-D P = 8 sharded mul and fourstep_ctx().mul in turns, each dry
      run's seconds and torch ops; profiles of the B = 65,536 step, the
-     grid step and the P = 8 mul (busy against wall, torch ops a call).
+     grid step and the P = 8 mul (busy against wall, torch ops a call);
+ 67. jit path, every count zeroed before it and read after: each compiled
+     call's first result (its capture) bit-equal to the eager call on
+     the card and to an oracle (config 1: the native schoolbook rows;
+     config 2: NTTContext coeff_mul on the whole batch; config 3:
+     NTTContext), a second call on fresh inputs equal to its eager call
+     and the first result unchanged after it; each graph's memory;
+ 68. jit kernels: the graphs one compiled call replays hold the same
+     hand kernels, each as often, as its eager call launches (each
+     graph's kernel nodes from its DOT dump, ``keep_graph=True``; the
+     fused mul K1 x3, K2, K3, the limbed S1 x4, S3 x6);
+ 69. jit timings: each compiled call against its eager call in turns
+     (CUDA-event medians) and both calls' host time;
+ 70. jit capture: a function that synchronises under capture raises on
+     its first CUDA call and returns no eager result (a child process).
 
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
@@ -418,6 +441,7 @@ card the script fails before printing any result.
 from __future__ import annotations
 
 import copy
+import contextlib
 import ctypes
 import functools
 import json
@@ -426,6 +450,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -613,6 +638,44 @@ ENTRY_SPEC_ROWS = 64
 ENTRY_DRYRUNS = (8, 6)
 ENTRY_GRID = (2, 4)         # (dp, sp)
 ENTRY_COUNT_N = 1 << 12     # the grid's degree in the CPU count
+# the compiled multiplies (slice_jit): config 1 at B = 80 (Slice A's
+# operands) and B = 1, config 2 at BB_B, config 3 at ST_B
+JIT_GRANULARITIES = ("stage", "mixed", "mixed4", "transform")
+JIT_WRAPPERS = {  # hand kernel (profiler name) -> the wrapper that counts it
+    "fold_tw_kernel": "fold_tw", "fold_tw_t_kernel": "fold_tw",
+    "fold_end2_mul_kernel": "fold_end2_mul", "fold_end_kernel": "fold_end",
+    "pointwise_mul_kernel": "pointwise_mul", "bb_fold_tw_kernel": "bb_fold_tw",
+    "bb_fold_tw_t_kernel": "bb_fold_tw",
+    "bb_fold_end2_mul_kernel": "bb_fold_end2_mul",
+    "bb_fold_end_kernel": "bb_fold_end", "stark_binary_kernel<0>": "stark_mul",
+    "stark_binary_kernel<1>": "stark_add",
+    "stark_binary_kernel<2>": "stark_sub", "limb_fold_kernel": "limb_fold"}
+JIT_EXPECT = {  # (engine, call) -> its hand launches a call
+    ("Mxu2FusedNTT", "jit_mul"): {"fold_tw": 3, "fold_end2_mul": 1,
+                                  "fold_end": 1},
+    ("MxuLimbNTT", "jit_mul"): {"stark_mul": 4, "limb_fold": 6}}
+JIT_HOST_CALLS = 4      # unsynchronised calls a host-time group
+JIT_FAILING_CAPTURE = r"""
+import torch
+from stark_rings_tpu_torch.ops.graphed import graphed
+
+runs = []
+
+
+def synced(x):
+    runs.append(1)
+    return x * int(x.sum().item())   # a host sync: refused under capture
+
+
+g = graphed(synced)
+try:
+    out = g(torch.ones(8, device="cuda"))
+except RuntimeError as err:
+    assert len(runs) == 2 and not g.captures, (runs, g.captures)
+    print("capture refused:", str(err).splitlines()[0])
+else:
+    raise SystemExit(f"the capture did not fail: {out}")
+"""
 MODEL_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[model crt goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -4477,6 +4540,297 @@ def slice_entry(dev, smi, rng) -> list:
     return []
 
 
+@contextlib.contextmanager
+def kept_graphs(log):
+    """While the block runs, every ``torch.cuda.CUDAGraph`` is made with
+    ``keep_graph=True`` (its nodes stay readable by ``debug_dump``) and
+    appends itself to ``log`` at each replay."""
+    import torch
+
+    real = torch.cuda.CUDAGraph
+
+    class Kept(real):
+        def __new__(cls):
+            return super().__new__(cls, keep_graph=True)
+
+        def __init__(self):
+            super().__init__(keep_graph=True)
+
+        def replay(self):
+            log.append(self)
+            super().replay()
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def _mangled(kernel) -> str:
+    """A hand kernel's stem as it is mangled: fold_tw_kernel ->
+    14fold_tw_kernel, stark_binary_kernel<0> -> 19stark_binary_kernelILi0E."""
+    base, _, arg = kernel.partition("<")
+    return f"{len(base)}{base}" + (f"ILi{arg[:-1]}E" if arg else "")
+
+
+def graph_nodes(graph, cache) -> dict:
+    """{wrapper: kernel nodes} of one captured graph, read from its DOT
+    dump (one line a node, the kernel's mangled name in it)."""
+    import warnings
+
+    if graph not in cache:
+        with tempfile.TemporaryDirectory() as tmp, \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            path = pathlib.Path(tmp) / "graph.dot"
+            graph.debug_dump(str(path))
+            if not path.exists():
+                raise AssertionError("debug_dump wrote no DOT file: the "
+                                     "graph was not kept")
+            lines = [ln for ln in path.read_text().splitlines()
+                     if "{ID |" in ln]
+        out = {}
+        for line in lines:
+            for kernel, wrapper in JIT_WRAPPERS.items():
+                if _mangled(kernel) in line:
+                    out[wrapper] = out.get(wrapper, 0) + 1
+        cache[graph] = out
+    return cache[graph]
+
+
+def replay_launches(fn, log, cache) -> dict:
+    """{wrapper: launches} of the hand kernels that one call of ``fn``
+    replays: the kernel nodes of each graph it replays."""
+    log.clear()
+    fn()
+    out = {}
+    for graph in log:
+        for name, n in graph_nodes(graph, cache).items():
+            out[name] = out.get(name, 0) + n
+    log.clear()
+    return out
+
+
+def py_launches(fn, mods) -> dict:
+    """{wrapper: launches} counted by ``mods``' wrappers over one call."""
+    before = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    fn()
+    return {k: v - before[k] for mod in mods for k, v in mod.LAUNCHES.items()
+            if v != before[k]}
+
+
+def staged_eager(e, granularity):
+    """The eager composition of ``e.staged_mul(granularity)``'s pieces."""
+    if granularity != "stage":
+        return lambda x, y: e._tail_graph(e._fwd_graph(x), e._fwd_graph(y))
+    c = e.c
+
+    def fwd(x):
+        y = e._lvl_tw(e.mat1, e._to_internal(x).contiguous(), c, "w1", "tw")
+        return e._lvl_end(e.mat2, y.permute(2, 1, 0).contiguous(), c, "w2")
+
+    def mul(x, y):
+        z = e._lvl_tw(e.mat2i, e.pointwise(fwd(x), fwd(y)), c, "w2i", "twi")
+        return e._from_internal(e._lvl_end(
+            e.mat1i, z.permute(2, 1, 0).contiguous(), c, "w1i"))
+    return mul
+
+
+def jit_cases(e, x, y, y1) -> dict:
+    """{call: (compiled, eager, args)} of engine ``e`` on [B, N]
+    operands x, y and a batch-1 y1."""
+    mc, square = e.jit_mul_cached(), e.jit_square()
+
+    def cached(u, v):
+        return mc(u, mc.precompute(v))
+
+    def eager_cached(u, v):
+        return e.mul_cached(u, e.precompute(v))
+
+    cases = {"jit_mul": (e.jit_mul(), e.mul, (x, y)),
+             "jit_mul_cached": (cached, eager_cached, (x, y)),
+             "jit_mul_cached_batch1": (cached, eager_cached, (x, y1)),
+             "jit_square": (square, e.square, (x,))}
+    for g in JIT_GRANULARITIES:
+        cases[g] = (e.staged_mul(g), staged_eager(e, g), (x, y))
+    return cases
+
+
+def slice_jit(dev, smi, rng, gl) -> list:
+    """Phases 67-70: the compiled multiplies, each call one CUDA graph
+    replay (``ops/graphed.py``), against the eager calls.  ``gl`` holds
+    Slice A's config-1 operands and schoolbook rows.  No kernel of its
+    own: returns no record."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import (BABYBEAR as FB, GOLDILOCKS as F,
+                                       get_power_ring, to_numpy_u32,
+                                       to_numpy_u64)
+    from stark_rings_tpu_torch.fields import STARK
+    from stark_rings_tpu_torch.native.host import negacyclic_mul_schoolbook_q
+    from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.ops import stark as S
+
+    mods = (K, KB, S)
+    for mod in mods:
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    a, b, ch, orc = gl["a"], gl["b"], gl["ch"], gl["orc"]
+    GB, GN = a.shape
+    bb_ring = get_power_ring("babybear", BB_LOG, device=dev)
+    st_ring = get_power_ring("stark_prime", ST_LOG, device=dev)
+    gk = get_power_ring("goldilocks", GN.bit_length() - 1,
+                        device=dev).mxu_ctx()
+    ba, bb_ = (FB.rand((BB_B, bb_ring.D), rng, dev) for _ in range(2))
+    sa, sb = (STARK.rand((ST_B, st_ring.D), rng, dev) for _ in range(2))
+    ca, cb = (to_numpy_u32(FB.canon(x[:ORACLE_ROWS])).astype(np.uint64)
+              for x in (ba, bb_))
+    bb_rows = np.stack([negacyclic_mul_schoolbook_q(x, y, FB.q)
+                        for x, y in zip(ca, cb)])
+    # (label, engine, operands x, y, batch-1 y1, oracle of call)
+    groups = [
+        (f"{type(gl['eng']).__name__} B={GB}", gl["eng"], a, b, ch, "gl"),
+        (f"{type(gl['eng']).__name__} B=1", gl["eng"], a[:1], b[:1], ch,
+         "gl"),
+        (f"{type(gk).__name__} B={GB}", gk, a, b, ch, "gl"),
+        (f"{type(gk).__name__} B=1", gk, a[:1], b[:1], ch, "gl"),
+        (f"{type(bb_ring.mxu_ctx()).__name__} B={BB_B}", bb_ring.mxu_ctx(),
+         ba, bb_, bb_[:1], "bb"),
+        (f"{type(st_ring.mxu_ctx()).__name__} B={ST_B}", st_ring.mxu_ctx(),
+         sa, sb, None, "stark"),
+    ]
+    phase("jit inputs", f"{len(groups)} engine groups (config 1 deg {GN} "
+          f"at B = {GB} and 1 on Slice A's operands, config 2 deg "
+          f"{bb_ring.D} B = {BB_B}, config 3 deg {st_ring.D} B = {ST_B}) "
+          f"ready in {time.perf_counter() - t0:.1f} s")
+
+    def oracle(kind, call, x, y, got):
+        """Raise unless ``got`` (the first result) passes the group's
+        oracle: schoolbook rows (config 1 and 2) or NTTContext."""
+        if kind == "gl":
+            key = {"jit_square": "aa", "jit_mul_cached_batch1": "ac"}.get(
+                call, "ab")
+            n = min(ORACLE_ROWS, got.shape[0])
+            if not np.array_equal(to_numpy_u64(got[:n]), orc[key][:n]):
+                raise AssertionError(f"{call}: differs from the schoolbook "
+                                     "oracle")
+        elif kind == "bb":
+            yy = x if call == "jit_square" else y.expand_as(x)
+            if not torch.equal(got, bb_ring.coeff_mul(x, yy)):
+                raise AssertionError(f"{call}: differs from NTTContext "
+                                     "coeff_mul")
+            if call == "jit_mul" and not np.array_equal(to_numpy_u32(
+                    FB.canon(got[:ORACLE_ROWS])).astype(np.uint64),
+                    bb_rows):
+                raise AssertionError(f"{call}: differs from the schoolbook "
+                                     "oracle over q")
+        elif not torch.equal(got, st_ring.coeff_mul(x, y)):
+            raise AssertionError(f"{call}: differs from NTTContext "
+                                 "coeff_mul")
+
+    total = {"cases": 0, "replays checked": 0}
+    log = []
+    with kept_graphs(log):
+        for label, e, x, y, y1, kind in groups:
+            t1 = time.perf_counter()
+            cases = (jit_cases(e, x, y, y1) if kind != "stark" else
+                     {"jit_mul": (e.jit_mul(), e.mul, (x, y))})
+            # -- 67. the path: first call (the capture), oracle, fresh inputs
+            mem = {}
+            for call, (jit, eager, args) in cases.items():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                m0 = torch.cuda.memory_allocated()
+                r0 = torch.cuda.memory_reserved()
+                first = jit(*args)
+                torch.cuda.synchronize()
+                mem[call] = ((torch.cuda.memory_allocated() - m0
+                              - nbytes(first)) / 2**20,
+                             (torch.cuda.memory_reserved() - r0) / 2**20)
+                kept = first.clone()
+                if first.shape != args[0].shape \
+                        or first.dtype != args[0].dtype \
+                        or not torch.equal(first, eager(*args)):
+                    raise AssertionError(f"{label} {call}: the replay differs "
+                                         "from the eager call")
+                oracle(kind, call, *args[:1], args[-1], first)
+                fresh = tuple(v.roll(1, 1) for v in args)
+                second = jit(*fresh)
+                if not torch.equal(second, eager(*fresh)):
+                    raise AssertionError(f"{label} {call}: a replay on fresh "
+                                         "inputs differs from the eager call")
+                if not torch.equal(first, kept):
+                    raise AssertionError(f"{label} {call}: a later call "
+                                         "overwrote the first result")
+                total["cases"] += 1
+            phase("jit path", f"{label}: {len(cases)} compiled calls, each "
+                  f"replay bit-equal to its eager call and the {kind} oracle, "
+                  f"a second call on rolled inputs right, the first result "
+                  f"unchanged; graph memory (MB allocated beside the result, "
+                  f"MB reserved): " + ", ".join(
+                      f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in mem.items())
+                  + f" ({time.perf_counter() - t1:.1f} s)")
+            # -- 68. the hand kernels of one call's replays against the eager
+            # call: the eager launches counted by the wrappers, the replays'
+            # from the kernel nodes of the graphs the call replays
+            counts, nodes = {}, {}
+            for call, (jit, eager, args) in cases.items():
+                want = py_launches(lambda: eager(*args), mods)
+                got = replay_launches(lambda: jit(*args), log, nodes)
+                if not want or got != want:
+                    raise AssertionError(f"{label} {call}: a replay ran "
+                                         f"{got}, the eager call {want}")
+                expect = JIT_EXPECT.get((type(e).__name__, call), got)
+                if got != expect:
+                    raise AssertionError(f"{label} {call}: {got} hand "
+                                         f"launches, expected {expect}")
+                counts[call] = got
+                total["replays checked"] += 1
+            first_call = next(iter(counts))
+            phase("jit kernels", f"{label}: each call's replays run its eager "
+                  f"call's hand kernels (the replayed graphs' kernel nodes), "
+                  f"e.g. {first_call} {json.dumps(counts[first_call])}; "
+                  + "; ".join(f"{k} {sum(v.values())}"
+                              for k, v in counts.items()) + " hand launches")
+            # -- 69. timings in turns, host time a call
+            for call, (jit, eager, args) in cases.items():
+                (e1, e2), (g1, g2) = in_turns(lambda: eager(*args),
+                                              lambda: jit(*args))
+                he = host_us(lambda: eager(*args), JIT_HOST_CALLS)
+                hg = host_us(lambda: jit(*args), JIT_HOST_CALLS)
+                phase("jit time", f"{label} {call}: eager {e1:.4f}, "
+                      f"{e2:.4f} ms (host {he:.1f} us); graph {g1:.4f}, "
+                      f"{g2:.4f} ms (host {hg:.1f} us)  ({smi})")
+            del cases
+            log.clear()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    for name in ("fold_tw", "fold_end2_mul", "fold_end", "pointwise_mul",
+                 "bb_fold_tw", "bb_fold_end2_mul", "bb_fold_end",
+                 "stark_mul", "limb_fold"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched on the jit "
+                                 "path")
+    phase("jit launches", f"{json.dumps(launches)} (Python launches: the "
+          f"eager calls, each graph's warm-up and capture; no replay "
+          f"counts); {total}")
+
+    # -- 70. a capture that fails raises, in a child process
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", JIT_FAILING_CAPTURE],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode or "capture refused" not in proc.stdout:
+        raise AssertionError(f"the failing capture: rc {proc.returncode}, "
+                             f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    phase("jit capture", f"{proc.stdout.strip()} (child process, "
+          f"{time.perf_counter() - t1:.1f} s): no eager result returned")
+    return []
+
+
 def modmul_peak(dev) -> tuple:
     """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
     issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
@@ -4803,7 +5157,8 @@ def main() -> None:
                                                             linalg)),
                       ("slice_parallel", lambda: slice_parallel(
                           dev, smi, rng, linalg)),
-                      ("slice_entry", lambda: slice_entry(dev, smi, rng))):
+                      ("slice_entry", lambda: slice_entry(dev, smi, rng)),
+                      ("slice_jit", lambda: slice_jit(dev, smi, rng, gl))):
         t0 = time.perf_counter()
         records += run()
         seconds[name] = time.perf_counter() - t0

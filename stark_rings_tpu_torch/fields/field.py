@@ -34,8 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import (get_device, to_numpy_u32, to_numpy_u64, to_torch,
-                      to_torch_u32)
+from ..device import (get_device, to_numpy_storage, to_numpy_u32,
+                      to_torch, to_torch_u32)
 from ..ops import stark as _ks
 
 __all__ = ["Goldilocks", "GOLDILOCKS", "BabyBear", "BABYBEAR", "Frog",
@@ -77,9 +77,11 @@ def _mul64_128(a: torch.Tensor, b: torch.Tensor):
 
 
 class _PrimeField:
-    """What both fields share: host conversions built on the per-field
-    :meth:`storage_np` and ``_scalar``, and the reductions and powers
-    built on ``add`` and ``mul``."""
+    """What the fields share (the reference's ``Field``): host
+    conversions built on the per-field :meth:`storage_np` and
+    ``_scalar``, the canonical view and the widened words of word-sized
+    storage, and the reductions and powers built on ``add`` and
+    ``mul``."""
 
     name: str
     q: int
@@ -92,6 +94,13 @@ class _PrimeField:
     def encode(self, ints, device="cuda") -> torch.Tensor:
         """python ints / object array -> storage tensor on ``device``."""
         return self._codec(self.storage_np(ints), device)
+
+    def decode(self, x: torch.Tensor) -> np.ndarray:
+        """storage -> numpy object array of canonical python ints."""
+        host = to_numpy_storage(self.canon(x))
+        out = np.empty(host.size, dtype=object)
+        out[:] = [int(v) for v in host.reshape(-1)]
+        return out.reshape(host.shape)
 
     def const(self, v: int, device="cuda") -> torch.Tensor:
         """One element in storage form, as a 0-d tensor."""
@@ -185,6 +194,12 @@ class _PrimeField:
         out.reshape(-1)[:] = [int(v) for v in draw.reshape(-1)]
         return out
 
+    def rand(self, shape, rng: np.random.Generator,
+             device="cuda") -> torch.Tensor:
+        """Uniform elements of ``shape``, encoded from :meth:`rand_ints`
+        (the fields draw their storage directly)."""
+        return self.encode(self.rand_ints(shape, rng), device)
+
     def from_random_bytes(self, data: bytes):
         """FromRandomBytes semantics (ring.rs:119-135): the first
         ceil(bits / 8) bytes little-endian; None if the value is >= q."""
@@ -213,6 +228,21 @@ class _PrimeField:
     def is_zero(x) -> torch.Tensor:
         return x == 0
 
+    @staticmethod
+    def geq(a, b) -> torch.Tensor:
+        """a >= b on canonical values (below 2^31: a signed compare)."""
+        return a >= b
+
+    # -- canonical view: storage <-> canonical values, the identity for
+    # fields stored without a Montgomery factor
+    @staticmethod
+    def canon(x):
+        return x
+
+    @staticmethod
+    def from_canon(u):
+        return u
+
     def canon_const(self, v: int) -> int:
         """The canonical value ``v mod q`` as it is stored by
         :meth:`canon` (NOT in Montgomery form), for comparisons with
@@ -226,6 +256,13 @@ class _PrimeField:
     @property
     def n_words(self) -> int:
         return 1 if self.bits <= 32 else 2
+
+    def widen(self, x: torch.Tensor) -> torch.Tensor:
+        """storage -> int64 [..., n_words]: the u32 words of the stored
+        bits."""
+        if self.n_words == 1:
+            return (x.to(torch.int64) & MASK32)[..., None]
+        return torch.stack([x & MASK32, shr(x, 32)], dim=-1)
 
     def reduce_words(self, words: torch.Tensor) -> torch.Tensor:
         """int64 [..., W] of unnormalized base-2^32 words (u64 bits) ->
@@ -297,17 +334,6 @@ class _U64Field(_PrimeField):
         """Unsigned a >= b on canonical values (u64 bits)."""
         return ~u64_lt(a, b)
 
-    def widen(self, x: torch.Tensor) -> torch.Tensor:
-        """storage -> int64 [..., 2] base-2^32 words of the u64 bits."""
-        return torch.stack([x & MASK32, shr(x, 32)], dim=-1)
-
-    def decode(self, x: torch.Tensor) -> np.ndarray:
-        """storage -> numpy object array of canonical python ints."""
-        host = to_numpy_u64(self.canon(x))
-        out = np.empty(host.size, dtype=object)
-        out[:] = [int(v) for v in host.reshape(-1)]
-        return out.reshape(host.shape)
-
     def rand(self, shape, rng: np.random.Generator,
              device="cuda") -> torch.Tensor:
         """Uniform elements: draws from ``rng`` in [0, q), taken as
@@ -352,12 +378,6 @@ class Goldilocks(_U64Field):
     def from_uint(self, x, device="cuda") -> torch.Tensor:
         """numpy unsigned ints below q -> storage on ``device``."""
         return to_torch(np.asarray(x, dtype=np.uint64), device)
-
-    def canon(self, x):
-        return x
-
-    def from_canon(self, u):
-        return u
 
     def reduce_u64(self, x):
         """Any u64 bits -> canonical (for lazy accumulations)."""
@@ -406,15 +426,6 @@ class BabyBear(_PrimeField):
         """The storage word whose bits are ``v`` (< q < 2^31)."""
         return v
 
-    @staticmethod
-    def geq(a, b) -> torch.Tensor:
-        """a >= b on canonical values (below 2^31: signed compare)."""
-        return a >= b
-
-    def widen(self, x: torch.Tensor) -> torch.Tensor:
-        """storage -> int64 [..., 1]: the u32 word."""
-        return (x.to(torch.int64) & MASK32)[..., None]
-
     def storage_np(self, ints) -> np.ndarray:
         """python ints / object array -> numpy uint32 Montgomery storage,
         byte-equal to the reference's ``encode``."""
@@ -422,13 +433,6 @@ class BabyBear(_PrimeField):
         flat = np.array([self._scalar(v) for v in arr.reshape(-1)],
                         dtype=np.uint32)
         return flat.reshape(arr.shape)
-
-    def decode(self, x: torch.Tensor) -> np.ndarray:
-        """storage -> numpy object array of canonical python ints."""
-        host = to_numpy_u32(self.canon(x))
-        out = np.empty(host.size, dtype=object)
-        out[:] = [int(v) for v in host.reshape(-1)]
-        return out.reshape(host.shape)
 
     def rand(self, shape, rng: np.random.Generator,
              device="cuda") -> torch.Tensor:

@@ -347,11 +347,41 @@ def pointwise_chain(a, b, depth=16):
 
 
 # ---------------------------------------------------------------------------
-# the fused engine
+# the engines
 # ---------------------------------------------------------------------------
 
 
-class Mxu2FusedNTT(Mxu2NTT):
+class _KernelEpilogues(Mxu2NTT):
+    """:class:`Mxu2NTT` with every level epilogue and slot product on a
+    kernel: the end fold in ``_k_end`` (K3), the untransposed
+    fold-times-twiddle in ``_k_tw`` (K1) and the slot product in
+    ``pointwise_mul``.  The base of both Goldilocks kernel engines; the
+    three fold wrappers are class attributes, so ``ops/fold_bb.py`` swaps
+    in BabyBear's K4."""
+
+    _k_tw = staticmethod(fold_tw)
+    _k_end2 = staticmethod(fold_end2_mul)
+    _k_end = staticmethod(fold_end)
+
+    def __init__(self, N: int = 1 << 16, n1: int | None = None,
+                 unsigned: bool = True, device="cuda"):
+        super().__init__(N, n1, unsigned, device)
+        self.signed = not unsigned
+
+    def _fold_end(self, mat, V, B, t):
+        return self._k_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
+
+    def _fold_tw(self, mat, V, tw, B, t):
+        return self._k_tw(V, tw, mat.R, transpose_out=False,
+                          signed=self.signed).view(mat.R, B, t)
+
+    def pointwise(self, fa, fb):
+        if fb.shape != fa.shape:
+            fb = fb.expand(fa.shape)
+        return pointwise_mul(fa.contiguous(), fb.contiguous())
+
+
+class Mxu2FusedNTT(_KernelEpilogues):
     """:class:`Mxu2NTT` with the fold epilogues in the K1-K3 kernels.
 
     Counterpart of the reference's ``Mxu2PallasNTT(N, dma_folds=True,
@@ -365,24 +395,16 @@ class Mxu2FusedNTT(Mxu2NTT):
     the cached operand, so ``mul_cached`` feeds them straight into K2; a
     batch-1 operand ([K*R, t]) is broadcast over the live batch inside
     the kernel.  ``stack_forward`` runs both operands' forward level 1
-    and level-2 GEMM as one stacked batch.
-
-    The three kernel wrappers are class attributes: ``ops/fold_bb.py``
-    swaps in BabyBear's K4."""
-
-    _k_tw = staticmethod(fold_tw)
-    _k_end2 = staticmethod(fold_end2_mul)
-    _k_end = staticmethod(fold_end)
+    and level-2 GEMM as one stacked batch.  The untransposed level
+    (``_lvl_tw``) and ``pointwise``, which only ``staged_mul`` reaches,
+    run on K1 untransposed and the slot-product kernel, as in the
+    reference's ``Mxu2PallasNTT``."""
 
     def __init__(self, N: int = 1 << 16, n1: int | None = None,
                  unsigned: bool = True, stack_forward: bool = False,
                  device="cuda"):
         super().__init__(N, n1, unsigned, device)
         self.stack_forward = stack_forward
-        self.signed = not unsigned
-
-    def _fold_end(self, mat, V, B, t):
-        return self._k_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
 
     def _lvl_tw_t(self, mat, x, c, key, tw_key):
         """Mid level with the transpose fused into K1."""
@@ -442,7 +464,7 @@ class Mxu2FusedNTT(Mxu2NTT):
         return self._tail(prod, B, t, c)
 
 
-class Mxu2KernelNTT(Mxu2NTT):
+class Mxu2KernelNTT(_KernelEpilogues):
     """:class:`Mxu2NTT` with its folds in K1 (untransposed) and K3 and
     its slot products in the pointwise kernel: the evaluation-domain
     engine of the Goldilocks power rings.
@@ -458,20 +480,3 @@ class Mxu2KernelNTT(Mxu2NTT):
     ``inverse_internal``), which the fused engine's bucket state cannot
     do.  A batch-1 cached operand is broadcast over the batch in torch
     before the kernel."""
-
-    def __init__(self, N: int = 1 << 16, n1: int | None = None,
-                 unsigned: bool = True, device="cuda"):
-        super().__init__(N, n1, unsigned, device)
-        self.signed = not unsigned
-
-    def _fold_end(self, mat, V, B, t):
-        return fold_end(V, mat.R, signed=self.signed).view(mat.R, B, t)
-
-    def _fold_tw(self, mat, V, tw, B, t):
-        return fold_tw(V, tw, mat.R, transpose_out=False,
-                       signed=self.signed).view(mat.R, B, t)
-
-    def pointwise(self, fa, fb):
-        if fb.shape != fa.shape:
-            fb = fb.expand(fa.shape)
-        return pointwise_mul(fa.contiguous(), fb.contiguous())

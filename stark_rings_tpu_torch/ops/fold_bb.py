@@ -26,6 +26,7 @@ import torch
 from ..fields import BABYBEAR
 from .fold import (Folds, Mxu2FusedNTT, fold_end2_mul_with, fold_end_with,
                    fold_tw_with)
+from .mxu2 import Mxu2NTT
 from .mxu_bb import MxuBBNTT, bb_fold_rows
 
 __all__ = ["bb_fold_tw", "bb_fold_end2_mul", "bb_fold_end", "bb_fold_tw_ref",
@@ -122,11 +123,15 @@ class MxuBBFusedNTT(Mxu2FusedNTT, MxuBBNTT):
     defaults (``fuse_transpose``, ``fuse_pointwise``, unsigned):
     ``mul``, ``stack_forward`` mul, ``precompute`` (the un-folded level-2
     buckets), ``mul_cached`` (batch-B and batch-1 states) and
-    ``square``."""
+    ``square``.  The untransposed level (``staged_mul``'s) folds in
+    ``bb_fold_tw``; the slot product outside K4 (``pointwise``) stays the
+    field's Montgomery product in torch ops, as the reference keeps it in
+    XLA."""
 
     _k_tw = staticmethod(bb_fold_tw)
     _k_end2 = staticmethod(bb_fold_end2_mul)
     _k_end = staticmethod(bb_fold_end)
+    pointwise = Mxu2NTT.pointwise
 
     def __init__(self, N: int = 1 << 12, n1: int | None = None,
                  unsigned: bool = True, stack_forward: bool = False,

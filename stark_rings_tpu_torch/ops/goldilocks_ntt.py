@@ -262,6 +262,19 @@ class GoldilocksKernelNTT:
         and 1/N as an int."""
         return self.wf, self.wi, self.ninv
 
+    # -- plane conversion (bit views, no arithmetic) -------------------------
+    @staticmethod
+    def to_planes(x):
+        """int64 storage [...] -> (lo, hi): the low and high u32 halves of
+        each word as int32 bit patterns [...] (the port's u32 storage)."""
+        v = x.contiguous().unsqueeze(-1).view(torch.int32)   # [..., 2]
+        return v[..., 0], v[..., 1]
+
+    @staticmethod
+    def from_planes(lo, hi):
+        """(lo, hi) int32 halves -> the int64 words they make."""
+        return torch.stack([lo, hi], dim=-1).view(torch.int64)[..., 0]
+
     def _rows(self, x):
         if x.shape[-1] != self.N:
             raise ValueError(f"expected rows of {self.N}, got "

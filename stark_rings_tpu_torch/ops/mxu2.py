@@ -15,6 +15,10 @@ Layouts (B = batch), as in the reference:
   NTT domain     [k2, B, k1]  — a fixed frequency order shared by the
   slot product and the inverse, so ring multiplication is exact.
 
+The reference's compiled calls (``jit_mul``, ``jit_mul_cached``,
+``jit_square``, ``staged_mul``) are CUDA graph replays on the card
+(``ops/graphed.py``) and the methods themselves on the CPU.
+
 The digit GEMM keeps the reference's default unsigned scheme (u8 data
 digits times u8 weight digits, K = P = 8), so the int32 buckets the fold
 kernels receive are the reference's byte for byte.  ``torch._int_mm``
@@ -40,6 +44,7 @@ import torch.nn.functional as TF
 
 from ..device import get_device, to_numpy_u64, to_torch, to_torch_u32
 from ..fields.field import GOLDILOCKS, MASK32, shr
+from .graphed import GraphSet, graphed
 from .ntt import find_primitive_root
 
 __all__ = ["Mxu2NTT", "PrescaledMat", "from_jax_consts", "digit_table",
@@ -204,6 +209,18 @@ class PrescaledMat:
         V += w_corr
         V += 128 * colsum
         return V
+
+    def apply(self, x: torch.Tensor, w: torch.Tensor,
+              w_corr: torch.Tensor | None = None) -> torch.Tensor:
+        """M @ x mod q for storage x [C, cols] -> [R, cols] (the
+        reference's ``apply``), with this matrix's device table ``w`` and
+        offset correction ``w_corr`` (:func:`digit_table`).  The columns
+        are zero-padded to a multiple of 8 for ``_int_mm`` and dropped
+        after the fold."""
+        cols = x.shape[1]
+        pad = _round8(cols) - cols
+        y = self.fold(self.dot(TF.pad(x, (0, pad)) if pad else x, w, w_corr))
+        return y[:, :cols] if pad else y
 
     def fold(self, V: torch.Tensor) -> torch.Tensor:
         """int32 [K*R, cols] bucket planes -> canonical u64 [R, cols].
@@ -429,6 +446,12 @@ class Mxu2NTT:
         a = self._lvl_tw_t(self.mat2i, y, c, "w2i", "twi")  # [k1, B, n2]
         return self._lvl_end(self.mat1i, a, c, "w1i")
 
+    def forward(self, x, c=None):
+        """[B, N] coefficients -> [B, N] evaluations, the reference's
+        ``forward``: the [k2, B, k1] evaluations read as [B, k1, k2]."""
+        return self._from_internal(
+            self.forward_internal(self._to_internal(x), c).permute(2, 1, 0))
+
     def mul(self, a, b, c=None):
         """Full negacyclic ring multiply [B, N] x [B, N] -> [B, N]."""
         fa = self.forward_internal(self._to_internal(a), c)
@@ -459,3 +482,97 @@ class Mxu2NTT:
         fa = self.forward_internal(self._to_internal(a), c)
         return self._from_internal(
             self.inverse_internal(self.pointwise(fa, fa), c))
+
+    # -- compiled calls -------------------------------------------------------
+    # The reference's jax.jit entry points.  The tables already lie on the
+    # device (``self.c``); on CUDA inputs each call below is one CUDA
+    # graph replay (``ops/graphed.py``), on CPU inputs the method itself.
+
+    def jit_mul(self):
+        """:meth:`mul` as one replay a call."""
+        return graphed(self.mul)
+
+    def jit_mul_cached(self):
+        """:meth:`mul_cached` as one replay a call, with
+        ``.precompute`` (:meth:`precompute`, one replay) beside it; both
+        capture into one memory pool.  A batch-1 state broadcasts."""
+        graphs = GraphSet()
+        mul = graphs.wrap(self.mul_cached)
+        mul.precompute = graphs.wrap(self.precompute)
+        return mul
+
+    def jit_square(self):
+        """:meth:`square` as one replay a call."""
+        return graphed(self.square)
+
+    def staged_mul(self, granularity: str = "stage"):
+        """The multiply composed in Python from separately compiled
+        pieces (the reference's ``staged_mul``): the same function at
+        another number of replays a call, ``.forward`` ([B, N] ->
+        [k2, B, k1] evaluations) beside it.
+
+        granularity:
+          "stage"     — 8 graphs, 13 replays a multiply: to internal
+                        layout, level 1, the mid transpose, level 2 (each
+                        forward twice), the slot product, inverse level 2,
+                        the transpose, inverse level 1, from internal;
+          "mixed"     — 5 replays: the forward transform (twice), the
+                        slot product, the inverse in two halves;
+          "mixed4"    — 4 replays: as "mixed", the slot product in the
+                        first inverse half;
+          "transform" — 3 replays: the forward transform (twice) and
+                        the slot product with the whole inverse.
+        """
+        g = GraphSet().wrap
+        c = self.c
+        if granularity == "stage":
+            ti = g(lambda x: self._to_internal(x).contiguous())
+            l1 = g(lambda x: self._lvl_tw(self.mat1, x, c, "w1", "tw"))
+            tr = g(lambda a: a.permute(2, 1, 0).contiguous())
+            l2 = g(lambda a: self._lvl_end(self.mat2, a, c, "w2"))
+            pw = g(self.pointwise)
+            l2i = g(lambda y: self._lvl_tw(self.mat2i, y, c, "w2i", "twi"))
+            l1i = g(lambda a: self._lvl_end(self.mat1i, a, c, "w1i"))
+            fi = g(self._from_internal)
+
+            def fwd(x):
+                return l2(tr(l1(ti(x))))
+
+            def mul(a, b):
+                return fi(l1i(tr(l2i(pw(fwd(a), fwd(b))))))
+        elif granularity == "transform":
+            fwd = g(self._fwd_graph)
+            tail = g(self._tail_graph)
+
+            def mul(a, b):
+                return tail(fwd(a), fwd(b))
+        elif granularity in ("mixed", "mixed4"):
+            fwd = g(self._fwd_graph)
+            inv2 = g(lambda a: self._from_internal(
+                self._lvl_end(self.mat1i, a, c, "w1i")))
+            if granularity == "mixed4":
+                inv1 = g(lambda fa, fb: self._lvl_tw_t(
+                    self.mat2i, self.pointwise(fa, fb), c, "w2i", "twi"))
+
+                def mul(a, b):
+                    return inv2(inv1(fwd(a), fwd(b)))
+            else:
+                pw = g(self.pointwise)
+                inv1 = g(lambda y: self._lvl_tw_t(self.mat2i, y, c, "w2i",
+                                                  "twi"))
+
+                def mul(a, b):
+                    return inv2(inv1(pw(fwd(a), fwd(b))))
+        else:
+            raise ValueError(f"staged_mul: granularity {granularity!r} is "
+                             "not one of 'stage', 'mixed', 'mixed4', "
+                             "'transform'")
+        mul.forward = fwd
+        return mul
+
+    def _fwd_graph(self, x):
+        return self.forward_internal(self._to_internal(x))
+
+    def _tail_graph(self, fa, fb):
+        return self._from_internal(
+            self.inverse_internal(self.pointwise(fa, fb)))

@@ -35,6 +35,7 @@ import torch.nn.functional as TF
 
 from ..device import get_device
 from ..fields import STARK
+from .graphed import graphed
 from .mxu2 import PrescaledMat, _round8, from_jax_consts
 from .ntt import find_primitive_root
 from .stark import limb_fold
@@ -273,3 +274,8 @@ class MxuLimbNTT:
     def square(self, a, c=None):
         fa = self.forward(a, c)
         return self.inverse(self.F.mul(fa, fa), c)
+
+    def jit_mul(self):
+        """:meth:`mul` compiled: on CUDA inputs one CUDA graph replay a
+        call (``ops/graphed.py``), on CPU inputs ``mul`` itself."""
+        return graphed(self.mul)

@@ -14,7 +14,8 @@ against their twins, and MxuLimbNTT, the D = 16 model, the limbed
 folding step and tree and the generic sumcheck over it on the card
 against the radix engine and the CPU path; the sharded layer on 8
 shards of the card (K7 and K5 once a shard, the model folds' launch
-counts) against the unsharded functions.  Marked ``cuda``:
+counts) against the unsharded functions; the compiled multiplies (CUDA
+graph replays) against the eager calls.  Marked ``cuda``:
 they skip where no CUDA card is present.  This file imports no JAX, so
 it also runs where JAX is not installed:
 
@@ -23,6 +24,9 @@ it also runs where JAX is not installed:
 """
 
 import ctypes
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1810,3 +1814,121 @@ def test_grid_step_launch_counts_on_card(dev, n, exchange):
     assert torch.equal(whole, want)
     assert torch.equal(checksum, f.reduce_words(
         f.widen(want).reshape(-1, 2).sum(dim=0)))
+
+
+# -- the compiled multiplies (one CUDA graph replay a call) ---------------------
+
+JIT_ENGINES = {
+    "Mxu2NTT": lambda dev: Mxu2NTT(1 << 12, device=dev),
+    "Mxu2FusedNTT": lambda dev: Mxu2FusedNTT(1 << 12, device=dev),
+    "Mxu2KernelNTT": lambda dev: Mxu2KernelNTT(1 << 12, device=dev),
+    "MxuBBNTT": lambda dev: MxuBBNTT(1 << 12, device=dev),
+    "MxuBBFusedNTT": lambda dev: MxuBBFusedNTT(1 << 12, device=dev),
+}
+
+
+def _fold_launches():
+    return {**K.LAUNCHES, **KB.LAUNCHES}
+
+
+@pytest.mark.parametrize("engine", list(JIT_ENGINES))
+def test_compiled_calls_on_card(dev, engine):
+    """jit_mul, jit_mul_cached (batch-B and batch-1 states), jit_square
+    and staged_mul in its four granularities at N = 2^12, B = 3: each
+    replay equals the eager call on the card (the eager mul also the CPU
+    engine's); a second call on fresh inputs is right and leaves the
+    first result as it was; a replay launches nothing from Python."""
+    e = JIT_ENGINES[engine](dev)
+    f, N = e.F, e.N
+    rng = np.random.default_rng(17)
+    a, b, a2, b2 = (f.rand((3, N), rng, dev) for _ in range(4))
+    mc, square = e.jit_mul_cached(), e.jit_square()
+    assert mc.graphs is mc.precompute.graphs
+    calls = {
+        "jit_mul": (e.jit_mul(), e.mul),
+        "jit_square": (lambda x, _: square(x), lambda x, _: e.square(x)),
+        "jit_mul_cached": (lambda x, y: mc(x, mc.precompute(y)),
+                           lambda x, y: e.mul_cached(x, e.precompute(y))),
+        "jit_mul_cached_batch1": (
+            lambda x, y: mc(x, mc.precompute(y[:1])),
+            lambda x, y: e.mul_cached(x, e.precompute(y[:1]))),
+    }
+    for g in ("stage", "mixed", "mixed4", "transform"):
+        calls[g] = (e.staged_mul(g), e.mul)
+    want = e.mul(a, b)
+    cpu = type(e)(N, device="cpu")
+    assert torch.equal(want.cpu(), cpu.mul(a.cpu(), b.cpu()))
+    for name, (jit, eager) in calls.items():
+        first = jit(a, b)
+        kept = first.clone()
+        assert torch.equal(first, eager(a, b)), name
+        torch.cuda.synchronize()
+        before = _fold_launches()
+        second = jit(a2, b2)
+        torch.cuda.synchronize()
+        assert _fold_launches() == before, name
+        assert torch.equal(second, eager(a2, b2)), name
+        assert torch.equal(first, kept), name
+    assert torch.equal(calls["stage"][0].forward(a),
+                       e.forward_internal(e._to_internal(a)))
+
+
+def test_limb_jit_mul_on_card(dev):
+    """MxuLimbNTT.jit_mul at N = 512, B = 3: the replay equals the eager
+    mul and NTTContext on the card, a second call on fresh inputs is
+    right and leaves the first result unchanged, and a replay launches
+    no S1/S3 from Python."""
+    from stark_rings_tpu_torch.fields import STARK
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.ops.mxu_limb import MxuLimbNTT
+
+    N = 512
+    rng = np.random.default_rng(19)
+    e = MxuLimbNTT(N, device=dev)
+    a, b, a2, b2 = (STARK.rand((3, N), rng, dev) for _ in range(4))
+    jit = e.jit_mul()
+    first = jit(a, b)
+    kept = first.clone()
+    assert torch.equal(first, NTTContext(STARK, N, device=dev).mul(a, b))
+    torch.cuda.synchronize()
+    before = dict(S.LAUNCHES)
+    second = jit(a2, b2)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES == before
+    assert torch.equal(second, e.mul(a2, b2))
+    assert torch.equal(first, kept)
+
+
+_FAILING_CAPTURE = r"""
+import torch
+from stark_rings_tpu_torch.ops.graphed import graphed
+
+runs = []
+
+
+def synced(x):
+    runs.append(1)
+    return x * int(x.sum().item())   # a host sync: refused under capture
+
+
+g = graphed(synced)
+try:
+    out = g(torch.ones(8, device="cuda"))
+except RuntimeError as err:
+    assert len(runs) == 2 and not g.captures, (runs, g.captures)
+    print("capture refused:", str(err).splitlines()[0])
+else:
+    raise SystemExit(f"the capture did not fail: {out}")
+"""
+
+
+def test_failed_capture_raises(dev):
+    """A function that synchronises inside its capture raises on its
+    first CUDA call and returns no eager result (its warm-up ran, its
+    capture was refused).  In a child process, so that the abandoned
+    capture cannot reach this process's allocator."""
+    proc = subprocess.run([sys.executable, "-c", _FAILING_CAPTURE],
+                          cwd=pathlib.Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "capture refused" in proc.stdout

@@ -197,6 +197,27 @@ def test_power_ring_matches_reference(rings):
     assert flat.shape == (1, 32, 8) and torch.equal(P.promote(flat), a[None])
 
 
+def test_limb_jit_mul_matches_reference(rings):
+    """``MxuLimbNTT.jit_mul`` (on the CPU the multiply itself) against
+    the reference's ``jit_mul`` at config 3's degree 2^12, B = 2: one
+    compile of the reference's limbed multiply (about 40 s here)."""
+    from stark_rings_tpu.fields import STARK as RS
+    from stark_rings_tpu.ops.mxu_limb import MxuLimbNTT as RefMxuLimbNTT
+
+    from stark_rings_tpu_torch.ops.mxu_limb import MxuLimbNTT
+
+    _, _, f = rings
+    N = 1 << 12
+    rng = np.random.default_rng(17)
+    a, b = (f.rand((2, N), rng, "cpu") for _ in range(2))
+    port = MxuLimbNTT(N, device="cpu")
+    got = port.jit_mul()(a, b)
+    assert got.shape == (2, N, 8)
+    want = RefMxuLimbNTT(RS, N).jit_mul()(jnp.asarray(_np(a)),
+                                          jnp.asarray(_np(b)))
+    assert np.array_equal(_np(got), np.asarray(want))
+
+
 def test_decomposition_golden_and_limb_division(rings):
     """stark_prime/decomposition.rs:72-99's golden vector; the two-half
     limb division at b = 2^32 - 2 (where r * 2^32 + limb passes 2^63)
