@@ -65,7 +65,9 @@ decomposition, the dense ring ``Matrix`` and the folding protocol
                   exchange (wrappers + plain twins)
     utils/        the arkworks byte layouts of vectors, matrices and
                   MLEs; checkpoints of storage tensors (.npz); tracing
-                  spans (torch.profiler and NVTX)
+                  spans at the layer boundaries, ranges in the
+                  profiler's timeline while one records, a shared no-op
+                  otherwise
     errors.py     ConversionError and the re-exported error types
     examples/     the sumcheck protocol (prove / verify), the Ajtai
                   commitment, the folding step and tree, the big-ring

@@ -35,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.trace import trace_span
 from . import _build
 from .goldilocks import _mul_q, _reduce128, _sub_q, join, split
 from .mxu2 import BIAS_MOD_Q, B_BITS, Mxu2NTT
@@ -446,22 +447,24 @@ class Mxu2FusedNTT(_KernelEpilogues):
     def mul(self, a, b, c=None):
         """Full multiply; the two forward end-folds and the slot product
         are one K2 launch."""
-        c = self._c(c)
-        if self.stack_forward:
-            # column order of the stacked buckets is (b2, t) with operand
-            # a at b2 < B, so K2 reads b's half at column offset B*t
-            ab = torch.cat([self._to_internal(a), self._to_internal(b)],
-                           dim=1)
-            mid = self._lvl_tw_t(self.mat1, ab, c, "w1", "tw")  # [t, 2B, R]
-            C, B2, t = mid.shape
-            B = B2 // 2
-            V = self._dot(self.mat2, mid, c, "w2")
-            prod = self._k_end2(V, None, self.mat2.R, signed=self.signed)
-        else:
-            Va, B, t = self._fwd_buckets(a, c)
-            Vb, _, _ = self._fwd_buckets(b, c)
-            prod = self._k_end2(Va, Vb, self.mat2.R, signed=self.signed)
-        return self._tail(prod, B, t, c)
+        with trace_span("mxu.mul"):
+            c = self._c(c)
+            if self.stack_forward:
+                # column order of the stacked buckets is (b2, t) with
+                # operand a at b2 < B, so K2 reads b's half at column
+                # offset B*t
+                ab = torch.cat([self._to_internal(a), self._to_internal(b)],
+                               dim=1)
+                mid = self._lvl_tw_t(self.mat1, ab, c, "w1", "tw")
+                C, B2, t = mid.shape                       # [t, 2B, R]
+                B = B2 // 2
+                V = self._dot(self.mat2, mid, c, "w2")
+                prod = self._k_end2(V, None, self.mat2.R, signed=self.signed)
+            else:
+                Va, B, t = self._fwd_buckets(a, c)
+                Vb, _, _ = self._fwd_buckets(b, c)
+                prod = self._k_end2(Va, Vb, self.mat2.R, signed=self.signed)
+            return self._tail(prod, B, t, c)
 
 
 class Mxu2KernelNTT(_KernelEpilogues):

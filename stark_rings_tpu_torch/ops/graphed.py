@@ -26,7 +26,9 @@ A capture or a replay that fails raises; a CUDA input never runs eagerly
 instead.  CPU inputs run the function as it is: the CPU has no graphs,
 and CPU tensors go to the plain twins everywhere in the port
 (``ops/_build.py``).  Launch counts (``LAUNCHES`` of each kernel
-module) see the warm-up and the capture, each once, and no replay.
+module) see the warm-up and the capture, each once, and no replay; so
+do the program's tracing spans (``utils/trace.py``): a replay carries
+no span.
 
 Memory: a graph holds its static inputs and output (contiguous copies of
 the first call's shapes) and, in the set's pool, the intermediates of

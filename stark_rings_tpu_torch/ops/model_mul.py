@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import trace_span
 from .mxu_dense import apply_cols
 
 __all__ = ["TModelMul"]
@@ -74,24 +75,27 @@ class TModelMul:
 
     def crt_t(self, xt, c=None):
         """coeff [D, *batch] -> NTT form [D, *batch]."""
-        return self._apply_t(self._crt, xt, c, "crt")
+        with trace_span("model.crt"):
+            return self._apply_t(self._crt, xt, c, "crt")
 
     def icrt_t(self, yt, c=None):
-        return self._apply_t(self._icrt, yt, c, "icrt")
+        with trace_span("model.icrt"):
+            return self._apply_t(self._icrt, yt, c, "icrt")
 
     def _slot_product(self, a, b):
         """The extension-field product of slot tensors a [N, E, *ba] and
         b [N, E, *bb] (broadcast-compatible batches) -> [N*E, *batch]."""
         f = self.f
         N, E = self.ring.N, self.ring.E
-        a_deg = a[:, self._perm]
-        b_deg = b[:, self._perm]
-        # bg[n, i, k, ...] = b_deg[n, (k-i) % E, ...]
-        bg = b_deg[:, self._idx_flat].reshape((N, E, E) + b.shape[2:])
-        fac = self._fac.reshape((1, E, E) + (1,) * (b.dim() - 2))
-        prod = f.mul(a_deg[:, :, None], f.mul(fac, bg))
-        c = f.sum(prod, axis=1)[:, self._inv_perm]  # sum over i
-        return c.reshape((N * E,) + c.shape[2:])
+        with trace_span("model.slot_product"):
+            a_deg = a[:, self._perm]
+            b_deg = b[:, self._perm]
+            # bg[n, i, k, ...] = b_deg[n, (k-i) % E, ...]
+            bg = b_deg[:, self._idx_flat].reshape((N, E, E) + b.shape[2:])
+            fac = self._fac.reshape((1, E, E) + (1,) * (b.dim() - 2))
+            prod = f.mul(a_deg[:, :, None], f.mul(fac, bg))
+            c = f.sum(prod, axis=1)[:, self._inv_perm]  # sum over i
+            return c.reshape((N * E,) + c.shape[2:])
 
     def ntt_mul_t(self, at, bt):
         """Slot-wise extension product in the batch-trailing layout
@@ -147,8 +151,9 @@ class TModelMul:
 
     def mul_t(self, at, bt, c=None):
         """Transposed coefficient-form product: icrt(crt(a) *slot crt(b))."""
-        return self.icrt_t(self.ntt_mul_t(self.crt_t(at, c),
-                                          self.crt_t(bt, c)), c)
+        with trace_span("model.mul_t"):
+            return self.icrt_t(self.ntt_mul_t(self.crt_t(at, c),
+                                              self.crt_t(bt, c)), c)
 
     def precompute_t(self, bt, c=None):
         """The cached state of a fixed operand for mul_cached_t: its NTT

@@ -44,6 +44,7 @@ import torch.nn.functional as TF
 
 from ..device import get_device, to_numpy_u64, to_torch, to_torch_u32
 from ..fields.field import GOLDILOCKS, MASK32, shr
+from ..utils.trace import trace_span
 from .graphed import GraphSet, graphed
 from .ntt import find_primitive_root
 
@@ -200,14 +201,17 @@ class PrescaledMat:
         ``w`` and ``w_corr`` are this matrix's device table and, for the
         unsigned scheme, its offset correction (see
         :func:`from_jax_consts`)."""
+        with trace_span("digits.planes"):
+            s = (self._planes(x, 0x80).view(torch.int8)  # d ^ 0x80 = d - 128
+                 if self.unsigned else self._planes(x))
+        V = torch._int_mm(w, s)
         if not self.unsigned:
-            return torch._int_mm(w, self._planes(x))
-        s = self._planes(x, 0x80).view(torch.int8)   # d ^ 0x80 = d - 128
-        KR = self.K * self.R
-        V = torch._int_mm(w, s)    # row K*R: the ones row, sum_c s[c, j]
-        V, colsum = V[:KR], V[KR]
-        V += w_corr
-        V += 128 * colsum
+            return V
+        with trace_span("digits.offsets"):
+            KR = self.K * self.R
+            V, colsum = V[:KR], V[KR]   # row K*R: the ones row, sum_c s[c, j]
+            V += w_corr
+            V += 128 * colsum
         return V
 
     def apply(self, x: torch.Tensor, w: torch.Tensor,
@@ -454,10 +458,16 @@ class Mxu2NTT:
 
     def mul(self, a, b, c=None):
         """Full negacyclic ring multiply [B, N] x [B, N] -> [B, N]."""
-        fa = self.forward_internal(self._to_internal(a), c)
-        fb = self.forward_internal(self._to_internal(b), c)
-        return self._from_internal(
-            self.inverse_internal(self.pointwise(fa, fb), c))
+        with trace_span("mxu.mul"):
+            with trace_span("mxu.forward"):
+                fa = self.forward_internal(self._to_internal(a), c)
+            with trace_span("mxu.forward"):
+                fb = self.forward_internal(self._to_internal(b), c)
+            with trace_span("mxu.pointwise"):
+                prod = self.pointwise(fa, fb)
+            with trace_span("mxu.inverse"):
+                out = self.inverse_internal(prod, c)
+            return self._from_internal(out)
 
     def pointwise(self, fa, fb):
         return self.F.mul(fa, fb)

@@ -37,6 +37,7 @@ from ..decomp import decompose
 from ..decomp.norms import l2_check
 from ..ops.model_mul import TModelMul
 from ..spec.decomp import decomposition_max_length
+from ..utils.trace import trace_span
 
 __all__ = ["FoldingStep", "ntt_matvec"]
 
@@ -122,8 +123,9 @@ class FoldingStep:
         [D(, L)] in, transposed NTT form [D, 1, 1(, L)] out; computed once
         per challenge and broadcast over the witness batch in every
         step."""
-        ntt = self.tm.crt_t(self.tm.to_t(r)[:, None])
-        return ntt[:, :, None]
+        with trace_span("fold.precompute"):
+            ntt = self.tm.crt_t(self.tm.to_t(r)[:, None])
+            return ntt[:, :, None]
 
     def rand_witness(self, W: int, rng: np.random.Generator):
         """NTT-form witness batch [D, W, L(, limbs)] (transposed)."""
@@ -170,26 +172,34 @@ class FoldingStep:
         witness ``s`` and commitment ``c``, the digit tensor ``digits``
         [D, W, M] and its commitment ``cd``, and the check bits ``ok_l2``
         (and ``ok_psi``) [W]."""
-        f, tm = self.f, self.tm
-        tmc = c.get("tm")
-        st = f.add(s0t, tm.ntt_mul_bt(s1t, rt))
-        ct = f.add(c0t, tm.ntt_mul_bt(c1t, rt))
-        coeff = tm.icrt_t(st, tmc)                       # [D, W, L]
-        dig = decompose(f, coeff, self.base, self.k)     # [D, W, L, k(, l)]
-        # digit j of column l -> gadget column l*k + j (mod.rs:163-175)
-        dt = dig.reshape((dig.shape[0], dig.shape[1], self.M)
-                         + f.limb_shape)
-        ok_l2 = l2_check(f, dt, self.l2_bound_sq, axis=(0, 2))   # [W]
-        d_ntt = tm.crt_t(dt, tmc)
-        cd = self.commit(c, d_ntt)
-        out = {"s": st, "c": ct, "digits": dt, "cd": cd, "ok_l2": ok_l2}
-        if self.psi_check:
-            from ..rings.monomial import psi_range_check_batched
+        with trace_span("fold.step"):
+            f, tm = self.f, self.tm
+            tmc = c.get("tm")
+            with trace_span("fold.challenge"):
+                st = f.add(s0t, tm.ntt_mul_bt(s1t, rt))
+                ct = f.add(c0t, tm.ntt_mul_bt(c1t, rt))
+            coeff = tm.icrt_t(st, tmc)                   # [D, W, L]
+            with trace_span("fold.decompose"):
+                # [D, W, L, k(, l)]; digit j of column l -> gadget column
+                # l*k + j (mod.rs:163-175)
+                dig = decompose(f, coeff, self.base, self.k)
+                dt = dig.reshape((dig.shape[0], dig.shape[1], self.M)
+                                 + f.limb_shape)
+            with trace_span("fold.l2"):
+                ok_l2 = l2_check(f, dt, self.l2_bound_sq, axis=(0, 2))  # [W]
+            d_ntt = tm.crt_t(dt, tmc)
+            with trace_span("fold.commit"):
+                cd = self.commit(c, d_ntt)
+            out = {"s": st, "c": ct, "digits": dt, "cd": cd, "ok_l2": ok_l2}
+            if self.psi_check:
+                from ..rings.monomial import psi_range_check_batched
 
-            # per coefficient of the digit tensor; all of (D, M) a witness
-            okp = psi_range_check_batched(self.ring, dt)
-            out["ok_psi"] = okp.all(dim=2).all(dim=0)
-        return out
+                with trace_span("fold.psi"):
+                    # per coefficient of the digit tensor; all of (D, M) a
+                    # witness
+                    okp = psi_range_check_batched(self.ring, dt)
+                    out["ok_psi"] = okp.all(dim=2).all(dim=0)
+            return out
 
     # -- multi-device -------------------------------------------------------
     def on_device(self, device) -> "FoldingStep":
