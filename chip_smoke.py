@@ -265,23 +265,30 @@ Phases, one line each:
      B = 16,384 against their twins on the model CRT GEMM's buckets, at
      the bucket bound, zero and full-range int32; mul_t of the three
      models at a ragged B = 13 on the card against the CPU twin path;
+     slot_mul at [8, 3, 65,536]^2 and slot_matvec at the commit's shape
+     against their twins, on random words and on q - 1;
  35. model path, launches counted: mul_t of the three models at their
      batches and the commit (unblocked and block = 128); each mul_t
      equal to the integer spec on 64 rows and to coeff_mul on the card
-     over the whole batch, the blocked commit to the unblocked one, and
-     one commitment to the spec's slot products summed in Python ints;
- 36. launch counts of phase 35 (3 K3 launches a goldilocks mul_t, 3
-     bb_fold_end a babybear one, none for frog);
+     over the whole batch, the commit (unblocked and blocked) to
+     slot_matvec's twin (torch ops on the card) blocked at 128, and one
+     commitment to the spec's slot products summed in Python ints;
+ 36. launch counts of phase 35 (3 K3 launches and 1 slot_mul a
+     goldilocks mul_t, 3 bb_fold_end a babybear one, none for frog, 1
+     slot_matvec a commit);
  37. timings (CUDA events, median of 10 after warm-up): K3 and
      bb_fold_end at the model shapes against their twins and memory
      floors, their device-only time (torch.profiler) with the wrapper's
      host time apart; mults/s of each mul_t with the stages of one CRT GEMM
      (planes, _int_mm, offset terms, fold) and the slot product; the
      commit's rate and time per commitment, unblocked and blocked;
+     slot_mul at mul_t's shape against its twin and its bound (bytes,
+     or the issue rate over its SASS instructions) with its
+     device-only time;
  38. profile: device busy time against wall time of one mul_t per
      model, split into the fold kernel (and its time a launch),
-     _int_mm and torch's elementwise kernels, with the slot product
-     profiled alone (torch.profiler).
+     _int_mm, the slot kernel and torch's elementwise kernels, with the
+     slot product profiled alone (torch.profiler).
 
 The folding protocol (``FoldingStep``, ``FoldingTree``) at the reference
 bench's width, goldilocks n = 8, L = 1,024, base 256 (k = 8, M = 8,192):
@@ -297,13 +304,20 @@ bench's width, goldilocks n = 8, L = 1,024, base 256 (k = 8, M = 8,192):
      ICRT coefficients, ok_l2 equals the exact Python-int norm against
      the bound, cd equals Matrix.mul_vec and row 0 the spec's slot
      products summed in Python ints, ok_psi the host psi check of every
-     digit value; the blocked commit equals the unblocked one; the
-     trees verify and reject a tampered digit commitment;
- 41. launch counts of phase 39 (K3 twice a goldilocks step, bb_fold_end
-     twice a babybear step), and K3 / bb_fold_end against their twins on
-     a step's digit-CRT buckets;
+     digit value; cd and the commit at block 1,000 equal slot_matvec's
+     twin (torch ops on the card) blocked at 1,000; the trees verify and
+     reject a tampered digit commitment;
+ 41. launch counts of phase 39 (K3 twice, slot_mul twice and
+     slot_matvec once a goldilocks step, four times that the 16-leaf
+     tree, bb_fold_end twice a babybear step), and K3 / bb_fold_end against
+     their twins on a step's digit-CRT buckets, slot_mul at the
+     challenge's shapes ([8, 3, 16,384] and [8, 3, 128] x [8, 3, 1]) and
+     slot_matvec at the commit's (n = 8, M = 8,192, W = 16) against
+     their twins on random words and on q - 1;
  42. timings (CUDA events, median of 10 after warm-up, whole calls):
-     steps/s and witnesses/s of the four grid points and the babybear
+     slot_matvec at the commit's shape against its twin and its bound
+     (the issue rate over the SASS instructions of its inner loop a
+     product) with its device-only time; steps/s and witnesses/s of the four grid points and the babybear
      step, leaves/s of the tree, each stage of one W = 16 step alone,
      the peak device memory of a step;
  43. profile: device busy time against wall time of one W = 16 step
@@ -574,6 +588,14 @@ PROTO_INT_WITNESSES = 2
 PROTO_BLOCK = 1000      # a forced commit block (M = 8,192 is 8 and a tail)
 PROTO_TREE = (16, 256)  # leaves and L of the tree (bench_protocol.py:486-487)
 PROTO_FROG_TREE = (2, 2, 3, 8)  # t, n, L, base (examples/folding_tree.py)
+SLOT_SOURCE = "stark_rings_tpu_torch/csrc/slot.cu"
+Q_TOP = (1 << 64) - (1 << 32)   # q - 1: every carry of the slot products
+SLOT_MUL_REC = "slot_mul[model goldilocks]"
+SLOT_MATVEC_REC = "slot_matvec[folding step commit]"
+SLOT_XLA = {  # record -> the reference's XLA code the kernel computes
+    SLOT_MUL_REC: "stark_rings_tpu/ops/model_mul.py:158",     # ntt_mul_bt
+    SLOT_MATVEC_REC: "stark_rings_tpu/ops/model_mul.py:183",  # matvec_t
+}
 PROTO_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[folding step goldilocks]": (
         SOURCE, "stark_rings_tpu/ops/pallas_fold.py:370", "goldilocks"),
@@ -2755,6 +2777,19 @@ def slice_sharded(dev, smi, rng) -> list:
         for name, (src, ref) in FOURSTEP_KERNELS.items()]
 
 
+def slot_words(shape_, rng, dev, fill=None):
+    """Goldilocks words (canonical u64 bits in int64) of ``shape_`` on
+    ``dev``: uniform below q, or each ``fill``."""
+    import numpy as np
+
+    from stark_rings_tpu_torch import to_torch
+
+    q = (1 << 64) - (1 << 32) + 1
+    x = (np.full(shape_, fill, dtype=np.uint64) if fill is not None
+         else rng.integers(0, q, shape_, dtype=np.uint64))
+    return to_torch(x, dev)
+
+
 def model_stages(tm, at, bt) -> dict:
     """ms of each stage of one ``mul_t`` on [D, B] operands: of one CRT
     GEMM the digit planes, ``_int_mm``, the offset terms and the whole
@@ -2788,10 +2823,11 @@ def model_stages(tm, at, bt) -> dict:
 def model_profile(tm, at, bt, dev, n=5) -> str:
     """``n`` profiled ``mul_t`` calls split by kernel: the fold kernel (K3
     or bb_fold_end; its device time a launch over the launches the
-    window recorded), the ``_int_mm`` GEMM (cutlass), torch's
-    elementwise kernels (the digit planes, the offset terms and the slot
-    product, which is also profiled alone) and any other kernel.  As
-    text, per ``mul_t``."""
+    window recorded), the ``_int_mm`` GEMM (cutlass), the slot kernel
+    (``slot_mul``, Goldilocks on the card), torch's elementwise kernels
+    (the digit planes, the offset terms and the other models' slot
+    products) and any other kernel; the slot product is also profiled
+    alone.  As text, per ``mul_t``."""
     rows = []
     busy_ms, wall_ms, _ = device_profile(lambda: tm.mul_t(at, bt), n, dev,
                                          0, rows_out=rows)
@@ -2803,8 +2839,9 @@ def model_profile(tm, at, bt, dev, n=5) -> str:
 
     parts = {"fold kernel": cls(lambda k: "fold_end" in k),
              "_int_mm": cls(lambda k: "cutlass" in k or "gemm" in k),
+             "slot kernel": cls(lambda k: "slot_mul_kernel" in k),
              "torch elementwise": cls(lambda k: "at::native" in k)}
-    known = ("fold_end", "cutlass", "gemm", "at::native")
+    known = ("fold_end", "cutlass", "gemm", "slot_mul_kernel", "at::native")
     parts["other"] = cls(lambda k: not any(s in k for s in known))
     fa, fb = tm.crt_t(at), tm.crt_t(bt)
     slot_ms = device_profile(lambda: tm.ntt_mul_t(fa, fb), n, dev, 0)[0]
@@ -2821,12 +2858,14 @@ def model_profile(tm, at, bt, dev, n=5) -> str:
 def slice_models(dev, smi, rng) -> list:
     """Phases 34-38: the ring models' batch-trailing CRT multiply
     ``TModelMul.mul_t`` over goldilocks, babybear and frog at the
-    reference bench's batches, and the Ajtai commit ``matvec_t``.
+    reference bench's batches, and the Ajtai commit ``matvec_t``; the
+    Goldilocks slot products on ``slot_mul`` / ``slot_matvec``.
     Returns the kernels' JSON records."""
     import numpy as np
     import torch
 
     from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.ops import slot as SL
     from stark_rings_tpu_torch.ops.model_mul import TModelMul
     from stark_rings_tpu_torch.rings import get_ring
 
@@ -2874,27 +2913,43 @@ def slice_models(dev, smi, rng) -> list:
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"{name}: mul_t at B={MODEL_RAGGED} on the "
                                  "card differs from the CPU twin path")
+    # the slot kernels against their twins (torch ops on the card): mul_t's
+    # product, and the commit's contraction against the blocked twin
+    gtab = tms["goldilocks"]._tables
+    Ng, Bg = rings["goldilocks"].N, MODEL_B["goldilocks"]
+    n_rows, m_cols, W, block = COMMIT
+    for what, fill in (("random", None), ("q - 1", Q_TOP)):
+        a, b = (slot_words((Ng, 3, Bg), rng, dev, fill) for _ in range(2))
+        check(max_err, SLOT_MUL_REC, SL.slot_mul(a, b, gtab),
+              SL.slot_mul_ref(a, b, gtab), f"{shape(a, b)} {what}")
+        A = slot_words((Ng, 3, n_rows, m_cols), rng, dev, fill)
+        x = slot_words((Ng, 3, W, m_cols), rng, dev, fill)
+        check(max_err, "slot_matvec[model commit]", SL.slot_matvec(A, x, gtab),
+              SL.slot_matvec_ref(A, x, gtab, block), f"{shape(A, x)} {what}")
     torch.cuda.synchronize()
     phase("model parity", f"K3 at R = 24, B = {MODEL_B['goldilocks']} and "
           f"bb_fold_end at R = 72, B = {MODEL_B['babybear']} bit-equal to "
           "their twins on the CRT GEMM's buckets, at the bound, zero and "
           f"full-range int32; mul_t at a ragged B = {MODEL_RAGGED} on the "
-          "card equal to the CPU twin path for the three models "
+          "card equal to the CPU twin path for the three models; slot_mul "
+          f"at [{Ng}, 3, {Bg}]^2 and slot_matvec at n={n_rows}, "
+          f"m={m_cols}, W={W} bit-equal to their twins (the mat-vec's "
+          f"blocked at {block}) on random words and on q - 1 "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # -- 35. the path, launches counted ---------------------------------------
-    n_rows, m_cols, W, block = COMMIT
     gl, gtm = rings["goldilocks"], tms["goldilocks"]
     A = gl.field.rand((gl.D, n_rows, m_cols), rng, dev)
     s = gl.field.rand((gl.D, W, m_cols), rng, dev)
 
     def counts():
-        return {k: {**K.LAUNCHES, **KB.LAUNCHES}[k]
-                for k in ("fold_end", "bb_fold_end")}
+        return {k: {**K.LAUNCHES, **KB.LAUNCHES, **SL.LAUNCHES}[k]
+                for k in ("fold_end", "bb_fold_end", "slot_mul",
+                          "slot_matvec")}
 
     torch.cuda.synchronize()
-    K.reset_launches()
-    KB.reset_launches()
+    for mod in (K, KB, SL):
+        mod.reset_launches()
     t0 = time.perf_counter()
     results, per_run = {}, {}
     runs = {f"{n} mul_t": (lambda n=n: tms[n].mul_t(*ops[n]))
@@ -2941,8 +2996,14 @@ def slice_models(dev, smi, rng) -> list:
                 raise AssertionError(f"{name} mul_t columns {c0}.. differ "
                                      "from coeff_mul on the card")
     full, blk = results["commit"], results["commit blocked"]
-    if full.shape != (gl.D, W, n_rows) or not torch.equal(full, blk):
-        raise AssertionError("commit: blocked and unblocked matvec_t differ")
+    twin = SL.slot_matvec_ref(A.view(Ng, 3, n_rows, m_cols),
+                              s.view(Ng, 3, W, m_cols), gtab,
+                              block).view(gl.D, W, n_rows)
+    if full.shape != (gl.D, W, n_rows) or not torch.equal(full, twin) \
+            or not torch.equal(blk, twin):
+        raise AssertionError("commit: matvec_t (unblocked or blocked) "
+                             "differs from slot_matvec's twin blocked at "
+                             f"{block}")
     # one commitment row in Python ints through the spec's slot product
     Ai, si = gl.decode(A[:, 0].t()), gl.decode(s[:, 0].t())
     acc = [0] * gl.D
@@ -2953,19 +3014,23 @@ def slice_models(dev, smi, rng) -> list:
         raise AssertionError("commit: c[0, 0] differs from the spec's sum")
     phase("model path", f"mul_t of the three models equals the integer spec "
           f"on {MODEL_SPEC_ROWS} rows and coeff_mul on the card over the "
-          f"whole batch (chunks of {MODEL_CHUNK}); the commit blocked equals "
-          "unblocked and, for c[0, 0], the spec's slot products summed in "
+          f"whole batch (chunks of {MODEL_CHUNK}); the commit, unblocked and "
+          "blocked, equals slot_matvec's twin (torch ops) blocked at "
+          f"{block} and, for c[0, 0], the spec's slot products summed in "
           f"Python ints ({time.perf_counter() - t0:.1f} s)")
 
     # -- 36. launch counts ----------------------------------------------------
     phase("model launches", json.dumps(launches))
-    for name, want in (("goldilocks", {"fold_end": 3, "bb_fold_end": 0}),
-                       ("babybear", {"fold_end": 0, "bb_fold_end": 3}),
-                       ("frog", {"fold_end": 0, "bb_fold_end": 0})):
-        if per_run[f"{name} mul_t"] != want:
-            raise AssertionError(f"{name} mul_t launched "
-                                 f"{per_run[f'{name} mul_t']}, expected "
-                                 f"{want}")
+    none = {"fold_end": 0, "bb_fold_end": 0, "slot_mul": 0, "slot_matvec": 0}
+    for name, want in (("goldilocks mul_t", {**none, "fold_end": 3,
+                                             "slot_mul": 1}),
+                       ("babybear mul_t", {**none, "bb_fold_end": 3}),
+                       ("frog mul_t", none),
+                       ("commit", {**none, "slot_matvec": 1}),
+                       ("commit blocked", {**none, "slot_matvec": 1})):
+        if per_run[name] != want:
+            raise AssertionError(f"{name} launched {per_run[name]}, "
+                                 f"expected {want}")
     rec_launches = {rec: launches[folds[rec][1]] for rec in MODEL_KERNELS}
     for rec, n in rec_launches.items():
         if n <= 0:
@@ -2988,6 +3053,22 @@ def slice_models(dev, smi, rng) -> list:
               f"{floor / ms:.0%} of the rate); " + device_only(
                   lambda: kern(V, R, signed=False), dev, floor, flush)
               + f"  ({smi})")
+    fa, fb = (gtm.crt_t(x).contiguous().view(Ng, 3, Bg)
+              for x in ops["goldilocks"])
+    moved = nbytes(fa, fb, SL.slot_mul(fa, fb, gtab))
+    ms = time_ms(lambda: SL.slot_mul(fa, fb, gtab), inner=10)
+    plain_ms = time_ms(lambda: SL.slot_mul_ref(fa, fb, gtab))
+    per = sass_instructions(r"slot_mul_kernelILi2ELb0E")
+    threads = Ng * Bg // 2                        # two products a thread
+    slot_ops_ms = threads * per / issue_rate(dev)[0] * 1e3
+    times[SLOT_MUL_REC] = (ms, plain_ms, moved, slot_ops_ms)
+    floor = max(moved / HBM_BYTES_PER_S * 1e3, slot_ops_ms)
+    phase("model time", f"slot_mul {shape(fa, fb)}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; {moved} B, {threads} threads x {per} "
+          f"SASS instructions ({slot_ops_ms:.4f} ms at the issue rate), "
+          f"bound {floor:.4f} ms ({floor / ms:.0%} of it); "
+          + device_only(lambda: SL.slot_mul(fa, fb, gtab), dev, floor, flush)
+          + f"  ({smi})")
     for name, (at, bt) in ops.items():
         tm = tms[name]
         ms = time_ms(lambda: tm.mul_t(at, bt))
@@ -3011,7 +3092,10 @@ def slice_models(dev, smi, rng) -> list:
 
     return [record(rec, src, ref, rec_launches[rec], max_err[rec],
                    *times[rec])
-            for rec, (src, ref, _) in MODEL_KERNELS.items()]
+            for rec, (src, ref, _) in MODEL_KERNELS.items()] + [
+        record(SLOT_MUL_REC, SLOT_SOURCE, SLOT_XLA[SLOT_MUL_REC],
+               launches["slot_mul"], max_err[SLOT_MUL_REC],
+               *times[SLOT_MUL_REC][:3], ops_ms=times[SLOT_MUL_REC][3])]
 
 
 def torch_ops(fn) -> int:
@@ -3144,11 +3228,13 @@ def hold_step(fs, c, ins, out, witnesses) -> str:
 
 def slice_protocol(dev, smi, rng) -> list:
     """Phases 39-43: the folding protocol, ``FoldingStep`` and
-    ``FoldingTree``, at the reference bench's width.  Returns the
-    kernels' JSON records."""
+    ``FoldingTree``, at the reference bench's width; over goldilocks its
+    slot products on ``slot_mul`` (the challenge) and ``slot_matvec``
+    (the commit).  Returns the kernels' JSON records."""
     import torch
 
     from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
+    from stark_rings_tpu_torch.ops import slot as SL
     from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree
     from stark_rings_tpu_torch.rings import get_ring
 
@@ -3160,6 +3246,7 @@ def slice_protocol(dev, smi, rng) -> list:
     steps = {(W, psi): FoldingStep(gl, n_rows, L, base, psi_check=psi)
              for W in PROTO_WS for psi in (False, True)}
     fs = steps[(PROTO_WS[-1], True)]
+    gtab = fs.tm._tables
     c = fs.init_tables(rng)
     rt = fs.precompute_challenge(gl.rand_coeff((), rng))
     ins = {}
@@ -3198,11 +3285,13 @@ def slice_protocol(dev, smi, rng) -> list:
     # -- 39. the path, launches counted ---------------------------------------
     def counts():
         return {"fold_end": K.LAUNCHES["fold_end"],
-                "bb_fold_end": KB.LAUNCHES["bb_fold_end"]}
+                "bb_fold_end": KB.LAUNCHES["bb_fold_end"],
+                "slot_mul": SL.LAUNCHES["slot_mul"],
+                "slot_matvec": SL.LAUNCHES["slot_matvec"]}
 
     torch.cuda.synchronize()
-    K.reset_launches()
-    KB.reset_launches()
+    for mod in (K, KB, SL):
+        mod.reset_launches()
     t0 = time.perf_counter()
     outs, per_run = {}, {}
     runs = {f"step W={W} psi={psi}": (lambda W=W, psi=psi: steps[(W, psi)]
@@ -3231,13 +3320,20 @@ def slice_protocol(dev, smi, rng) -> list:
                                      "differ")
         text = hold_step(steps[(W, True)], c, ins[W], o_on,
                          (0, W - 1)[:PROTO_INT_WITNESSES])
-        d_ntt = fs.tm.crt_t(o_on["digits"])
-        if not torch.equal(fs.commit(c, d_ntt, block=PROTO_BLOCK),
-                           o_on["cd"]):
-            raise AssertionError(f"step W={W}: the commit at block="
-                                 f"{PROTO_BLOCK} differs from the unblocked")
-        phase("protocol check", text + f"; block={PROTO_BLOCK} commit equal "
-              "to the unblocked")
+        d_ntt = fs.tm.crt_t(o_on["digits"]).contiguous()
+        twin = SL.slot_matvec_ref(
+            c["Agt"].view(gl.N, 3, n_rows, fs.M),
+            d_ntt.view(gl.N, 3, W, fs.M), gtab,
+            PROTO_BLOCK).view(gl.D, W, n_rows)
+        if not torch.equal(twin, o_on["cd"]) or not torch.equal(
+                fs.commit(c, d_ntt, block=PROTO_BLOCK), o_on["cd"]):
+            raise AssertionError(f"step W={W}: the commit (or the commit "
+                                 f"at block={PROTO_BLOCK}) differs from "
+                                 "slot_matvec's twin blocked at "
+                                 f"{PROTO_BLOCK}")
+        phase("protocol check", text + "; cd and the commit at block="
+              f"{PROTO_BLOCK} equal to slot_matvec's twin (torch ops) "
+              f"blocked at {PROTO_BLOCK}")
     levels, rw, rc = outs["tree"]
     if rw.shape != (gl.D, 1, Lt) or not ft.verify(ct_tables, wt, cw, levels,
                                                   rts):
@@ -3268,11 +3364,12 @@ def slice_protocol(dev, smi, rng) -> list:
     # -- 41. launch counts ----------------------------------------------------
     phase("protocol launches", json.dumps(launches))
     levels_n = Wt.bit_length() - 1
-    expect = {name: {"fold_end": 2, "bb_fold_end": 0} for name in runs
-              if name.startswith("step")}
-    expect["tree"] = {"fold_end": 2 * levels_n, "bb_fold_end": 0}
-    expect["frog tree"] = {"fold_end": 0, "bb_fold_end": 0}
-    expect["babybear step"] = {"fold_end": 0, "bb_fold_end": 2}
+    none = {"fold_end": 0, "bb_fold_end": 0, "slot_mul": 0, "slot_matvec": 0}
+    gl_step = {**none, "fold_end": 2, "slot_mul": 2, "slot_matvec": 1}
+    expect = {name: gl_step for name in runs if name.startswith("step")}
+    expect["tree"] = {k: v * levels_n for k, v in gl_step.items()}
+    expect["frog tree"] = none
+    expect["babybear step"] = {**none, "bb_fold_end": 2}
     if per_run != expect:
         raise AssertionError(f"protocol launches {per_run}, expected "
                              f"{expect}")
@@ -3292,6 +3389,27 @@ def slice_protocol(dev, smi, rng) -> list:
         check(max_err, rec, getattr(mod, fold)(V, m.core.R, signed=False),
               getattr(mod, fold + "_ref")(V, m.core.R, signed=False),
               f"the step's digit CRT buckets {shape(V)}")
+    # the slot kernels at the step's shapes against their twins: the
+    # challenge's products (s [N, 3, W L] and c [N, 3, W n] by a batch-1
+    # challenge) and the commit, blocked twin
+    Wl = PROTO_WS[-1]
+    for what, fill in (("random", None), ("q - 1", Q_TOP)):
+        for Ba in (Wl * L, Wl * n_rows):
+            a = slot_words((gl.N, 3, Ba), rng, dev, fill)
+            b = slot_words((gl.N, 3, 1), rng, dev, fill)
+            check(max_err, "slot_mul[folding step challenge]",
+                  SL.slot_mul(a, b, gtab), SL.slot_mul_ref(a, b, gtab),
+                  f"{shape(a, b)} {what}")
+        A = slot_words((gl.N, 3, n_rows, fs.M), rng, dev, fill)
+        x = slot_words((gl.N, 3, Wl, fs.M), rng, dev, fill)
+        check(max_err, SLOT_MATVEC_REC, SL.slot_matvec(A, x, gtab),
+              SL.slot_matvec_ref(A, x, gtab, PROTO_BLOCK),
+              f"{shape(A, x)} {what}")
+    phase("protocol parity", f"K3 and bb_fold_end on the steps' digit-CRT "
+          f"buckets; slot_mul at [{gl.N}, 3, {Wl * L}] and [{gl.N}, 3, "
+          f"{Wl * n_rows}] x [{gl.N}, 3, 1] and slot_matvec at n={n_rows}, "
+          f"M={fs.M}, W={Wl} bit-equal to their twins (the mat-vec's "
+          f"blocked at {PROTO_BLOCK}) on random words and on q - 1")
 
     # -- 42. timings ----------------------------------------------------------
     times = {}
@@ -3305,6 +3423,26 @@ def slice_protocol(dev, smi, rng) -> list:
         phase("protocol time", f"{rec} {shape(V)}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, memory floor {floor:.4f} ms "
               f"({moved} B; {floor / ms:.0%} of the rate)  ({smi})")
+    flush = torch.empty(100 << 20, dtype=torch.uint8, device=dev)  # 2 x L2
+    A = c["Agt"].view(gl.N, 3, n_rows, fs.M)
+    x = fs.tm.crt_t(outs[f"step W={Wl} psi=True"]["digits"]).contiguous() \
+        .view(gl.N, 3, Wl, fs.M)
+    moved = nbytes(A, x, SL.slot_matvec(A, x, gtab))
+    ms = time_ms(lambda: SL.slot_matvec(A, x, gtab), inner=10)
+    plain_ms = time_ms(lambda: SL.slot_matvec_ref(A, x, gtab))
+    per, mix = slot_matvec_sass()
+    products = gl.N * n_rows * Wl * fs.M
+    mv_ops_ms = products * per / issue_rate(dev)[0] * 1e3
+    times[SLOT_MATVEC_REC] = (ms, plain_ms, moved, mv_ops_ms)
+    floor = max(moved / HBM_BYTES_PER_S * 1e3, mv_ops_ms)
+    phase("protocol time", f"slot_matvec {shape(A, x)}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms; {moved} B, {products} extension "
+          f"products x {per:.2f} SASS instructions (its inner loop, {mix}; "
+          f"{mv_ops_ms:.4f} ms at the issue rate), bound {floor:.4f} ms "
+          f"({floor / ms:.0%} of it); one Goldilocks modmul a product of "
+          f"words would be {9 * products / modmul_peak(dev)[0] * 1e3:.4f} "
+          "ms; " + device_only(lambda: SL.slot_matvec(A, x, gtab), dev,
+                               floor, flush) + f"  ({smi})")
     for (W, psi), sfs in steps.items():
         ms = time_ms(lambda: sfs.step(c, *ins[W]))
         phase("protocol time", f"goldilocks step W={W} psi={psi}: {ms:.4f} "
@@ -3358,7 +3496,10 @@ def slice_protocol(dev, smi, rng) -> list:
     rec_fold = {rec: folds[rec][1] for rec in PROTO_KERNELS}
     return [record(rec, src, ref, launches[rec_fold[rec]], max_err[rec],
                    *times[rec])
-            for rec, (src, ref, _) in PROTO_KERNELS.items()]
+            for rec, (src, ref, _) in PROTO_KERNELS.items()] + [
+        record(SLOT_MATVEC_REC, SLOT_SOURCE, SLOT_XLA[SLOT_MATVEC_REC],
+               launches["slot_matvec"], max_err[SLOT_MATVEC_REC],
+               *times[SLOT_MATVEC_REC][:3], ops_ms=times[SLOT_MATVEC_REC][3])]
 
 
 def py_negacyclic(a, b, q) -> list:
@@ -3630,12 +3771,7 @@ def slice_stark(dev, smi, rng) -> list:
     fa, fb = e.forward(a), e.forward(b)
     Vl = folds["level"]
     rows = fa.numel() // 8
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits", "-i", str(dev.index or 0)], capture_output=True,
-        text=True, check=True).stdout.split()[0])
-    issue = (torch.cuda.get_device_properties(dev).multi_processor_count
-             * ISSUE_PER_SM_CLOCK * mhz * 1e6)
+    issue = issue_rate(dev)[0]
     timed = {  # record -> (kernel, twin, inputs, threads, SASS pattern)
         "stark_mul": (lambda: S.stark_mul(fa, fb),
                       lambda: S.stark_mul_ref(fa, fb), (fa, fb), rows,
@@ -4831,54 +4967,82 @@ def slice_jit(dev, smi, rng, gl) -> list:
     return []
 
 
-def modmul_peak(dev) -> tuple:
-    """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
-    issue rate (SMs x ``ISSUE_PER_SM_CLOCK`` x the top SM clock that
-    nvidia-smi reports) over one ``gl::mul``'s instructions, read off the
-    built library's SASS.  ``pointwise_chain_kernel``'s loop runs one
-    ``gl::mul`` a trip; its body, less the backward branch, the compare
-    that sets the branch's predicate and the uniform-datapath counter
-    (opcodes U*), is the modmul.  Returns (modmuls/s, instructions per
-    modmul, their opcode counts, SMs, MHz)."""
+def issue_rate(dev) -> tuple:
+    """The SMs' issue rate, thread instructions a second: SMs x
+    ``ISSUE_PER_SM_CLOCK`` x the top SM clock that nvidia-smi reports.
+    Returns (rate, SMs, MHz)."""
     import torch
 
-    from stark_rings_tpu_torch.ops import _build
-
-    tool = pathlib.Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(_build.library_path())],
-                          capture_output=True, text=True, check=True).stdout
-    fn = re.search(r"Function : \S*pointwise_chain_kernel\S*(.*?)"
-                   r"(?=Function :|\Z)", sass, re.S)
-    if fn is None:
-        raise RuntimeError("no pointwise_chain_kernel in the library's SASS")
-    ins = [(int(at, 16), op.strip()) for at, op in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn.group(1))]
-    loops = []
-    for at, op in ins:
-        br = re.fullmatch(r"(?:@!?(P\d)\s+)?BRA\s+(0x[0-9a-f]+)", op)
-        if br and int(br.group(2), 16) < at:
-            loops.append((int(br.group(2), 16), at, br.group(1)))
-    if len(loops) != 1 or loops[0][2] is None:
-        raise RuntimeError(f"pointwise_chain_kernel: expected one "
-                           f"conditional loop in its SASS, found {loops}")
-    start, end, pred = loops[0]
-    mix = {}
-    for at, op in ins:
-        if not start <= at < end:
-            continue
-        words = re.sub(r"^@!?U?P\w+\s+", "", op).split()  # drop a guard
-        code = words[0]
-        if code.startswith("U") or (code.startswith("ISETP")
-                                    and words[1] == pred + ","):
-            continue
-        mix[code.split(".")[0]] = mix.get(code.split(".")[0], 0) + 1
-    per = sum(mix.values())
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits", "-i", str(dev.index or 0)], capture_output=True,
         text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return sms * ISSUE_PER_SM_CLOCK * mhz * 1e6 / per, per, mix, sms, mhz
+    return sms * ISSUE_PER_SM_CLOCK * mhz * 1e6, sms, mhz
+
+
+def sass_loop(pattern, keep=lambda mix: True) -> dict:
+    """The opcode counts of the body of the one conditional loop (a
+    backward branch) of the kernel whose mangled name matches
+    ``pattern`` in the built library's SASS (cuobjdump) for which
+    ``keep(counts)`` holds, less the loop's own control: the branch, the
+    compare that sets its predicate and the uniform-datapath counter
+    (opcodes U*).  Raises unless exactly one loop qualifies."""
+    body = [b for name, b in library_sass() if re.search(pattern, name)]
+    if len(body) != 1:
+        raise RuntimeError(f"expected one kernel matching {pattern!r} in "
+                           f"the SASS, found {len(body)}")
+    ins = [(int(at, 16), op.strip()) for at, op in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[0])]
+    found = []
+    for at, op in ins:
+        br = re.fullmatch(r"(?:@!?(P\d)\s+)?BRA\s+(0x[0-9a-f]+)", op)
+        if not (br and int(br.group(2), 16) < at):
+            continue
+        start, pred, mix = int(br.group(2), 16), br.group(1), {}
+        for at2, op2 in ins:
+            if not start <= at2 < at:
+                continue
+            words = re.sub(r"^@!?U?P\w+\s+", "", op2).split()  # no guard
+            code = words[0]
+            if code.startswith("U") or (code.startswith("ISETP")
+                                        and words[1] == f"{pred},"):
+                continue
+            mix[code.split(".")[0]] = mix.get(code.split(".")[0], 0) + 1
+        if pred is not None and keep(mix):
+            found.append(mix)
+    if len(found) != 1:
+        raise RuntimeError(f"{pattern}: expected one conditional loop of "
+                           f"its kind in the SASS, found {found}")
+    return found[0]
+
+
+def modmul_peak(dev) -> tuple:
+    """The card's peak rate of Goldilocks modmuls (``gl::mul``): the SMs'
+    issue rate over one ``gl::mul``'s instructions, read off the built
+    library's SASS.  ``pointwise_chain_kernel``'s loop runs one
+    ``gl::mul`` a trip; its body, less the loop's control
+    (:func:`sass_loop`), is the modmul.  Returns (modmuls/s,
+    instructions per modmul, their opcode counts, SMs, MHz)."""
+    mix = sass_loop(r"pointwise_chain_kernel")
+    per = sum(mix.values())
+    rate, sms, mhz = issue_rate(dev)
+    return rate / per, per, mix, sms, mhz
+
+
+def slot_matvec_sass() -> tuple:
+    """The SASS instructions ``slot_matvec_kernel`` issues a thread for
+    one extension product: its inner loop (the one that reads shared
+    memory, LDS, and writes none and waits at no barrier) over the
+    products a trip, 6 LDS each (a slot of A and of x).  Returns
+    (instructions a product, the loop's opcode counts)."""
+    mix = sass_loop(r"slot_matvec_kernel",
+                    lambda m: "LDS" in m and "STS" not in m
+                    and "BAR" not in m)
+    if mix["LDS"] % 6:
+        raise RuntimeError(f"slot_matvec_kernel's loop: {mix['LDS']} LDS "
+                           "is no whole number of products")
+    return sum(mix.values()) / (mix["LDS"] // 6), mix
 
 
 def mxu_sass() -> tuple:
@@ -4949,7 +5113,8 @@ def main() -> None:
     started = time.perf_counter()
     if not all((HERE / s).is_file() for s in (SOURCE, MLE_SOURCE, BB_SOURCE,
                                                NTT_SOURCE, MXU_SOURCE,
-                                               EXCHANGE_SOURCE, ST_SOURCE)):
+                                               EXCHANGE_SOURCE, ST_SOURCE,
+                                               SLOT_SOURCE)):
         raise SystemExit(f"chip_smoke.py: {HERE} holds no "
                          "stark_rings_tpu_torch package; run it from the "
                          "root of a checkout")

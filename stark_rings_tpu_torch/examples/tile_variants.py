@@ -9,7 +9,11 @@ tile shape, loads in flight, blocks an SM of ``csrc/fold.cu``'s
 24; and the mod-mat kernel (``csrc/mxu.cu``'s ``mxu_mod_mat_kernel``)
 beside the reference's stacked operand form, which multiplies the zero
 blocks of its stacked weights too (190 tensor-core products a tile
-against 100), at the main shape of ``MatmulNTT``'s levels.
+against 100), at the main shape of ``MatmulNTT``'s levels; and the
+Goldilocks slot mat-vec (``csrc/slot.cu``'s ``slot_matvec_kernel``) at
+the folding step's commit (n = 8, m = 8,192, W = 16), with reduced
+products in 128-bit sums in place of unreduced ones in 192-bit sums, or
+64 j's staged at a time in place of 32.
 
 Each variant is a copy of the kept source with some constants changed,
 built by nvcc on its own into ``build/tile_variants/``, and called
@@ -26,7 +30,7 @@ for both at once (the loads, shuffles and one barrier).
 
 Run on a machine with a CUDA card and nvcc, from the root of a checkout:
     python -m stark_rings_tpu_torch.examples.tile_variants [fold] [tile]
-        [eval] [mxu]
+        [eval] [mxu] [wide] [slot]
 (every group when none is named).
 """
 
@@ -46,11 +50,13 @@ from ..fields import GOLDILOCKS as F
 from ..mle import fix as FX
 from ..mle import sumcheck_kernel as SK
 from ..ops import _build, fold as K, goldilocks_ntt as G, mxu_fused as MF
+from ..ops import slot as SL
 from ..ops.fold import Mxu2FusedNTT
 from ..ops.mxu import MatmulNTT
+from ..rings import get_ring
 
-__all__ = ["EVAL_VARIANTS", "FOLD_VARIANTS", "MXU_VARIANTS", "TILE_VARIANTS",
-           "WIDE_VARIANTS", "main"]
+__all__ = ["EVAL_VARIANTS", "FOLD_VARIANTS", "MXU_VARIANTS", "SLOT_VARIANTS",
+           "TILE_VARIANTS", "WIDE_VARIANTS", "main"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _OUT = pathlib.Path(__file__).resolve().parents[2] / "build" / "tile_variants"
@@ -200,6 +206,21 @@ WIDE_VARIANTS = {
           "        for (int i = rounds; i < rounds; ++i)\n"
           "            sc_wide_tail_round<F>(")]),
 }
+SLOT_VARIANTS = {
+    "kept": ("unreduced products in 192-bit sums, 32 j's a stage", []),
+    "reduced": ("each product reduced mod q, 128-bit sums",
+                [("""        const uint64_t plo = a * b, phi = __umul64hi(a, b);
+        lo += plo;
+        const uint64_t c0 = lo < plo;
+        const uint64_t h = hi + phi;
+        const uint64_t c1 = h < phi;      // then h < 2^64 - 1: no 2nd carry
+        hi = h + c0;
+        top += c1 + (hi < c0);""", """        const uint64_t p = gl::mul(a, b);
+        lo += p;
+        hi += lo < p;""")]),
+    "step64": ("64 j's a stage (38 KB of shared memory)",
+               [("MV_STEP = 32;", "MV_STEP = 64;")]),
+}
 REPS = 10
 
 
@@ -261,7 +282,7 @@ def _call(fn, *args) -> None:
 
 def main(groups=None) -> None:
     groups = set(groups or sys.argv[1:]
-                 or ("fold", "tile", "eval", "mxu", "wide"))
+                 or ("fold", "tile", "eval", "mxu", "wide", "slot"))
     if not torch.cuda.is_available():
         raise SystemExit("tile_variants: needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -283,6 +304,8 @@ def main(groups=None) -> None:
         _mxu(rng, dev, card)
     if "wide" in groups:
         _wide(rng, dev, card)
+    if "slot" in groups:
+        _slot(rng, dev, card)
 
 
 def _fold(a, dev, card) -> None:
@@ -445,6 +468,43 @@ def _wide(rng, dev, card) -> None:
             print(f"K7 nv={nv} k={k} {name} ({WIDE_VARIANTS[name][0]}): "
                   f"{_time_ms(run):.4f} ms, grid {info[0]} blocks "
                   f"({info[1]}/SM)  ({card})", flush=True)
+
+
+def _slot(rng, dev, card) -> None:
+    """``slot_matvec_kernel`` at the commit's shape, launched bare
+    through ``srt_slot_matvec`` with the wrapper's plan and scratch; the
+    kept design first and last."""
+    p, i64, i32, u64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint64)
+    libs = _build_variants("slot.cu", SLOT_VARIANTS)
+    N, n, W, m = 8, 8, 16, 8192
+    t = SL.ext_tables(get_ring("goldilocks", device=dev))
+    A, x = F.rand((N, 3, n, m), rng, dev), F.rand((N, 3, W, m), rng, dev)
+    want = SL.slot_matvec_ref(A, x, t)
+    plan = SL.matvec_plan(N, n, W, m)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets, _, partials, _ = _build.work(dev, stream, plan.tickets,
+                                          plan.partials)
+    out = torch.empty_like(want)
+    for name in [*SLOT_VARIANTS, "kept"]:
+        fn = libs[name].srt_slot_matvec
+        fn.argtypes = [p, p, p, i64, i32, i32, i64, i64, i64, i32, i32, u64,
+                       p, p, p]
+
+        def run():
+            _call(fn, A.data_ptr(), x.data_ptr(), out.data_ptr(), N, n, W, m,
+                  plan.chunk, plan.chunks, plan.tiles_n, plan.tiles, t.nr,
+                  partials, tickets)
+
+        out.zero_()
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"slot_matvec variant {name!r} differs "
+                                 "from the twin")
+        print(f"slot_matvec n={n} W={W} m={m} {name} "
+              f"({SLOT_VARIANTS[name][0]}): {_time_ms(run):.4f} ms  "
+              f"({card})", flush=True)
 
 
 if __name__ == "__main__":

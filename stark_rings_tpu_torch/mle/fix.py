@@ -25,8 +25,8 @@ value because the multilinear extension is unique.
 
 A launch that combines the values of several blocks keeps their
 partials and tickets in a work buffer of the stream it runs on
-(``_work``): its tickets start at 0 and each launch leaves them at 0,
-so launches on one stream share it and two streams never do.
+(``ops._build.work``): its tickets start at 0 and each launch leaves
+them at 0, so launches on one stream share it and two streams never do.
 """
 
 from __future__ import annotations
@@ -202,7 +202,6 @@ def fix_plan(nv: int, k: int) -> FixPlan:
 
 _PACK = [struct.Struct(f"{n}Q") for n in range(MAX_POINTS + 1)]
 _NO_VALUES = [bytes(8 * n) for n in range(MAX_POINTS + 1)]
-_WORK = {}   # (device index, stream handle) -> [tickets, partials]
 
 
 def _point_table(name, points, device):
@@ -245,26 +244,6 @@ def _point_table(name, points, device):
     return _PACK[n].pack(*ptrs), _PACK[n].pack(*vals)
 
 
-def _work(device, stream: int, tickets: int, partials: int):
-    """The scratch of ``stream`` on ``device``: (address, length) of its
-    tickets (int32, at least ``tickets``) and of its partials (int64, at
-    least ``partials``), (0, 0) for either where none is needed.  The
-    tickets are zeroed when they are made, on that stream, and every
-    kernel leaves them at 0; the partials are scratch."""
-    bufs = _WORK.setdefault((device.index, stream), [None, None])
-    out = []
-    for i, (n, make) in enumerate(((tickets, torch.zeros),
-                                   (partials, torch.empty))):
-        if not n:
-            out += (0, 0)
-            continue
-        if bufs[i] is None or bufs[i].numel() < n:
-            bufs[i] = make(n, dtype=(torch.int32, torch.int64)[i],
-                           device=device)
-        out += (bufs[i].data_ptr(), bufs[i].numel())
-    return out
-
-
 def evaluate_goldilocks(evals, points):
     """K5: the multilinear extension of ``evals`` (int64 [2^nv]) at the
     nv ``points``, a 0-d int64 tensor; equals ``DenseMLE.evaluate``.
@@ -284,7 +263,7 @@ def evaluate_goldilocks(evals, points):
     dev = evals.device
     ptrs, vals = _point_table("evaluate_goldilocks", points, dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    scratch = _work(dev, stream, plan.tickets, plan.partials)
+    scratch = _build.work(dev, stream, plan.tickets, plan.partials)
     out = torch.empty((), dtype=torch.int64, device=dev)
     _build.launch(LAUNCHES, "evaluate_goldilocks",
                   _build.kernels().srt_mle_eval, dev, evals.data_ptr(), nv,
@@ -311,7 +290,7 @@ def fix_last_goldilocks(evals, points):
     dev = evals.device
     ptrs, vals = _point_table("fix_last_goldilocks", points, dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    scratch = _work(dev, stream, plan.tickets, plan.partials)
+    scratch = _build.work(dev, stream, plan.tickets, plan.partials)
     out = torch.empty(1 << (nv - k), dtype=torch.int64, device=dev)
     _build.launch(LAUNCHES, "fix_last_goldilocks",
                   _build.kernels().srt_mle_fix, dev, evals.data_ptr(), nv, k,

@@ -25,8 +25,8 @@ import tempfile
 
 import torch
 
-__all__ = ["NVCC_FLAGS", "kernels", "launch", "library_path", "nvcc",
-           "on_cuda"]
+__all__ = ["NVCC_FLAGS", "WORK", "kernels", "launch", "library_path",
+           "nvcc", "on_cuda", "work"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -38,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _CUDA_ROOTS = ("/usr/local/cuda",)
 
 _lib = None
+WORK = {}   # (device index, stream handle) -> [tickets, partials]
 
 
 def nvcc() -> str:
@@ -132,13 +133,17 @@ def kernels() -> ctypes.CDLL:
     for fn in stark:
         fn.argtypes = [p, p, i64, p, i64, p]
     lib.srt_limb_fold.argtypes = [p, p, i64, i64, i32, i32, p]
+    lib.srt_slot_mul.argtypes = [p, p, p, i64, i64, i32, i32, u64, p]
+    lib.srt_slot_matvec.argtypes = [p, p, p, i64, i32, i32, i64, i64, i64,
+                                    i32, i32, u64, p, p, p]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_pointwise_chain,
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
                lib.srt_bb_fold_tw,
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
                lib.srt_mle_eval, lib.srt_mle_fix, *sumcheck,
-               *exchange, *stark, lib.srt_limb_fold):
+               *exchange, *stark, lib.srt_limb_fold, lib.srt_slot_mul,
+               lib.srt_slot_matvec):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p
@@ -174,3 +179,25 @@ def launch(counts: dict, name: str, fn, device, *args, stream=None) -> None:
         msg = kernels().srt_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
     counts[name] += 1
+
+
+def work(device, stream: int, tickets: int, partials: int):
+    """The scratch of ``stream`` on ``device`` for kernels that combine
+    their blocks' values by last-block tickets: (address, length) of its
+    tickets (int32, at least ``tickets``) and of its partials (int64, at
+    least ``partials``), (0, 0) for either where none is needed.  The
+    tickets are zeroed when they are made, on that stream, and every
+    kernel leaves them at 0; the partials are scratch.  Launches on one
+    stream run in turn, so the kernels of all modules share it."""
+    bufs = WORK.setdefault((device.index, stream), [None, None])
+    out = []
+    for i, (n, make) in enumerate(((tickets, torch.zeros),
+                                   (partials, torch.empty))):
+        if not n:
+            out += (0, 0)
+            continue
+        if bufs[i] is None or bufs[i].numel() < n:
+            bufs[i] = make(n, dtype=(torch.int32, torch.int64)[i],
+                           device=device)
+        out += (bufs[i].data_ptr(), bufs[i].numel())
+    return out

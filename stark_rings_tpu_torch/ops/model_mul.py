@@ -17,17 +17,36 @@ one ``torch._int_mm`` and one fold kernel: K3 (``fold_end``) for
 goldilocks, K4's ``bb_fold_end`` for babybear, S3 (``limb_fold``) for
 stark_prime; frog folds in torch ops.  A ``mul_t`` is three of them.
 stark_prime's limb axis trails ([D, *batch, 8]), and its slot product
-(E = 1) is the field's Montgomery product, kernel S1 on the card.
+(E = 1) is the field's Montgomery product, kernel S1 on the card.  The
+Goldilocks model's slot products (E = 3) are the kernels of
+``ops/slot.py`` on the card: one ``slot_mul`` a product, one
+``slot_matvec`` a ``matvec_t``; the other models' run in torch ops
+(``slot.ext_mul``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..utils.trace import trace_span
 from .mxu_dense import apply_cols
+from .slot import (ext_matvec, ext_mul, ext_tables, slot_kernel_applies,
+                   slot_matvec, slot_mul)
 
 __all__ = ["TModelMul"]
+
+
+def _broadcast(sa: tuple, sb: tuple) -> tuple:
+    """The broadcast of two batch shapes, right-aligned.  (The first
+    ``torch.broadcast_shapes`` of a process imports sympy and torch's
+    symbolic shapes: seconds of set-up.)"""
+    n = max(len(sa), len(sb))
+    sa, sb = (1,) * (n - len(sa)) + sa, (1,) * (n - len(sb)) + sb
+    if any(x != y and 1 not in (x, y) for x, y in zip(sa, sb)):
+        raise ValueError(f"batch shapes {sa} and {sb} do not broadcast")
+    return tuple(y if x == 1 else x for x, y in zip(sa, sb))
 
 
 class TModelMul:
@@ -41,11 +60,17 @@ class TModelMul:
         self.ring = ring
         self.f = ring.field
         self._crt, self._icrt = ring._dense_crt
+        self._gl3 = False
         if ring.E > 1:
-            perm, inv_perm, idx, fac = ring._ext_tables
-            self._perm, self._inv_perm = perm, inv_perm
-            self._idx_flat = idx.reshape(-1)
-            self._fac = fac               # [E, E] storage
+            self._tables = ext_tables(ring)
+            self._gl3 = slot_kernel_applies(self.f, ring.E,
+                                            self._tables.perm.tolist())
+
+    def uses_slot_kernel(self, device) -> bool:
+        """Whether slot products on ``device`` run on the kernels of
+        :mod:`.slot` (Goldilocks, E = 3, identity storage permutation,
+        a CUDA device); every other case runs :func:`.slot.ext_mul`."""
+        return self._gl3 and torch.device(device).type == "cuda"
 
     # -- layout ----------------------------------------------------------
     def to_t(self, x):
@@ -85,17 +110,28 @@ class TModelMul:
     def _slot_product(self, a, b):
         """The extension-field product of slot tensors a [N, E, *ba] and
         b [N, E, *bb] (broadcast-compatible batches) -> [N*E, *batch]."""
-        f = self.f
-        N, E = self.ring.N, self.ring.E
         with trace_span("model.slot_product"):
-            a_deg = a[:, self._perm]
-            b_deg = b[:, self._perm]
-            # bg[n, i, k, ...] = b_deg[n, (k-i) % E, ...]
-            bg = b_deg[:, self._idx_flat].reshape((N, E, E) + b.shape[2:])
-            fac = self._fac.reshape((1, E, E) + (1,) * (b.dim() - 2))
-            prod = f.mul(a_deg[:, :, None], f.mul(fac, bg))
-            c = f.sum(prod, axis=1)[:, self._inv_perm]  # sum over i
-            return c.reshape((N * E,) + c.shape[2:])
+            if self.uses_slot_kernel(a.device):
+                return self._slot_mul(a, b)
+            return ext_mul(self.f, self._tables, a, b)
+
+    def _slot_mul(self, a, b):
+        """:func:`.slot.slot_mul` on a [N, 3, *ba] and b [N, 3, *bb]: the
+        operand whose batch is the broadcast batch first, the other's
+        batch that one or 1 (the product commutes); other broadcasts are
+        expanded first."""
+        N, E = a.shape[:2]
+        batch = _broadcast(tuple(a.shape[2:]), tuple(b.shape[2:]))
+        full = math.prod(batch)
+        if math.prod(a.shape[2:]) != full:
+            a, b = b, a
+        if math.prod(a.shape[2:]) != full or \
+                math.prod(b.shape[2:]) not in (full, 1):
+            a, b = (t.expand((N, E) + batch) for t in (a, b))
+        out = slot_mul(a.contiguous().view(N, E, full),
+                       b.contiguous().view(N, E, math.prod(b.shape[2:])),
+                       self._tables)
+        return out.view((N * E,) + batch)
 
     def ntt_mul_t(self, at, bt):
         """Slot-wise extension product in the batch-trailing layout
@@ -124,30 +160,26 @@ class TModelMul:
         [D, m(, L)]`` or ``[D, W, m(, L)]`` (batched vectors) -> ``[D, n]``
         / ``[D, W, n]`` (``(, L)``: stark_prime's limbs): c[i] = sum_j
         A[i, j] * x[j] (the reference's checked_mul_vec over RqNTT,
-        matrix.rs:148-188).  The contraction axis is placed major.
+        matrix.rs:148-188), by :func:`.slot.ext_matvec`.
 
-        ``block``: contraction-blocked exact accumulation; only
-        [D, block, W, n] slot products are live at a time, each block is
-        widened to base-2^32 words and summed with integer adds (exact:
-        words below 2^32, far fewer than 2^32 addends), and one fold mod
-        q ends it.  Bit-equal to the unblocked path."""
+        ``block``: contraction-blocked exact accumulation (see
+        :func:`.slot.ext_matvec`), bit-equal to the unblocked path.  Where
+        :meth:`uses_slot_kernel`, the contraction is one
+        :func:`.slot.slot_matvec` launch, exact at every ``block``, which
+        it therefore ignores."""
         f = self.f
         if xt.dim() == 2 + len(f.limb_shape):
             return self.matvec_t(At, xt[:, None], block=block)[:, 0]
-        m = At.shape[2]
-        Am = At.transpose(1, 2)                       # [D, m, n(, L)]
-        xm = xt.transpose(1, 2)                       # [D, m, W(, L)]
-        if block is None or block >= m:
-            prod = self.ntt_mul_bt(Am[:, :, None, :],        # [D, m, 1, n]
-                                   xm[:, :, :, None])        # [D, m, W, 1]
-            return f.sum(prod, axis=1)                # [D, W, n]
-        acc = None
-        for s in range(0, m, block):
-            prod = self.ntt_mul_bt(Am[:, s:s + block, None, :],
-                                   xm[:, s:s + block, :, None])
-            w = f.widen(prod).sum(dim=1)              # [D, W, n, words]
-            acc = w if acc is None else acc + w
-        return f.reduce_words(acc)
+        if not self.uses_slot_kernel(At.device):
+            return ext_matvec(f, self.ntt_mul_bt, At, xt, block)
+        N, E = self.ring.N, self.ring.E
+        D, n, m = At.shape
+        W = xt.shape[1]
+        with trace_span("model.slot_product"):
+            out = slot_matvec(At.contiguous().view(N, E, n, m),
+                              xt.contiguous().view(N, E, W, m),
+                              self._tables)
+        return out.view(D, W, n)
 
     def mul_t(self, at, bt, c=None):
         """Transposed coefficient-form product: icrt(crt(a) *slot crt(b))."""

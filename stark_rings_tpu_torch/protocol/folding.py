@@ -21,9 +21,11 @@ On the card each ICRT and CRT is one ``torch._int_mm`` and one fold
 kernel: K3 (``fold_end``) for goldilocks, K4's ``bb_fold_end`` for
 babybear, S3 (``limb_fold``) for stark_prime; frog folds in torch ops.
 A step runs one ICRT and one CRT; the challenge's precompute one more
-CRT.  Every other stage is torch ops on the ring's device, and over
-stark_prime every field product, add and subtract is kernel S1 or S2
-(its limb axis trails every tensor: [D, W, L, 8]).
+CRT.  Over goldilocks the challenge's two slot products and the commit
+are the kernels of ``ops/slot.py`` on the card (two ``slot_mul``, one
+``slot_matvec``).  Every other stage is torch ops on the ring's device,
+and over stark_prime every field product, add and subtract is kernel S1
+or S2 (its limb axis trails every tensor: [D, W, L, 8]).
 """
 
 from __future__ import annotations
@@ -138,10 +140,10 @@ class FoldingStep:
     #: commit blocks its contraction: 2^27 words, 1 GiB of int64.  A u64
     #: field product keeps several such tensors live: the bench shape
     #: (goldilocks n = 8, M = 8,192, W = 16: 75,497,472 words) stays on
-    #: the unblocked path, as the reference keeps it, and its step
-    #: allocates 5.76 GB above its inputs on the H100's 80 GB
-    #: (``chip_smoke.py`` phase 42); babybear's E = 9 blocks there and
-    #: allocates the same.
+    #: the unblocked path, as the reference keeps it; babybear's E = 9
+    #: blocks there.  On the card the goldilocks commit is one
+    #: ``slot_matvec`` launch (``ops/slot.py``), which builds no such
+    #: tensor and ignores the block.
     _COMMIT_BUDGET_WORDS = 1 << 27
 
     def commit_block(self, W: int) -> int:

@@ -47,6 +47,7 @@ from stark_rings_tpu_torch.native.host import negacyclic_mul_schoolbook_q
 from stark_rings_tpu_torch.ops import _build
 from stark_rings_tpu_torch.ops import fold as K
 from stark_rings_tpu_torch.ops import fold_bb as KB
+from stark_rings_tpu_torch.ops import slot as SL
 from stark_rings_tpu_torch.rings import Transcript
 
 pytestmark = pytest.mark.cuda
@@ -411,7 +412,7 @@ def test_mle_kernels_back_to_back_and_on_two_streams(dev):
     for ev, fx in runs:
         assert all(torch.equal(a, b) for a, b in zip(ev, ev_want))
         assert all(torch.equal(a, b) for a, b in zip(fx, fx_want))
-    keys = {key for key in FX._WORK if key[0] == dev.index}
+    keys = {key for key in _build.WORK if key[0] == dev.index}
     assert {s.cuda_stream for s in streams} <= {key[1] for key in keys}
 
 
@@ -1260,6 +1261,137 @@ def test_model_mul_on_card(dev, name, B):
         assert torch.equal(full.cpu(), tc.matvec_t(A.cpu(), x.cpu()))
 
 
+# -- the Goldilocks slot-product kernels (ops/slot.py) ------------------
+
+
+def _gl_tables():
+    """The Goldilocks ring's slot tables, on the CPU (the kernels read
+    only their nr)."""
+    from stark_rings_tpu_torch.rings import get_ring
+
+    return SL.ext_tables(get_ring("goldilocks", device="cpu"))
+
+
+def _slot_words(rng, shape, dev, fill=None):
+    x = (np.full(shape, fill, dtype=np.uint64) if fill is not None
+         else rng.integers(0, Q, shape, dtype=np.uint64))
+    return to_torch(x, dev)
+
+
+@pytest.mark.parametrize("Ba,Bb", [(65536, 65536), (16 * 1024, 1), (128, 1),
+                                   (13, 13), (13, 1), (1, 1)])
+@pytest.mark.parametrize("fill", [None, Q - 1], ids=["random", "q-1"])
+def test_slot_mul_matches_twin(dev, Ba, Bb, fill):
+    """slot_mul at the main path's shapes (mul_t's B = 65,536, the fold
+    challenge's [8, 3, 16 x 1,024] and [8, 3, 128] against a batch-1
+    operand), ragged ones (V = 1), and at q - 1: one launch, the twin's
+    bits."""
+    t, rng = _gl_tables(), np.random.default_rng(Ba + Bb)
+    a = _slot_words(rng, (8, 3, Ba), dev, fill)
+    b = _slot_words(rng, (8, 3, Bb), dev, fill)
+    before = SL.LAUNCHES["slot_mul"]
+    got = SL.slot_mul(a, b, t)
+    torch.cuda.synchronize()
+    assert SL.LAUNCHES["slot_mul"] - before == 1
+    assert torch.equal(got.cpu(), SL.slot_mul_ref(a.cpu(), b.cpu(), t))
+
+
+def test_slot_mul_unaligned(dev):
+    """Operands 8 bytes off a 16-byte boundary take the one-word path."""
+    t, rng = _gl_tables(), np.random.default_rng(3)
+    buf = _slot_words(rng, (2, 8 * 3 * 64 + 1), dev)
+    a, b = (buf[i, 1:].view(8, 3, 64) for i in range(2))
+    assert a.data_ptr() % 16 == 8
+    got = SL.slot_mul(a, b, t)
+    assert torch.equal(got.cpu(), SL.slot_mul_ref(a.cpu(), b.cpu(), t))
+
+
+@pytest.mark.parametrize("n,W,m", [(8, 16, 8192), (8, 16, 1), (8, 16, 7),
+                                   (8, 16, 8193), (3, 1, 8192), (3, 2, 65536),
+                                   (9, 17, 300)])
+def test_slot_matvec_matches_twin(dev, n, W, m):
+    """slot_matvec at the commit's shape (n = 8, M = 8,192, W = 16), at
+    ragged M, n and W and at M = 65,536: one launch, the (blocked) twin's
+    bits, the same again on a second call (the tickets left at 0)."""
+    t, rng = _gl_tables(), np.random.default_rng(n + W + m)
+    A = _slot_words(rng, (8, 3, n, m), dev)
+    x = _slot_words(rng, (8, 3, W, m), dev)
+    before = SL.LAUNCHES["slot_matvec"]
+    got = SL.slot_matvec(A, x, t)
+    again = SL.slot_matvec(A, x, t)
+    torch.cuda.synchronize()
+    assert SL.LAUNCHES["slot_matvec"] - before == 2
+    want = SL.slot_matvec_ref(A.cpu(), x.cpu(), t, block=1024)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("one_chunk", [False, True], ids=["chunks", "one"])
+@pytest.mark.parametrize("m", [8192, 65536])
+def test_slot_matvec_q_minus_1(dev, m, one_chunk, monkeypatch):
+    """Every operand q - 1 (every product 1 - 2q + q^2, the high words
+    and carries at their largest): c = (m + 2m nr, 2m + m nr, 3m) mod q
+    in every slot and pair; with one chunk a thread adds 3 x 65,536
+    products into each 192-bit sum."""
+    if one_chunk:
+        monkeypatch.setattr(SL, "MV_BLOCKS", 1)
+    t = _gl_tables()
+    nr = t.nr
+    A = torch.full((8, 3, 8, m), Q - 1 - 2**64, dtype=torch.int64,
+                   device=dev)
+    x = torch.full((8, 3, 16, m), Q - 1 - 2**64, dtype=torch.int64,
+                   device=dev)
+    assert SL.matvec_plan(8, 8, 16, m).chunks > 1 or one_chunk
+    got = SL.slot_matvec(A, x, t).cpu().view(8, 3, 16, 8)
+    want = [(m + 2 * m * nr) % Q, (2 * m + m * nr) % Q, 3 * m % Q]
+    for k in range(3):
+        assert np.array_equal(got[:, k].numpy().view(np.uint64),
+                              np.full((8, 16, 8), want[k], dtype=np.uint64))
+
+
+def test_slot_launch_counts(dev, monkeypatch):
+    """A goldilocks FoldingStep.step is 2 slot_mul launches (the
+    challenge's two products) and 1 slot_matvec (the commit), a mul_t 1
+    slot_mul, a babybear mul_t none; no twin runs on the card; each
+    equals the CPU path."""
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    def refuse(*args, **kw):
+        raise AssertionError("a twin ran on the card")
+
+    twins = (SL.slot_mul_ref, SL.slot_matvec_ref)
+    for name in ("slot_mul_ref", "slot_matvec_ref"):
+        monkeypatch.setattr(SL, name, refuse)
+    ring, cpu = get_ring("goldilocks", device=dev), get_ring("goldilocks",
+                                                             device="cpu")
+    fs = FoldingStep(ring, n_rows=8, wit_len=64)
+    fc = FoldingStep(cpu, n_rows=8, wit_len=64)
+    c, ins = _step_inputs(fs, np.random.default_rng(9), W=16)
+    torch.cuda.synchronize()
+    before = dict(SL.LAUNCHES)
+    out = fs.step(c, *ins)
+    torch.cuda.synchronize()
+    assert {k: SL.LAUNCHES[k] - before[k] for k in before} == {
+        "slot_mul": 2, "slot_matvec": 1}
+    monkeypatch.setattr(SL, "slot_mul_ref", twins[0])
+    monkeypatch.setattr(SL, "slot_matvec_ref", twins[1])
+    want = fc.step({"Agt": c["Agt"].cpu()}, *(x.cpu() for x in ins))
+    for key, val in want.items():
+        assert torch.equal(out[key].cpu(), val), key
+    for name, launches in (("goldilocks", 1), ("babybear", 0)):
+        r = get_ring(name, device=dev)
+        tm = TModelMul(r)
+        rng = np.random.default_rng(1)
+        a, b = (r.field.rand((r.D, 4096), rng, dev) for _ in range(2))
+        before = dict(SL.LAUNCHES)
+        tm.mul_t(a, b)
+        torch.cuda.synchronize()
+        assert SL.LAUNCHES["slot_mul"] - before["slot_mul"] == launches
+        assert SL.LAUNCHES["slot_matvec"] == before["slot_matvec"]
+
+
 def _step_inputs(fs, rng, W):
     ring = fs.ring
     c = fs.init_tables(rng)
@@ -1588,8 +1720,8 @@ def test_goldilocks_fourstep_runs_on_kernels(dev, N, P):
 
 @pytest.fixture
 def no_twins(monkeypatch):
-    """Make the K5, K7 and model-fold twins fail if the card route calls
-    them."""
+    """Make the K5, K7, model-fold and slot-product twins fail if the
+    card route calls them."""
     from stark_rings_tpu_torch.ops import stark as ST
 
     def refuse(*args, **kw):
@@ -1597,7 +1729,8 @@ def no_twins(monkeypatch):
 
     for mod, name in ((FX, "evaluate_goldilocks_ref"),
                       (SK, "sumcheck_prove_many_ref"), (K, "fold_end_ref"),
-                      (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref")):
+                      (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref"),
+                      (SL, "slot_mul_ref"), (SL, "slot_matvec_ref")):
         monkeypatch.setattr(mod, name, refuse)
 
 
