@@ -35,9 +35,10 @@ SMALL = {        # traffic mix -> the keys a CPU run shrinks
                              "trace_calls": 2}},
     "mul-B80": {"config": {"log_n": 6},
                 "traffic": {"batch": 4, "trace_calls": 3}},
-    "mul_t-B65536": {"traffic": {"batch": 64, "trace_calls": 3}},
+    "mul_t-B262144": {"traffic": {"batch": 64, "trace_calls": 3}},
 }
-CONFIG_OF = {"fold-W16": "goldilocks-d24", "mul_t-B65536": "goldilocks-d24",
+CONFIG_OF = {"fold-W16": "goldilocks-d24",
+             "mul_t-B262144": "goldilocks-d24",
              "mul-B80": "goldilocks-pow2-16"}
 SEED = 2**31 + 11
 
@@ -148,8 +149,8 @@ TARGETS = {
                  "step", _break_step),
     "mul-B80": ("stark_rings_tpu_torch.ops.fold", "Mxu2KernelNTT", "mul",
                 _break_mul),
-    "mul_t-B65536": ("stark_rings_tpu_torch.ops.model_mul", "TModelMul",
-                     "mul_t", _break_mul),
+    "mul_t-B262144": ("stark_rings_tpu_torch.ops.model_mul", "TModelMul",
+                      "mul_t", _break_mul),
 }
 CONSTANT_BITS = {"l2_true": ("ok_l2", True), "l2_false": ("ok_l2", False),
                  "psi_true": ("ok_psi", True),
@@ -188,13 +189,14 @@ def test_fold_mix_splits_both_checks_at_the_cells_size():
     """At the cell's own sizes, the witnesses as dealt (call 2j + 1's
     folded ``s``) and with one challenge's product folded in (call
     2j's) fall into all four L2 x psi outcomes, four witnesses each,
-    the same witnesses both times."""
+    the same witnesses both times.  Witness by witness, so that the
+    digits of one witness at a time are held."""
     from collections import Counter
 
     from portbench.reference.cyclotomic24 import D, Cyclotomic24
 
     e = harness.load_module(harness.BENCH / "entries" / "folding_step.py")
-    c = harness.cell("gl24-fold-W16")
+    c = harness.cell("gl24-L16384-fold-W16")
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(SEED)
     W, L = c.traffic["batch"], c.config["wit_len"]
@@ -203,13 +205,16 @@ def test_fold_mix_splits_both_checks_at_the_cells_size():
     s1 = e._words(e._uniform(gen, -1, 1, (D, W, L), cpu))
     r = e.challenges(gen, 1, cpu)[0, 0]
     ring = Cyclotomic24(cpu)
-    folded = gl.add(s0, ring.coeff_mul(r[:, None, None].expand(D, W, L),
-                                       s1))
-    seen = []
-    for coeff in (s0, folded):
-        _, signed = ring.decompose(coeff, c.config["base"], c.config["k"])
-        seen.append(list(zip(ring.l2_ok(signed, c.config["l2_bound_sq"])
-                             .tolist(), ring.psi_ok(signed).tolist())))
+    seen = ([], [])
+    for w in range(W):
+        dealt = s0[:, w:w + 1]
+        folded = gl.add(dealt, ring.coeff_mul(
+            r[:, None, None].expand(D, 1, L), s1[:, w:w + 1]))
+        for got, coeff in zip(seen, (dealt, folded)):
+            _, signed = ring.decompose(coeff, c.config["base"],
+                                       c.config["k"])
+            got.append((bool(ring.l2_ok(signed, c.config["l2_bound_sq"])),
+                        bool(ring.psi_ok(signed))))
     assert seen[0] == seen[1]
     assert sorted(Counter(seen[0]).items()) == [
         ((a, b), 4) for a in (False, True) for b in (False, True)]

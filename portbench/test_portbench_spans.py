@@ -126,13 +126,13 @@ def test_program_span_names(name, want):
 
 DIGITS = {"digits.planes", "digits.offsets"}
 CELLS = {   # traffic -> cell, the spans of one call
-    "fold-W16": ("gl24-fold-W16", DIGITS | {
+    "fold-W16": ("gl24-L16384-fold-W16", DIGITS | {
         "fold.precompute", "fold.step", "fold.challenge", "fold.decompose",
         "fold.l2", "fold.commit", "fold.psi", "model.crt", "model.icrt",
         "model.slot_product"}),
     "mul-B80": ("gl-pow16-mul-B80", DIGITS | {
         "mxu.mul", "mxu.forward", "mxu.pointwise", "mxu.inverse"}),
-    "mul_t-B65536": ("gl24-mul_t-B65536", DIGITS | {
+    "mul_t-B262144": ("gl24-mul_t-B262144", DIGITS | {
         "model.mul_t", "model.crt", "model.icrt", "model.slot_product"}),
 }
 
@@ -159,5 +159,6 @@ def test_without_a_card_the_command_exits(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     t0 = time.perf_counter()
-    assert spans.main(["--workload", "gl24-fold-W16", "--seed", "1"]) == 2
+    assert spans.main(["--workload", "gl24-L16384-fold-W16",
+                       "--seed", "1"]) == 2
     assert time.perf_counter() - t0 < 5
