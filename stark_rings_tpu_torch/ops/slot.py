@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..fields.field import GOLDILOCKS, Goldilocks
+from ..utils.trace import trace_span
 from . import _build
 
 __all__ = ["ExtTables", "ext_tables", "ext_mul", "ext_matvec",
@@ -111,7 +112,9 @@ def ext_matvec(f, mul_bt, At, xt, block: int | None = None):
     [D, block, W, n] slot products are live at a time, each block is
     widened to base-2^32 words and summed with integer adds (exact:
     words below 2^32, far fewer than 2^32 addends), and one fold mod q
-    ends it.  Bit-equal to the unblocked path."""
+    ends it.  Bit-equal to the unblocked path.  Each block's widen and
+    sum, and the fold, lie in a ``model.commit_acc`` span, beside the
+    products' ``model.slot_product``."""
     m = At.shape[2]
     Am = At.transpose(1, 2)                       # [D, m, n(, L)]
     xm = xt.transpose(1, 2)                       # [D, m, W(, L)]
@@ -123,9 +126,11 @@ def ext_matvec(f, mul_bt, At, xt, block: int | None = None):
     for s in range(0, m, block):
         prod = mul_bt(Am[:, s:s + block, None, :],
                       xm[:, s:s + block, :, None])
-        w = f.widen(prod).sum(dim=1)              # [D, W, n, words]
-        acc = w if acc is None else acc + w
-    return f.reduce_words(acc)
+        with trace_span("model.commit_acc"):
+            w = f.widen(prod).sum(dim=1)          # [D, W, n, words]
+            acc = w if acc is None else acc + w
+    with trace_span("model.commit_acc"):
+        return f.reduce_words(acc)
 
 
 def slot_kernel_applies(field, E: int, perm) -> bool:

@@ -31,7 +31,9 @@ event under it belongs to that one call):
 * the folding step's stages: ``fold.challenge``, ``fold.decompose``,
   ``fold.l2``, ``fold.commit``, ``fold.psi``;
 * the model multiply's field arithmetic: ``model.crt``, ``model.icrt``,
-  ``model.slot_product``;
+  ``model.slot_product``, and ``model.commit_acc``, the blocked
+  commit's accumulation (``ops/slot.py`` ``ext_matvec``: each block's
+  widened sum and the final fold mod q);
 * the engine's transforms: ``mxu.forward``, ``mxu.pointwise``,
   ``mxu.inverse``;
 * the digit GEMM's torch work: ``digits.planes``, ``digits.offsets``.

@@ -182,3 +182,25 @@ def test_fused_engine_mul_has_its_call_span():
     assert torch.equal(out, Mxu2NTT(1 << 10, device="cpu").mul(a, b))
     assert _children(events, _one(events, "mxu.mul")) == [
         "digits.planes", "digits.offsets"] * 6
+
+
+def test_blocked_commit_spans(monkeypatch):
+    """A blocked commit (babybear, E = 9, M = 12 in blocks of 5): each
+    block's products under ``model.slot_product`` and its widened sum
+    under ``model.commit_acc``, then the fold mod q under one more
+    ``model.commit_acc``; the same words as the unblocked commit."""
+    ring = get_ring("babybear", device="cpu")
+    fs = FoldingStep(ring, n_rows=2, wit_len=3, psi_check=True)
+    rng = np.random.default_rng(3)
+    c = fs.init_tables(rng)
+    s0, s1, c0, c1 = (fs.rand_witness(2, rng) for _ in range(4))
+    rt = fs.precompute_challenge(ring.rand_coeff((), rng))
+    whole = fs.step(c, s0, s1, c0[:, :, :2], c1[:, :, :2], rt)
+    monkeypatch.setattr(FoldingStep, "_COMMIT_BUDGET_WORDS",
+                        ring.D * ring.E * 2 * 2 * 5)
+    assert (fs.M, fs.commit_block(2)) == (12, 5)
+    out, events = _traced(lambda: fs.step(c, s0, s1, c0[:, :, :2],
+                                          c1[:, :, :2], rt))
+    assert torch.equal(out["cd"], whole["cd"])
+    assert _children(events, _one(events, "fold.commit")) == [
+        "model.slot_product", "model.commit_acc"] * 3 + ["model.commit_acc"]
