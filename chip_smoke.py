@@ -440,6 +440,26 @@ The entry slice (``slice_entry``, the entry points of
  70. jit capture: a function that synchronises under capture raises on
      its first CUDA call and returns no eager result (a child process).
 
+The BabyBear slot kernels (phases 71-72, ``slice_slot_bb``,
+``csrc/slot_bb.cu``): the E = 9 slot product and the Ajtai commit's
+contraction of the D = 72 model at the BabyBear fold's shapes (n = 8,
+L = 16,384, base 256, W = 16):
+
+ 71. slot parity and launches: ``bb_slot_mul`` at the challenge's [8, 9,
+     16 x 16,384] and [8, 9, 16 x 8] by [8, 9, 1] and at a mul_t's
+     [8, 9, 16,384]^2, ``bb_slot_matvec`` at the commit's [8, 9, 8,
+     65,536] x [8, 9, 16, 65,536], on random words, 0 and q - 1, against
+     their twins on the card (the commit's blocked at the step's block);
+     one step at that shape and one mul_t counted, the counters set to 0
+     just before each: 2 ``bb_slot_mul`` and 1 ``bb_slot_matvec`` a step,
+     1 ``bb_slot_mul`` a mul_t, no Goldilocks slot launch; the kernels'
+     records hold the step's counts;
+ 72. slot timings: each kernel against its twin and its bound (bytes at
+     the memory rate; for the commit also the issue rate over its inner
+     loop's SASS instructions an extension product, which raises where
+     the SASS cannot be read), device-only warm
+     and after an L2 flush, and the step's device time.
+
 Every check raises on failure, so the exit code is non-zero.  The next
 to last line is the kernels' JSON record: per kernel its launches on the
 main path, its largest error against its twin, its time and its twin's,
@@ -595,6 +615,17 @@ SLOT_MATVEC_REC = "slot_matvec[folding step commit]"
 SLOT_XLA = {  # record -> the reference's XLA code the kernel computes
     SLOT_MUL_REC: "stark_rings_tpu/ops/model_mul.py:158",     # ntt_mul_bt
     SLOT_MATVEC_REC: "stark_rings_tpu/ops/model_mul.py:183",  # matvec_t
+}
+# the BabyBear fold (portbench's bb72-L16384-fold-W16): n, L, base, W; a
+# model multiply's batch (bench.py:614-617)
+BB_SLOT_STEP = (8, 16384, 256, 16)
+BB_SLOT_MODEL_B = 16384
+BB_SLOT_SOURCE = "stark_rings_tpu_torch/csrc/slot_bb.cu"
+BB_SLOT_MUL_REC = "bb_slot_mul[folding step challenge babybear]"
+BB_SLOT_MATVEC_REC = "bb_slot_matvec[folding step commit babybear]"
+BB_SLOT_XLA = {  # record -> the reference's XLA code the kernel computes
+    BB_SLOT_MUL_REC: "stark_rings_tpu/ops/model_mul.py:158",     # ntt_mul_bt
+    BB_SLOT_MATVEC_REC: "stark_rings_tpu/ops/model_mul.py:183",  # matvec_t
 }
 PROTO_KERNELS = {  # record -> (source, reference kernel file:line, model)
     "fold_end[folding step goldilocks]": (
@@ -3058,7 +3089,7 @@ def slice_models(dev, smi, rng) -> list:
     moved = nbytes(fa, fb, SL.slot_mul(fa, fb, gtab))
     ms = time_ms(lambda: SL.slot_mul(fa, fb, gtab), inner=10)
     plain_ms = time_ms(lambda: SL.slot_mul_ref(fa, fb, gtab))
-    per = sass_instructions(r"slot_mul_kernelILi2ELb0E")
+    per = sass_instructions(r"(?<![A-Za-z_])slot_mul_kernelILi2ELb0E")
     threads = Ng * Bg // 2                        # two products a thread
     slot_ops_ms = threads * per / issue_rate(dev)[0] * 1e3
     times[SLOT_MUL_REC] = (ms, plain_ms, moved, slot_ops_ms)
@@ -5030,13 +5061,156 @@ def modmul_peak(dev) -> tuple:
     return rate / per, per, mix, sms, mhz
 
 
+def bb_slot_matvec_sass() -> tuple:
+    """As :func:`slot_matvec_sass` for ``bb_slot_matvec_kernel``: 18 LDS
+    an extension product (a slot of A and of x, nine words each).
+    Returns (instructions a product, the loop's opcode counts)."""
+    mix = sass_loop(r"bb_slot_matvec_kernel",
+                    lambda m: "LDS" in m and "STS" not in m
+                    and "BAR" not in m)
+    if mix["LDS"] % 18:
+        raise RuntimeError(f"bb_slot_matvec_kernel's loop: {mix['LDS']} LDS "
+                           "is no whole number of products")
+    return sum(mix.values()) / (mix["LDS"] // 18), mix
+
+
+def slice_slot_bb(dev, smi, rng) -> list:
+    """Phases 71-72: the BabyBear E = 9 slot kernels ``bb_slot_mul`` and
+    ``bb_slot_matvec`` (``csrc/slot_bb.cu``) at the BabyBear fold's
+    shapes against their twins on the card, their launches on the step
+    and on a mul_t, and their times against their bounds.  Returns the
+    kernels' JSON records."""
+    import numpy as np
+    import torch
+
+    from stark_rings_tpu_torch import BABYBEAR, to_torch_u32
+    from stark_rings_tpu_torch.ops import slot as SL, slot_bb as SB
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    q = BABYBEAR.q
+    n_rows, L, base, W = BB_SLOT_STEP
+    t0 = time.perf_counter()
+    ring = get_ring("babybear", device=dev)
+    tab = SL.ext_tables(ring)
+    fs = FoldingStep(ring, n_rows, L, base)
+    block = fs.commit_block(W)
+    c = fs.init_tables(rng)
+    ins = (fs.rand_witness(W, rng), fs.rand_witness(W, rng),
+           *(fs.tm.to_t(ring.rand_ntt((W, n_rows), rng)).contiguous()
+             for _ in range(2)),
+           fs.precompute_challenge(ring.rand_coeff((), rng)))
+    N, M = ring.N, fs.M
+
+    def words(shape_, fill=None):
+        x = (np.full(shape_, fill, dtype=np.uint32) if fill is not None
+             else rng.integers(0, q, shape_, dtype=np.uint32))
+        return to_torch_u32(x, dev)
+
+    torch.cuda.synchronize()
+    phase("bb slot tables", f"babybear step n={n_rows}, L={L}, base {base}: "
+          f"k={fs.k}, M={M}, the torch-op commit's block at W={W} {block}; "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+
+    # -- 71. parity and launches --------------------------------------------
+    max_err = {}
+    t0 = time.perf_counter()
+    for what, fill in (("random", None), ("0", 0), ("q - 1", q - 1)):
+        for Ba, Bb in ((W * L, 1), (W * n_rows, 1),
+                       (BB_SLOT_MODEL_B, BB_SLOT_MODEL_B)):
+            a, b = words((N, 9, Ba), fill), words((N, 9, Bb), fill)
+            check(max_err, BB_SLOT_MUL_REC, SB.bb_slot_mul(a, b, tab),
+                  SB.bb_slot_mul_ref(a, b, tab), f"{shape(a, b)} {what}")
+        if fill == 0:
+            continue
+        A, x = words((N, 9, n_rows, M), fill), words((N, 9, W, M), fill)
+        check(max_err, BB_SLOT_MATVEC_REC, SB.bb_slot_matvec(A, x, tab),
+              SB.bb_slot_matvec_ref(A, x, tab, block),
+              f"{shape(A, x)} {what}")
+    torch.cuda.synchronize()
+    phase("bb slot parity", f"bb_slot_mul at [{N}, 9, {W * L}] and [{N}, 9, "
+          f"{W * n_rows}] x [{N}, 9, 1] and [{N}, 9, {BB_SLOT_MODEL_B}]^2, "
+          f"bb_slot_matvec at n={n_rows}, M={M}, W={W}: bit-equal to their "
+          f"twins (the mat-vec's blocked at {block}) on random words, 0 and "
+          f"q - 1 ({time.perf_counter() - t0:.1f} s)")
+
+    def counts():
+        return {**SB.LAUNCHES, **SL.LAUNCHES}
+
+    tm = TModelMul(ring)
+    at, bt = (ring.field.rand((ring.D, BB_SLOT_MODEL_B), rng, dev)
+              for _ in range(2))
+    per_run = {}
+    for name, fn in (("step", lambda: fs.step(c, *ins)),
+                     ("mul_t", lambda: tm.mul_t(at, bt))):
+        torch.cuda.synchronize()
+        SB.reset_launches()
+        SL.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per_run[name] = counts()
+    none = {"bb_slot_mul": 0, "bb_slot_matvec": 0, "slot_mul": 0,
+            "slot_matvec": 0}
+    expect = {"step": {**none, "bb_slot_mul": 2, "bb_slot_matvec": 1},
+              "mul_t": {**none, "bb_slot_mul": 1}}
+    if per_run != expect:
+        raise AssertionError(f"bb slot launches {per_run}, expected "
+                             f"{expect}")
+    launches = {k: per_run["step"][k] for k in SB.LAUNCHES}
+    phase("bb slot launches", f"{per_run}; recorded, a step's: {launches}")
+
+    # -- 72. timings ----------------------------------------------------------
+    flush = torch.empty(100 << 20, dtype=torch.uint8, device=dev)  # 2 x L2
+    times = {}
+    a, b = words((N, 9, W * L)), words((N, 9, 1))
+    moved = nbytes(a, b, SB.bb_slot_mul(a, b, tab))
+    ms = time_ms(lambda: SB.bb_slot_mul(a, b, tab), inner=10)
+    plain_ms = time_ms(lambda: SB.bb_slot_mul_ref(a, b, tab))
+    floor = moved / HBM_BYTES_PER_S * 1e3
+    times[BB_SLOT_MUL_REC] = (ms, plain_ms, moved)
+    phase("bb slot time", f"bb_slot_mul {shape(a, b)} (the challenge): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, memory floor "
+          f"{floor:.4f} ms ({moved} B; {floor / ms:.0%} of it); "
+          + device_only(lambda: SB.bb_slot_mul(a, b, tab), dev, floor, flush)
+          + f"  ({smi})")
+    A = c["Agt"].view(N, 9, n_rows, M)
+    x = fs.tm.crt_t(fs.step(c, *ins)["digits"]).contiguous().view(N, 9, W, M)
+    moved = nbytes(A, x, SB.bb_slot_matvec(A, x, tab))
+    ms = time_ms(lambda: SB.bb_slot_matvec(A, x, tab), inner=5)
+    plain_ms = time_ms(lambda: SB.bb_slot_matvec_ref(A, x, tab, block),
+                       reps=2)
+    products = N * n_rows * W * M
+    per, mix = bb_slot_matvec_sass()
+    ops_ms = products * per / issue_rate(dev)[0] * 1e3
+    ops = (f"{products} extension products x {per:.2f} SASS instructions "
+           f"(its inner loop, {mix}) at the issue rate {ops_ms:.4f} ms")
+    times[BB_SLOT_MATVEC_REC] = (ms, plain_ms, moved, ops_ms)
+    floor = max(moved / HBM_BYTES_PER_S * 1e3, ops_ms)
+    phase("bb slot time", f"bb_slot_matvec {shape(A, x)} (the commit): "
+          f"kernel {ms:.4f} ms, plain (blocked at {block}) {plain_ms:.4f} "
+          f"ms; {moved} B, {81 * products} products of 32-bit words; "
+          f"{ops}; bound {floor:.4f} ms ({floor / ms:.0%} of it); "
+          + device_only(lambda: SB.bb_slot_matvec(A, x, tab), dev, floor,
+                        flush) + f"  ({smi})")
+    ms = time_ms(lambda: fs.step(c, *ins))
+    busy_ms, wall_ms, top = device_profile(lambda: fs.step(c, *ins), 3, dev,
+                                           6)
+    phase("bb slot time", f"babybear step W={W}, L={L}: {ms:.4f} ms = "
+          f"{W * 1e3 / ms:.1f} witnesses/s; device busy {busy_ms:.4f} ms of "
+          f"{wall_ms:.4f} ms wall (profiled); per step: {top}  ({smi})")
+    return [record(name, BB_SLOT_SOURCE, BB_SLOT_XLA[name],
+                   launches[name.split("[")[0]], max_err[name], *times[name])
+            for name in (BB_SLOT_MUL_REC, BB_SLOT_MATVEC_REC)]
+
+
 def slot_matvec_sass() -> tuple:
     """The SASS instructions ``slot_matvec_kernel`` issues a thread for
     one extension product: its inner loop (the one that reads shared
     memory, LDS, and writes none and waits at no barrier) over the
     products a trip, 6 LDS each (a slot of A and of x).  Returns
     (instructions a product, the loop's opcode counts)."""
-    mix = sass_loop(r"slot_matvec_kernel",
+    mix = sass_loop(r"(?<![A-Za-z_])slot_matvec_kernel",  # not bb_slot_...
                     lambda m: "LDS" in m and "STS" not in m
                     and "BAR" not in m)
     if mix["LDS"] % 6:
@@ -5323,7 +5497,9 @@ def main() -> None:
                       ("slice_parallel", lambda: slice_parallel(
                           dev, smi, rng, linalg)),
                       ("slice_entry", lambda: slice_entry(dev, smi, rng)),
-                      ("slice_jit", lambda: slice_jit(dev, smi, rng, gl))):
+                      ("slice_jit", lambda: slice_jit(dev, smi, rng, gl)),
+                      ("slice_slot_bb", lambda: slice_slot_bb(dev, smi,
+                                                              rng))):
         t0 = time.perf_counter()
         records += run()
         seconds[name] = time.perf_counter() - t0

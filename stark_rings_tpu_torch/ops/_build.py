@@ -136,6 +136,10 @@ def kernels() -> ctypes.CDLL:
     lib.srt_slot_mul.argtypes = [p, p, p, i64, i64, i32, i32, u64, p]
     lib.srt_slot_matvec.argtypes = [p, p, p, i64, i32, i32, i64, i64, i64,
                                     i32, i32, u64, p, p, p]
+    u32 = ctypes.c_uint32
+    lib.srt_bb_slot_mul.argtypes = [p, p, p, i64, i64, i32, i32, u32, p]
+    lib.srt_bb_slot_matvec.argtypes = [p, p, p, i64, i32, i32, i64, i64,
+                                       i64, i32, i32, u32, p, p, p]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_pointwise_chain,
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
@@ -143,7 +147,8 @@ def kernels() -> ctypes.CDLL:
                lib.srt_bb_fold_end2_mul, lib.srt_bb_fold_end,
                lib.srt_mle_eval, lib.srt_mle_fix, *sumcheck,
                *exchange, *stark, lib.srt_limb_fold, lib.srt_slot_mul,
-               lib.srt_slot_matvec):
+               lib.srt_slot_matvec, lib.srt_bb_slot_mul,
+               lib.srt_bb_slot_matvec):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p

@@ -20,8 +20,9 @@ stark_prime's limb axis trails ([D, *batch, 8]), and its slot product
 (E = 1) is the field's Montgomery product, kernel S1 on the card.  The
 Goldilocks model's slot products (E = 3) are the kernels of
 ``ops/slot.py`` on the card: one ``slot_mul`` a product, one
-``slot_matvec`` a ``matvec_t``; the other models' run in torch ops
-(``slot.ext_mul``).
+``slot_matvec`` a ``matvec_t``; the BabyBear model's (E = 9) those of
+``ops/slot_bb.py``, ``bb_slot_mul`` and ``bb_slot_matvec``; the other
+models' run in torch ops (``slot.ext_mul``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..utils.trace import trace_span
 from .mxu_dense import apply_cols
 from .slot import (ext_matvec, ext_mul, ext_tables, slot_kernel_applies,
                    slot_matvec, slot_mul)
+from .slot_bb import bb_slot_kernel_applies, bb_slot_matvec, bb_slot_mul
 
 __all__ = ["TModelMul"]
 
@@ -60,17 +62,24 @@ class TModelMul:
         self.ring = ring
         self.f = ring.field
         self._crt, self._icrt = ring._dense_crt
-        self._gl3 = False
+        self._gl3 = self._bb9 = False
         if ring.E > 1:
             self._tables = ext_tables(ring)
-            self._gl3 = slot_kernel_applies(self.f, ring.E,
-                                            self._tables.perm.tolist())
+            perm = self._tables.perm.tolist()
+            self._gl3 = slot_kernel_applies(self.f, ring.E, perm)
+            self._bb9 = bb_slot_kernel_applies(self.f, ring.E, perm)
 
     def uses_slot_kernel(self, device) -> bool:
         """Whether slot products on ``device`` run on the kernels of
         :mod:`.slot` (Goldilocks, E = 3, identity storage permutation,
         a CUDA device); every other case runs :func:`.slot.ext_mul`."""
         return self._gl3 and torch.device(device).type == "cuda"
+
+    def uses_bb_slot_kernel(self, device) -> bool:
+        """Whether slot products on ``device`` run on the kernels of
+        :mod:`.slot_bb` (BabyBear, E = 9, storage order ``[0, 3, 6, 1, 4,
+        7, 2, 5, 8]``, a CUDA device)."""
+        return self._bb9 and torch.device(device).type == "cuda"
 
     # -- layout ----------------------------------------------------------
     def to_t(self, x):
@@ -113,11 +122,14 @@ class TModelMul:
         with trace_span("model.slot_product"):
             if self.uses_slot_kernel(a.device):
                 return self._slot_mul(a, b)
+            if self.uses_bb_slot_kernel(a.device):
+                return self._slot_mul(a, b, bb_slot_mul)
             return ext_mul(self.f, self._tables, a, b)
 
-    def _slot_mul(self, a, b):
-        """:func:`.slot.slot_mul` on a [N, 3, *ba] and b [N, 3, *bb]: the
-        operand whose batch is the broadcast batch first, the other's
+    def _slot_mul(self, a, b, kernel=slot_mul):
+        """``kernel`` (:func:`.slot.slot_mul`, or
+        :func:`.slot_bb.bb_slot_mul`) on a [N, E, *ba] and b [N, E, *bb]:
+        the operand whose batch is the broadcast batch first, the other's
         batch that one or 1 (the product commutes); other broadcasts are
         expanded first."""
         N, E = a.shape[:2]
@@ -128,9 +140,9 @@ class TModelMul:
         if math.prod(a.shape[2:]) != full or \
                 math.prod(b.shape[2:]) not in (full, 1):
             a, b = (t.expand((N, E) + batch) for t in (a, b))
-        out = slot_mul(a.contiguous().view(N, E, full),
-                       b.contiguous().view(N, E, math.prod(b.shape[2:])),
-                       self._tables)
+        out = kernel(a.contiguous().view(N, E, full),
+                     b.contiguous().view(N, E, math.prod(b.shape[2:])),
+                     self._tables)
         return out.view((N * E,) + batch)
 
     def ntt_mul_t(self, at, bt):
@@ -164,21 +176,25 @@ class TModelMul:
 
         ``block``: contraction-blocked exact accumulation (see
         :func:`.slot.ext_matvec`), bit-equal to the unblocked path.  Where
-        :meth:`uses_slot_kernel`, the contraction is one
-        :func:`.slot.slot_matvec` launch, exact at every ``block``, which
-        it therefore ignores."""
+        :meth:`uses_slot_kernel` (:meth:`uses_bb_slot_kernel`), the
+        contraction is one :func:`.slot.slot_matvec`
+        (:func:`.slot_bb.bb_slot_matvec`) launch, exact at every
+        ``block``, which it therefore ignores."""
         f = self.f
         if xt.dim() == 2 + len(f.limb_shape):
             return self.matvec_t(At, xt[:, None], block=block)[:, 0]
-        if not self.uses_slot_kernel(At.device):
+        if self.uses_slot_kernel(At.device):
+            kernel = slot_matvec
+        elif self.uses_bb_slot_kernel(At.device):
+            kernel = bb_slot_matvec
+        else:
             return ext_matvec(f, self.ntt_mul_bt, At, xt, block)
         N, E = self.ring.N, self.ring.E
         D, n, m = At.shape
         W = xt.shape[1]
         with trace_span("model.slot_product"):
-            out = slot_matvec(At.contiguous().view(N, E, n, m),
-                              xt.contiguous().view(N, E, W, m),
-                              self._tables)
+            out = kernel(At.contiguous().view(N, E, n, m),
+                         xt.contiguous().view(N, E, W, m), self._tables)
         return out.view(D, W, n)
 
     def mul_t(self, at, bt, c=None):

@@ -41,8 +41,8 @@ from . import _build
 
 __all__ = ["ExtTables", "ext_tables", "ext_mul", "ext_matvec",
            "slot_kernel_applies", "slot_mul", "slot_matvec", "slot_mul_ref",
-           "slot_matvec_ref", "matvec_plan", "MatvecPlan", "LAUNCHES",
-           "reset_launches"]
+           "slot_matvec_ref", "slot_matvec_twin", "matvec_plan", "MatvecPlan",
+           "LAUNCHES", "reset_launches"]
 
 LAUNCHES = {"slot_mul": 0, "slot_matvec": 0}
 
@@ -52,7 +52,8 @@ MV_TILE_N, MV_TILE_W = 8, 16
 MV_THREADS = MV_TILE_N * MV_TILE_W
 MV_STEP = 32              # j's a block stages at a time
 MV_BLOCKS = 4 * 132       # blocks a launch aims at: four an SM of an H100
-MV_MAX_CHUNK = 1 << 28    # j's a block: its 192-bit sums' top word < 2^32
+MV_MAX_CHUNK = 1 << 28    # j's a block: Goldilocks' 192-bit sums' top word
+                          # < 2^32, BabyBear's 2^28 x 9 q^2 + q^2 < 2^94
 _GRID_YZ = 65535
 
 
@@ -151,18 +152,25 @@ def slot_mul_ref(a, b, t: ExtTables):
     return ext_mul(GOLDILOCKS, t, a, b)
 
 
-def slot_matvec_ref(A, x, t: ExtTables, block: int | None = None):
-    """Plain twin of :func:`slot_matvec`: :func:`ext_matvec` over
-    Goldilocks (``block`` as there)."""
-    N, _, n, m = A.shape
+def slot_matvec_twin(f, A, x, t: ExtTables, block: int | None = None):
+    """:func:`ext_matvec` over field ``f`` on a slot mat-vec's operands A
+    [N, E, n, m] and x [N, E, W, m] -> [N*E, W, n] (``block`` as
+    there): the plain twin of a field's mat-vec kernel."""
+    N, E, n, m = A.shape
     W = x.shape[2]
 
     def mul_bt(at, bt):
-        return ext_mul(GOLDILOCKS, t, at.reshape((N, E3) + at.shape[1:]),
-                       bt.reshape((N, E3) + bt.shape[1:]))
+        return ext_mul(f, t, at.reshape((N, E) + at.shape[1:]),
+                       bt.reshape((N, E) + bt.shape[1:]))
 
-    return ext_matvec(GOLDILOCKS, mul_bt, A.reshape(N * E3, n, m),
-                      x.reshape(N * E3, W, m), block)
+    return ext_matvec(f, mul_bt, A.reshape(N * E, n, m),
+                      x.reshape(N * E, W, m), block)
+
+
+def slot_matvec_ref(A, x, t: ExtTables, block: int | None = None):
+    """Plain twin of :func:`slot_matvec`: :func:`ext_matvec` over
+    Goldilocks (``block`` as there)."""
+    return slot_matvec_twin(GOLDILOCKS, A, x, t, block)
 
 
 # ---------------------------------------------------------------------------
@@ -171,11 +179,12 @@ def slot_matvec_ref(A, x, t: ExtTables, block: int | None = None):
 
 
 class MatvecPlan(NamedTuple):
-    """One ``slot_matvec_kernel`` launch: grid (chunks, tiles, N); tile
-    t covers i in [8 (t mod tiles_n), +8) and w in [16 (t // tiles_n),
+    """One launch of a slot mat-vec kernel (``slot_matvec_kernel``, or
+    ``slot_bb.cu``'s ``bb_slot_matvec_kernel``): grid (chunks, tiles, N);
+    tile t covers i in [8 (t mod tiles_n), +8) and w in [16 (t // tiles_n),
     +16); chunk c covers j in [c * chunk, (c + 1) * chunk) (a multiple of
-    the 32 j's a block stages); ``tickets`` and ``partials`` are the
-    scratch it takes (0 with one chunk)."""
+    the 32 j's a block stages); ``tickets`` (int32) and ``partials``
+    (int64 words) are the scratch it takes (0 with one chunk)."""
 
     tiles_n: int
     tiles: int
@@ -185,10 +194,13 @@ class MatvecPlan(NamedTuple):
     partials: int
 
 
-def matvec_plan(N: int, n: int, W: int, m: int) -> MatvecPlan:
-    """The launch of :func:`slot_matvec` at [N, 3, n, m] x [N, 3, W, m]:
-    m split into chunks of 32 j's so that about ``MV_BLOCKS`` blocks run
-    (and no block adds more than ``MV_MAX_CHUNK`` j's)."""
+def matvec_plan(N: int, n: int, W: int, m: int, E: int = E3,
+                partial_bytes: int = 8) -> MatvecPlan:
+    """The launch of a slot mat-vec at [N, E, n, m] x [N, E, W, m]
+    (:func:`slot_matvec`'s by default): m split into chunks of 32 j's so
+    that about ``MV_BLOCKS`` blocks run (and no block adds more than
+    ``MV_MAX_CHUNK`` j's); ``partial_bytes`` is the size of a thread's
+    partial of one degree (a u64 word here, a u32 word for BabyBear)."""
     tiles_n = -(-n // MV_TILE_N)
     tiles = tiles_n * -(-W // MV_TILE_W)
     steps = -(-m // MV_STEP)
@@ -199,21 +211,27 @@ def matvec_plan(N: int, n: int, W: int, m: int) -> MatvecPlan:
     many = chunks > 1
     return MatvecPlan(tiles_n, tiles, chunks, per * MV_STEP,
                       N * tiles if many else 0,
-                      N * tiles * chunks * E3 * MV_THREADS if many else 0)
+                      N * tiles * chunks * E * MV_THREADS * partial_bytes
+                      // 8 if many else 0)
 
 
-def _check_tables(name, t):
-    if not isinstance(t, ExtTables) or len(t.perm) != E3:
-        raise ValueError(f"{name}: expected the ExtTables of an E = 3 ring")
-    if not isinstance(t.nr, int) or not 0 <= t.nr < GOLDILOCKS.q:
+def _check_tables(name, t, E: int = E3, q: int = GOLDILOCKS.q):
+    """Raise unless ``t`` is the :class:`ExtTables` of an E-word slot
+    with nr an int in [0, q)."""
+    if not isinstance(t, ExtTables) or len(t.perm) != E:
+        raise ValueError(f"{name}: expected the ExtTables of an E = {E} "
+                         "ring")
+    if not isinstance(t.nr, int) or not 0 <= t.nr < q:
         raise ValueError(f"{name}: nr must be an int in [0, q), got "
                          f"{t.nr!r}")
 
 
-def _check_words(name, *tensors):
+def _check_words(name, *tensors, dtype=torch.int64):
+    """Raise unless every operand is a contiguous ``dtype`` tensor."""
     for t in tensors:
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.int64:
-            raise TypeError(f"{name}: operands must be int64 tensors")
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"{name}: operands must be "
+                            f"{str(dtype).removeprefix('torch.')} tensors")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")

@@ -142,8 +142,11 @@ class FoldingStep:
     #: (goldilocks n = 8, M = 8,192, W = 16: 75,497,472 words) stays on
     #: the unblocked path, as the reference keeps it; babybear's E = 9
     #: blocks there.  On the card the goldilocks commit is one
-    #: ``slot_matvec`` launch (``ops/slot.py``), which builds no such
-    #: tensor and ignores the block.
+    #: ``slot_matvec`` launch (``ops/slot.py``) and the babybear commit one
+    #: ``bb_slot_matvec`` launch (``ops/slot_bb.py``): neither builds such
+    #: a tensor, both ignore the block, and no ``model.commit_acc`` span
+    #: runs there.  The budget binds the other models, and every model on
+    #: CPU tensors.
     _COMMIT_BUDGET_WORDS = 1 << 27
 
     def commit_block(self, W: int) -> int:

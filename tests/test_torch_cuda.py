@@ -48,6 +48,7 @@ from stark_rings_tpu_torch.ops import _build
 from stark_rings_tpu_torch.ops import fold as K
 from stark_rings_tpu_torch.ops import fold_bb as KB
 from stark_rings_tpu_torch.ops import slot as SL
+from stark_rings_tpu_torch.ops import slot_bb as SB
 from stark_rings_tpu_torch.rings import Transcript
 
 pytestmark = pytest.mark.cuda
@@ -1402,6 +1403,155 @@ def _step_inputs(fs, rng, W):
     return c, (s0, s1, c0, c1, rt)
 
 
+# -- the BabyBear slot-product kernels (ops/slot_bb.py) ------------------
+
+
+def _bb_tables(dev="cpu"):
+    """The BabyBear ring's slot tables (the kernels read only their nr;
+    the twins on the card take them on the card)."""
+    from stark_rings_tpu_torch.rings import get_ring
+
+    return SL.ext_tables(get_ring("babybear", device=dev))
+
+
+def _bb_words(rng, shape, dev, fill=None):
+    x = (np.full(shape, fill, dtype=np.uint32) if fill is not None
+         else rng.integers(0, BABYBEAR.q, shape, dtype=np.uint32))
+    return to_torch_u32(x, dev)
+
+
+@pytest.mark.parametrize("Ba,Bb", [(16 * 16384, 1), (16 * 8, 1),
+                                   (16384, 16384), (13, 13), (13, 1), (1, 1),
+                                   (6, 6)])
+@pytest.mark.parametrize("fill", [None, 0, BABYBEAR.q - 1],
+                         ids=["random", "0", "q-1"])
+def test_bb_slot_mul_matches_twin(dev, Ba, Bb, fill):
+    """bb_slot_mul at the BabyBear fold's challenge shapes (s1 [8, 9, 16 x
+    16,384] and c1 [8, 9, 16 x 8] by a batch-1 operand), at a model
+    multiply's, at ragged batches (one word a thread), at words 0 and
+    q - 1: one launch, the twin's bits."""
+    t, tc = _bb_tables(), _bb_tables(dev)
+    rng = np.random.default_rng(Ba + Bb)
+    a = _bb_words(rng, (8, 9, Ba), dev, fill)
+    b = _bb_words(rng, (8, 9, Bb), dev, fill)
+    before = SB.LAUNCHES["bb_slot_mul"]
+    got = SB.bb_slot_mul(a, b, t)
+    torch.cuda.synchronize()
+    assert SB.LAUNCHES["bb_slot_mul"] - before == 1
+    assert got.dtype == torch.int32 and got.shape == (72, Ba)
+    assert torch.equal(got, SB.bb_slot_mul_ref(a, b, tc))
+
+
+def test_bb_slot_mul_unaligned(dev):
+    """Operands 4 bytes off a 16-byte boundary take the one-word path."""
+    t, rng = _bb_tables(), np.random.default_rng(3)
+    buf = _bb_words(rng, (2, 8 * 9 * 64 + 1), dev)
+    a, b = (buf[i, 1:].view(8, 9, 64) for i in range(2))
+    assert a.data_ptr() % 16 != 0
+    got = SB.bb_slot_mul(a, b, t)
+    assert torch.equal(got.cpu(), SB.bb_slot_mul_ref(a.cpu(), b.cpu(), t))
+
+
+@pytest.mark.parametrize("n,W,m", [(8, 16, 65536), (8, 16, 1), (8, 16, 7),
+                                   (8, 16, 1025), (3, 1, 8192),
+                                   (3, 2, 65536), (9, 17, 300)])
+def test_bb_slot_matvec_matches_twin(dev, n, W, m):
+    """bb_slot_matvec at the BabyBear commit's shape (N = 8, n = 8, W =
+    16, M = 65,536) and at ragged n, W and m: one launch a call, the
+    blocked twin's bits, the same again on a second call (the tickets
+    left at 0)."""
+    t, tc = _bb_tables(), _bb_tables(dev)
+    rng = np.random.default_rng(n + W + m)
+    A = _bb_words(rng, (8, 9, n, m), dev)
+    x = _bb_words(rng, (8, 9, W, m), dev)
+    before = SB.LAUNCHES["bb_slot_matvec"]
+    got = SB.bb_slot_matvec(A, x, t)
+    again = SB.bb_slot_matvec(A, x, t)
+    torch.cuda.synchronize()
+    assert SB.LAUNCHES["bb_slot_matvec"] - before == 2
+    assert got.dtype == torch.int32 and got.shape == (72, W, n)
+    assert torch.equal(got, SB.bb_slot_matvec_ref(A, x, tc, block=1024))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("one_chunk", [False, True], ids=["chunks", "one"])
+@pytest.mark.parametrize("fills", [(BABYBEAR.q - 1, BABYBEAR.q - 1),
+                                   (0, BABYBEAR.q - 1), (0, 0)],
+                         ids=["q-1", "0,q-1", "0"])
+def test_bb_slot_matvec_extremes(dev, fills, one_chunk, monkeypatch):
+    """Every word q - 1 (every u64 group and 96-bit sum at its largest),
+    or 0, at the commit's shape: many chunks (two launches in a row, the
+    tickets left at 0), or one (a thread adds 65,536 x 81 products into
+    its 17 sums); the twin's bits."""
+    if one_chunk:
+        monkeypatch.setattr(SL, "MV_BLOCKS", 1)
+    t, tc = _bb_tables(), _bb_tables(dev)
+    m = 65536
+    plan = SL.matvec_plan(8, 8, 16, m, 9, partial_bytes=4)
+    assert (plan.chunks == 1) == one_chunk
+    A = torch.full((8, 9, 8, m), fills[0], dtype=torch.int32, device=dev)
+    x = torch.full((8, 9, 16, m), fills[1], dtype=torch.int32, device=dev)
+    got = SB.bb_slot_matvec(A, x, t)
+    again = SB.bb_slot_matvec(A, x, t)
+    want = SB.bb_slot_matvec_ref(A[..., :1].contiguous(),
+                                 x[..., :1].contiguous(), tc)
+    want = ((want.to(torch.int64) & 0xFFFFFFFF) * m % BABYBEAR.q).to(
+        torch.int32)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_bb_slot_launch_counts(dev, monkeypatch):
+    """A babybear FoldingStep.step is 2 bb_slot_mul launches (the
+    challenge's two products) and 1 bb_slot_matvec (the commit), a
+    babybear mul_t 1 bb_slot_mul; no twin and no torch-op slot product
+    runs on the card; the Goldilocks kernels launch nothing; each output
+    equals the CPU path."""
+    from stark_rings_tpu_torch.ops import model_mul as MM
+    from stark_rings_tpu_torch.ops.model_mul import TModelMul
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    def refuse(*args, **kw):
+        raise AssertionError("a twin ran on the card")
+
+    ext_mul = MM.ext_mul
+
+    def cpu_only(f, t, a, b):
+        assert a.device.type == "cpu", "ext_mul ran on the card"
+        return ext_mul(f, t, a, b)
+
+    twins = (SB.bb_slot_mul_ref, SB.bb_slot_matvec_ref)
+    for name in ("bb_slot_mul_ref", "bb_slot_matvec_ref"):
+        monkeypatch.setattr(SB, name, refuse)
+    monkeypatch.setattr(MM, "ext_mul", cpu_only)
+    ring, cpu = get_ring("babybear", device=dev), get_ring("babybear",
+                                                           device="cpu")
+    fs = FoldingStep(ring, n_rows=8, wit_len=64)
+    fc = FoldingStep(cpu, n_rows=8, wit_len=64)
+    c, ins = _step_inputs(fs, np.random.default_rng(9), W=16)
+    torch.cuda.synchronize()
+    before, gl = dict(SB.LAUNCHES), dict(SL.LAUNCHES)
+    out = fs.step(c, *ins)
+    torch.cuda.synchronize()
+    assert {k: SB.LAUNCHES[k] - before[k] for k in before} == {
+        "bb_slot_mul": 2, "bb_slot_matvec": 1}
+    assert SL.LAUNCHES == gl
+    monkeypatch.setattr(SB, "bb_slot_mul_ref", twins[0])
+    monkeypatch.setattr(SB, "bb_slot_matvec_ref", twins[1])
+    want = fc.step({"Agt": c["Agt"].cpu()}, *(x.cpu() for x in ins))
+    for key, val in want.items():
+        assert torch.equal(out[key].cpu(), val), key
+    tm = TModelMul(ring)
+    rng = np.random.default_rng(1)
+    a, b = (ring.field.rand((ring.D, 4096), rng, dev) for _ in range(2))
+    before = dict(SB.LAUNCHES)
+    got = tm.mul_t(a, b)
+    torch.cuda.synchronize()
+    assert SB.LAUNCHES["bb_slot_mul"] - before["bb_slot_mul"] == 1
+    assert SB.LAUNCHES["bb_slot_matvec"] == before["bb_slot_matvec"]
+    assert torch.equal(got.cpu(), TModelMul(cpu).mul_t(a.cpu(), b.cpu()))
+
+
 @pytest.mark.parametrize("psi", [False, True], ids=["nopsi", "psi"])
 @pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
 def test_folding_step_on_card(dev, name, psi):
@@ -1720,8 +1870,8 @@ def test_goldilocks_fourstep_runs_on_kernels(dev, N, P):
 
 @pytest.fixture
 def no_twins(monkeypatch):
-    """Make the K5, K7, model-fold and slot-product twins fail if the
-    card route calls them."""
+    """Make the K5, K7, model-fold and slot-product twins (Goldilocks and
+    BabyBear) fail if the card route calls them."""
     from stark_rings_tpu_torch.ops import stark as ST
 
     def refuse(*args, **kw):
@@ -1730,7 +1880,8 @@ def no_twins(monkeypatch):
     for mod, name in ((FX, "evaluate_goldilocks_ref"),
                       (SK, "sumcheck_prove_many_ref"), (K, "fold_end_ref"),
                       (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref"),
-                      (SL, "slot_mul_ref"), (SL, "slot_matvec_ref")):
+                      (SL, "slot_mul_ref"), (SL, "slot_matvec_ref"),
+                      (SB, "bb_slot_mul_ref"), (SB, "bb_slot_matvec_ref")):
         monkeypatch.setattr(mod, name, refuse)
 
 
