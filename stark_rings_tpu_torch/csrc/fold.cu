@@ -231,8 +231,8 @@ pointwise_mul_kernel(const uint64_t* __restrict__ a,
 // [80, 2^16] (126 MB moved, 84M modmuls) it is bound by its modmuls'
 // instructions, and at large depth it measures the rate of dependent
 // Goldilocks modmuls the card sustains.  The loop is not unrolled: one
-// trip is one gl::mul, so chip_smoke.py reads gl::mul's instruction count
-// off the loop body in the SASS (the card's modmul peak).
+// trip is one gl::mul, so gl::mul's instruction count can be read off the
+// loop body in the SASS (the card's modmul peak).
 __global__ void __launch_bounds__(THREADS)
 pointwise_chain_kernel(const uint64_t* __restrict__ a,
                        const uint64_t* __restrict__ b,

@@ -27,7 +27,7 @@
 // The tile kernel is bound by the card's integer pipes: a butterfly is a
 // modmul (29 instructions) and an exact sum and difference, all integer
 // instructions, which retire at about half the SMs' issue rate (the dependent
-// chain of chip_smoke.py phase 27), so the design keeps the butterflies in
+// chain of pointwise_chain at depth 256), so the design keeps the butterflies in
 // registers and pays little else.  A tile's stage of span 2^h pairs words
 // whose index differs in bit h.  A thread holds REG = 2^RB words whose indices
 // differ in RB consecutive bits [lo, lo + RB) (the other bits are its index in

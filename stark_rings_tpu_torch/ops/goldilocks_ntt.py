@@ -65,7 +65,7 @@ F = GOLDILOCKS
 # The stages a tile launch runs.  The kernel takes tiles up to 2^14 words
 # (one block an SM); 2^13-word tiles let two blocks share an SM, and on an
 # H100 that made the deg-2^16 mul faster despite one more pass a transform
-# (chip_smoke.py phase 27 times both).
+# (PERF.md §6 has both timings).
 LOG_TILE = 13
 
 # mode bits of ntt_tile (csrc/ntt.cu)

@@ -62,24 +62,34 @@ class TModelMul:
         self.ring = ring
         self.f = ring.field
         self._crt, self._icrt = ring._dense_crt
-        self._gl3 = self._bb9 = False
+        # (slot product, commit contraction): the slot kernels of this
+        # model, chosen once, used on a CUDA device; None: torch ops
+        self._slot_pair = None
         if ring.E > 1:
             self._tables = ext_tables(ring)
             perm = self._tables.perm.tolist()
-            self._gl3 = slot_kernel_applies(self.f, ring.E, perm)
-            self._bb9 = bb_slot_kernel_applies(self.f, ring.E, perm)
+            if slot_kernel_applies(self.f, ring.E, perm):
+                self._slot_pair = (slot_mul, slot_matvec)
+            elif bb_slot_kernel_applies(self.f, ring.E, perm):
+                self._slot_pair = (bb_slot_mul, bb_slot_matvec)
+
+    def _kernels(self, device):
+        """The stored slot-kernel pair where ``device`` is a CUDA device,
+        else None."""
+        return self._slot_pair if torch.device(device).type == "cuda" \
+            else None
 
     def uses_slot_kernel(self, device) -> bool:
         """Whether slot products on ``device`` run on the kernels of
         :mod:`.slot` (Goldilocks, E = 3, identity storage permutation,
         a CUDA device); every other case runs :func:`.slot.ext_mul`."""
-        return self._gl3 and torch.device(device).type == "cuda"
+        return self._kernels(device) == (slot_mul, slot_matvec)
 
     def uses_bb_slot_kernel(self, device) -> bool:
         """Whether slot products on ``device`` run on the kernels of
         :mod:`.slot_bb` (BabyBear, E = 9, storage order ``[0, 3, 6, 1, 4,
         7, 2, 5, 8]``, a CUDA device)."""
-        return self._bb9 and torch.device(device).type == "cuda"
+        return self._kernels(device) == (bb_slot_mul, bb_slot_matvec)
 
     # -- layout ----------------------------------------------------------
     def to_t(self, x):
@@ -120,18 +130,17 @@ class TModelMul:
         """The extension-field product of slot tensors a [N, E, *ba] and
         b [N, E, *bb] (broadcast-compatible batches) -> [N*E, *batch]."""
         with trace_span("model.slot_product"):
-            if self.uses_slot_kernel(a.device):
-                return self._slot_mul(a, b)
-            if self.uses_bb_slot_kernel(a.device):
-                return self._slot_mul(a, b, bb_slot_mul)
-            return ext_mul(self.f, self._tables, a, b)
+            if self._kernels(a.device) is None:
+                return ext_mul(self.f, self._tables, a, b)
+            return self._slot_mul(a, b)
 
-    def _slot_mul(self, a, b, kernel=slot_mul):
-        """``kernel`` (:func:`.slot.slot_mul`, or
+    def _slot_mul(self, a, b):
+        """The stored slot-product kernel (:func:`.slot.slot_mul`, or
         :func:`.slot_bb.bb_slot_mul`) on a [N, E, *ba] and b [N, E, *bb]:
         the operand whose batch is the broadcast batch first, the other's
         batch that one or 1 (the product commutes); other broadcasts are
         expanded first."""
+        kernel = self._slot_pair[0]
         N, E = a.shape[:2]
         batch = _broadcast(tuple(a.shape[2:]), tuple(b.shape[2:]))
         full = math.prod(batch)
@@ -176,25 +185,21 @@ class TModelMul:
 
         ``block``: contraction-blocked exact accumulation (see
         :func:`.slot.ext_matvec`), bit-equal to the unblocked path.  Where
-        :meth:`uses_slot_kernel` (:meth:`uses_bb_slot_kernel`), the
-        contraction is one :func:`.slot.slot_matvec`
-        (:func:`.slot_bb.bb_slot_matvec`) launch, exact at every
-        ``block``, which it therefore ignores."""
+        the model has slot kernels on ``At``'s device, the contraction is
+        one :func:`.slot.slot_matvec` (:func:`.slot_bb.bb_slot_matvec`)
+        launch, exact at every ``block``, which it therefore ignores."""
         f = self.f
         if xt.dim() == 2 + len(f.limb_shape):
             return self.matvec_t(At, xt[:, None], block=block)[:, 0]
-        if self.uses_slot_kernel(At.device):
-            kernel = slot_matvec
-        elif self.uses_bb_slot_kernel(At.device):
-            kernel = bb_slot_matvec
-        else:
+        kernels = self._kernels(At.device)
+        if kernels is None:
             return ext_matvec(f, self.ntt_mul_bt, At, xt, block)
         N, E = self.ring.N, self.ring.E
         D, n, m = At.shape
         W = xt.shape[1]
         with trace_span("model.slot_product"):
-            out = kernel(At.contiguous().view(N, E, n, m),
-                         xt.contiguous().view(N, E, W, m), self._tables)
+            out = kernels[1](At.contiguous().view(N, E, n, m),
+                             xt.contiguous().view(N, E, W, m), self._tables)
         return out.view(D, W, n)
 
     def mul_t(self, at, bt, c=None):

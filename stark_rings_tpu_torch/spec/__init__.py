@@ -11,7 +11,7 @@ uses it to
 * derive the constant tables the ring models apply on the device
   (:mod:`..ops.stages`, :mod:`..ops.dense_linear`,
   :mod:`..rings.ring`), and
-* serve as a slow oracle in the tests and in ``chip_smoke.py``.
+* serve as a slow oracle in the tests, on the CPU and on the card.
 
 Nothing in here runs on the hot path.
 """

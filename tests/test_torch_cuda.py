@@ -38,6 +38,7 @@ from stark_rings_tpu_torch import (BABYBEAR, GOLDILOCKS, Mxu2FusedNTT,
                                    get_field, get_power_ring, to_torch,
                                    to_torch_u32)
 from stark_rings_tpu_torch.examples import sumcheck as example
+from stark_rings_tpu_torch.fields import STARK
 from stark_rings_tpu_torch.linalg import FieldElems
 from stark_rings_tpu_torch.mle import DenseMLE
 from stark_rings_tpu_torch.mle import fix as FX
@@ -162,6 +163,11 @@ def test_fused_engine_matches_plain_on_card(dev, unsigned):
     state = fused.precompute(b[:1])
     assert torch.equal(fused.mul_cached(a, state),
                        plain.mul_cached(a, plain.precompute(b[:1])))
+    # row 0 of the product and of the square against the C++ schoolbook
+    an, bn = (x[0].cpu().numpy().view(np.uint64) for x in (a, b))
+    for prod, x, y in ((got, an, bn), (fused.square(a), an, an)):
+        assert np.array_equal(prod[0].cpu().numpy().view(np.uint64),
+                              negacyclic_mul_schoolbook_q(x, y, Q))
 
 
 @pytest.mark.parametrize("signed", [False, True], ids=["u8", "s8"])
@@ -333,6 +339,65 @@ def _tables(rng, nv, kind):
     return rng.integers(0, Q, n, dtype=np.uint64)
 
 
+def _py_evaluate(values, points, q):
+    """Multilinear evaluation in Python ints, variable 0 (the low bit)
+    first."""
+    vals = list(values)
+    for r in points:
+        vals = [(a + r * (b - a)) % q for a, b in zip(vals[0::2], vals[1::2])]
+    return vals[0]
+
+
+def _py_lagrange(ys, x, q):
+    """The polynomial through (i, ys[i]) evaluated at x, mod q."""
+    acc = 0
+    for i, y in enumerate(ys):
+        num, den = 1, 1
+        for j in range(len(ys)):
+            if j != i:
+                num = num * (x - j) % q
+                den = den * (i - j) % q
+        acc = (acc + y * num * pow(den, q - 2, q)) % q
+    return acc
+
+
+def _py_check_proof(f, tables, chal, msgs, finals):
+    """The sumcheck relations in Python ints over canonical values: round
+    0's p(0) + p(1) is the sum of the tables' products, each later
+    round's p(0) + p(1) the previous p(r), the last p(r) the product of
+    the finals."""
+    q = f.q
+    prod = None
+    for T in tables:
+        c = np.asarray(f.decode(T), dtype=object)
+        prod = c if prod is None else prod * c % q
+    claim = int(np.sum(prod)) % q
+    for i, (ys, r) in enumerate(zip(f.decode(msgs).tolist(),
+                                    f.decode(chal).tolist())):
+        assert (ys[0] + ys[1]) % q == claim, i
+        claim = _py_lagrange(ys, r, q)
+    last = 1
+    for v in finals:
+        last = last * int(f.decode(v)) % q
+    assert claim == last
+
+
+def _py_negacyclic(a, b, q):
+    """The negacyclic product of two coefficient lists in Python ints, by
+    one big-integer product (Kronecker substitution)."""
+    n = len(a)
+    nb = (2 * q.bit_length() + n.bit_length() + 8) // 8
+
+    def pack(v):
+        return int.from_bytes(b"".join(int(x).to_bytes(nb, "little")
+                                       for x in v), "little")
+
+    c = (pack(a) * pack(b)).to_bytes(2 * n * nb, "little")
+    full = [int.from_bytes(c[k * nb:(k + 1) * nb], "little")
+            for k in range(2 * n)]
+    return [(full[k] - full[k + n]) % q for k in range(n)]
+
+
 @pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
 @pytest.mark.parametrize("nv", [4, 9, 11, 13])
 def test_mle_kernels_match_twins(dev, nv, kind):
@@ -364,6 +429,18 @@ def test_evaluate_is_one_launch(dev, nv, kind):
     torch.cuda.synchronize()
     assert FX.LAUNCHES["evaluate_goldilocks"] == before + 1
     assert torch.equal(got, FX.evaluate_goldilocks_ref(ev, pts))
+
+
+@pytest.mark.parametrize("nv", [11, 20])
+def test_evaluate_matches_python_ints(dev, nv):
+    """K5 on a random table equals its multilinear evaluation in Python
+    ints (an oracle independent of the twin)."""
+    rng = np.random.default_rng(3000 + nv)
+    T, pts = _tables(rng, nv, "random"), rng.integers(0, Q, nv,
+                                                      dtype=np.uint64)
+    got = FX.evaluate_goldilocks(to_torch(T, dev), to_torch(pts, dev))
+    assert int(got.cpu().numpy().view(np.uint64)) == _py_evaluate(
+        T.tolist(), pts.tolist(), Q)
 
 
 @pytest.mark.parametrize("kind", ["random", "zeros", "q-1"])
@@ -526,6 +603,112 @@ def test_example_proof_on_card(dev, nv):
     assert torch.equal(f7[1], FX.evaluate_goldilocks(h.evals, chals))
 
 
+# -- BASELINE config 4: the sparse mat-vec into its MLEs ----------------------
+
+
+def _config4_matrix(dev):
+    """Config 4's A, a 2^20 x 2^20 SparseMatrix over Goldilocks with 4
+    entries a row (nnz 2^22, the shape of an R1CS / CCS matrix), and z
+    [2^20], with their numpy storage for the oracles and the generator
+    that drew them."""
+    from stark_rings_tpu_torch.linalg import SparseMatrix
+
+    rng = np.random.default_rng(51)
+    n, terms = 1 << 20, 4
+    cols = rng.integers(0, n, n * terms, dtype=np.int64).astype(np.int32)
+    data = rng.integers(0, Q, n * terms, dtype=np.uint64)
+    z = rng.integers(0, Q, n, dtype=np.uint64)
+    rows = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(
+        terms)
+    A = SparseMatrix(FieldElems(GOLDILOCKS, dev), n, n, to_torch(data, dev),
+                     rows, torch.from_numpy(cols).to(dev))
+    return A, to_torch(z, dev), (data, cols, z), rng
+
+
+def _eq_table(f, pts, dev):
+    """eq(pts, x) for every x in {0,1}^n, variable j at bit j: [2^n]."""
+    one, t = f.ones((), dev), f.ones((1,), dev)
+    for p in pts:
+        t = torch.cat([f.mul(t, f.sub(one, p)), f.mul(t, p)])
+    return t
+
+
+def test_sparse_matvec_into_mles_on_card(dev):
+    """Config 4 at full width on the card: y = A z for A 2^20 x 2^20 with
+    4 terms a row (64 rows against Python-int sums); DenseMLE(y) through
+    K5 and K6 (k = 10) against DenseMLE.evaluate / fix_last_variables;
+    the nv = 40 SparseMLE of A: fix_variables(c) against A.mul_vec(eq(c,
+    .)), its K5 evaluation at r against the nv = 40 evaluation at r||c;
+    a 2^16 x 2^16 ring-element mat-vec over the goldilocks model (8 rows
+    against the spec's slot products in Python ints); DenseMLE.from_matrix
+    of a 2^12 x 2^12 matrix (nv = 24) through K5 against
+    SparseMLE.evaluate.  The path is 3 K5 launches and 1 K6."""
+    from stark_rings_tpu_torch.linalg import RingElems, SparseMatrix
+    from stark_rings_tpu_torch.mle import SparseMLE
+    from stark_rings_tpu_torch.rings import get_ring
+
+    f, log, terms = GOLDILOCKS, 20, 4
+    A, z, (data, cols, z_np), rng = _config4_matrix(dev)
+    e = FieldElems(f, dev)
+    pts = f.rand((2 * log,), rng, dev)
+    c, r = list(pts[:log]), list(pts[log:])          # columns, then rows
+    ring = get_ring("goldilocks", device=dev)
+    er = RingElems(ring)
+    rn = 1 << 16
+    rcols = rng.integers(0, rn, rn * terms, dtype=np.int64)
+    AR = SparseMatrix(er, rn, rn, er.rand((rn * terms,), rng),
+                      torch.arange(rn, device=dev).repeat_interleave(terms),
+                      torch.from_numpy(rcols).to(dev))
+    zr = er.rand((rn,), rng)
+    dn = 1 << 12
+    AD = SparseMatrix(e, dn, dn, e.rand((dn * terms,), rng),
+                      torch.arange(dn, device=dev).repeat_interleave(terms),
+                      torch.from_numpy(rng.integers(0, dn, dn * terms))
+                      .to(dev))
+    pd = list(f.rand((24,), rng, dev))
+
+    torch.cuda.synchronize()
+    FX.reset_launches()
+    y = A.mul_vec(z)
+    dm = DenseMLE(e, log, y)
+    y_at = FX.evaluate_goldilocks(dm.evals, r)
+    y_fix = FX.fix_last_goldilocks(dm.evals, r[log - 10:])
+    sm = SparseMLE.from_matrix(e, A)
+    full = sm.evaluate(c + r)
+    fixed = sm.fix_variables(c).to_dense().evals
+    fixed_at = FX.evaluate_goldilocks(fixed, r)
+    yr = AR.mul_vec(zr)
+    mdd = DenseMLE.from_matrix(e, AD)
+    mdd_at = FX.evaluate_goldilocks(mdd.evals, pd)
+    torch.cuda.synchronize()
+    assert FX.LAUNCHES == {"evaluate_goldilocks": 3, "fix_last_goldilocks": 1}
+    assert y.shape == (1 << log,) and sm.num_vars == 2 * log
+    assert mdd.num_vars == 24
+
+    y_host = y.cpu().numpy().view(np.uint64)
+    for i in rng.choice(1 << log, 64, replace=False):
+        want = sum(int(data[t]) * int(z_np[cols[t]])
+                   for t in range(i * terms, (i + 1) * terms)) % Q
+        assert int(y_host[i]) == want, i
+    assert torch.equal(y_at, dm.evaluate(r))
+    assert torch.equal(y_fix, dm.fix_last_variables(r[log - 10:]).evals)
+    assert torch.equal(fixed, A.mul_vec(_eq_table(f, c, dev)))
+    assert torch.equal(fixed_at, full)
+    assert torch.equal(mdd_at, SparseMLE.from_matrix(e, AD).evaluate(pd))
+    ring_rows = rng.choice(rn, 8, replace=False)
+    ents = (ring_rows[:, None] * terms + np.arange(terms)).reshape(-1)
+    yr_i = ring.decode(yr[torch.from_numpy(ring_rows).to(dev)])
+    d_i = ring.decode(AR.data[torch.from_numpy(ents).to(dev)])
+    z_i = ring.decode(zr[torch.from_numpy(rcols[ents]).to(dev)])
+    for k in range(len(ring_rows)):
+        acc = [0] * ring.D
+        for t in range(k * terms, (k + 1) * terms):
+            p_ = ring.spec.ntt_mul([int(v) for v in d_i[t]],
+                                   [int(v) for v in z_i[t]])
+            acc = [(x + w) % Q for x, w in zip(acc, p_)]
+        assert [int(v) for v in yr_i[k]] == acc, k
+
+
 # -- K7 over BabyBear and frog, and batched claims ---------------------------
 
 
@@ -558,6 +741,19 @@ def test_sumcheck_kernel_fields_match_generic(dev, field, nv, k, kind):
     want_m, want_f = SK.sumcheck_prove_many_ref(tables, chal, field)
     assert msgs.dtype == f.dtype and torch.equal(msgs, want_m)
     assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("field", ["goldilocks", "babybear", "frog"])
+def test_sumcheck_relations_in_python_ints(dev, field, k):
+    """K7's nv = 20 proof on random tables holds the sumcheck relations
+    in Python ints (an oracle independent of the generic prover)."""
+    f = get_field(field)
+    rng = np.random.default_rng(20 * k + len(field))
+    tables = [f.rand((1 << 20,), rng, dev) for _ in range(k)]
+    chal = f.rand((20,), rng, dev)
+    msgs, finals = SK.sumcheck_prove_many(tables, chal, field=field)
+    _py_check_proof(f, tables, chal, msgs, finals)
 
 
 @pytest.mark.parametrize("k", range(1, 9))
@@ -997,6 +1193,10 @@ def test_radix_engine_matches_ntt_context(dev, logN):
     assert torch.equal(e.forward(a), ctx.forward(a))
     assert torch.equal(e.inverse(a), ctx.inverse(a))
     assert torch.equal(e.inverse(e.forward(a)), a)
+    if logN <= 14:      # row 0 against the C++ schoolbook, O(N^2)
+        an, bn = (x[0].cpu().numpy().view(np.uint64) for x in (a, b))
+        assert np.array_equal(got[0].cpu().numpy().view(np.uint64),
+                              negacyclic_mul_schoolbook_q(an, bn, Q))
 
 
 @pytest.mark.parametrize("R,C,M", [(4, 128, 3), (5, 9, 130), (1, 1, 1),
@@ -1043,6 +1243,9 @@ def test_matmul_ntt_on_card(dev):
             for _ in range(2))
     want = NTTContext(GOLDILOCKS, 1 << 14, device=dev).mul(a, b)
     assert torch.equal(MatmulNTT(device=dev).mul(a, b), want)
+    an, bn = (x[0].cpu().numpy().view(np.uint64) for x in (a, b))
+    assert np.array_equal(want[0].cpu().numpy().view(np.uint64),
+                          negacyclic_mul_schoolbook_q(an, bn, Q))
     mn = MatmulNTT(device=dev)
     for key in ("col_mat", "row_mat", "col_mat_inv", "row_mat_inv"):
         setattr(mn, key, MF.MxuModMatFused(getattr(mn, key).matrix(),
@@ -1253,6 +1456,11 @@ def test_model_mul_on_card(dev, name, B):
     assert torch.equal(tm.mul_cached_t(tm.to_t(a), f1).cpu(),
                        tc.mul_cached_t(tc.to_t(a.cpu()),
                                        tc.precompute_t(tc.to_t(b[:1].cpu()))))
+    prod = tm.from_t(got)
+    for r in range(min(B, 2)):      # against the integer spec
+        assert [int(v) for v in ring.decode(prod[r])] == ring.spec.coeff_mul(
+            [int(v) for v in ring.decode(a[r])],
+            [int(v) for v in ring.decode(b[r])]), r
     if B >= 13:
         n, m = 3, B
         A = ring.field.rand((ring.D, n, m), rng, dev)
@@ -1260,6 +1468,14 @@ def test_model_mul_on_card(dev, name, B):
         full = tm.matvec_t(A, x)
         assert torch.equal(tm.matvec_t(A, x, block=4), full)
         assert torch.equal(full.cpu(), tc.matvec_t(A.cpu(), x.cpu()))
+        # c[0, 0]: the spec's slot products summed in Python ints
+        Ai, xi = (ring.decode(v[:, 0].transpose(0, 1)) for v in (A, x))
+        acc = [0] * ring.D
+        for j in range(m):
+            p_ = ring.spec.ntt_mul([int(v) for v in Ai[j]],
+                                   [int(v) for v in xi[j]])
+            acc = [(u + w) % ring.q for u, w in zip(acc, p_)]
+        assert [int(v) for v in ring.decode(full[:, 0, 0])] == acc
 
 
 # -- the Goldilocks slot-product kernels (ops/slot.py) ------------------
@@ -1559,7 +1775,7 @@ def test_folding_step_on_card(dev, name, psi):
     kernels' twins) output by output, at a ragged witness batch and with
     a forced commit block; K3 (goldilocks) or bb_fold_end (babybear) runs
     twice a step: one ICRT of the folded witness, one CRT of the
-    digits."""
+    digits; witness 0 in Python ints."""
     from stark_rings_tpu_torch.protocol import FoldingStep
     from stark_rings_tpu_torch.rings import get_ring
 
@@ -1583,6 +1799,41 @@ def test_folding_step_on_card(dev, name, psi):
         assert torch.equal(out[key].cpu(), val), key
     d_ntt = fs.tm.crt_t(out["digits"])
     assert torch.equal(fs.commit(c, d_ntt, block=2), out["cd"])
+    _hold_witness_in_ints(fs, c, out, 0)
+
+
+def _hold_witness_in_ints(fs, c, out, w):
+    """Witness ``w`` of a step's outputs in Python ints: its digits
+    recompose to the ICRT of its folded s, ``ok_l2`` is the exact norm
+    against the bound, ``cd``'s row 0 the spec's slot products summed,
+    ``ok_psi`` the host psi check of its digit values."""
+    from stark_rings_tpu_torch.decomp.norms import l2_norm_squared
+    from stark_rings_tpu_torch.rings.monomial import psi_range_check
+    from stark_rings_tpu_torch.spec.decomp import recompose_ints, to_signed
+
+    ring, tm, q = fs.ring, fs.tm, fs.ring.q
+    coeff = ring.decode(ring.icrt(tm.from_t(out["s"])[w]))      # [L, D]
+    dig = tm.from_t(out["digits"])[w]                            # [M, D]
+    di = ring.decode(dig).reshape(fs.L, fs.k, ring.D)
+    for l in range(fs.L):
+        for i in range(ring.D):
+            v = recompose_ints([to_signed(int(x), q) for x in di[l, :, i]],
+                               fs.base)
+            assert v % q == int(coeff[l, i]), (l, i)
+    norm = l2_norm_squared(ring.field, dig)
+    assert bool(out["ok_l2"][w]) == (norm <= fs.l2_bound_sq)
+    A0 = ring.decode(tm.from_t(c["Agt"])[0])                     # [M, D]
+    dn = ring.decode(ring.crt(dig))
+    acc = [0] * ring.D
+    for j in range(fs.M):
+        p_ = ring.spec.ntt_mul([int(v) for v in A0[j]],
+                               [int(v) for v in dn[j]])
+        acc = [(x + y) % q for x, y in zip(acc, p_)]
+    assert [int(v) for v in ring.decode(tm.from_t(out["cd"])[w, 0])] == acc
+    if "ok_psi" in out:
+        vals = {int(v) for v in ring.decode(dig).reshape(-1)}
+        assert bool(out["ok_psi"][w]) == all(psi_range_check(ring, v)
+                                             for v in vals)
 
 
 @pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
@@ -1704,6 +1955,10 @@ def test_stark_mxu_limb_ntt_on_card(dev, N, unsigned):
         assert torch.equal(cpu.mul(a.cpu(), b.cpu()), got.cpu())
     pr = get_power_ring("stark_prime", N.bit_length() - 1, device=dev)
     assert torch.equal(pr.mxu_ctx().mul(a, b), want)
+    for r in (0, 2):    # against the Python-int negacyclic product
+        ai, bi = ([int(v) for v in pr.decode(x[r])] for x in (a, b))
+        assert [int(v) for v in pr.decode(got[r])] == _py_negacyclic(
+            ai, bi, STARK.q), r
 
 
 @pytest.mark.parametrize("B", [1, 13, 1000])
@@ -1751,9 +2006,11 @@ def test_stark_model_mul_on_card(dev, B):
 
 def test_stark_step_tree_sumcheck_on_card(dev):
     """The limbed FoldingStep on the card equals the CPU step output by
-    output (two S3 folds a step), with a forced commit block; a 4-leaf
-    FoldingTree verifies and rejects a tampered digit commitment; the
-    generic sumcheck prover over stark_prime equals the CPU proof."""
+    output (two S3 folds a step), with a forced commit block, and one
+    witness in Python ints; a 4-leaf FoldingTree verifies and rejects a
+    tampered digit commitment; the generic sumcheck prover over
+    stark_prime equals the CPU proof and holds the sumcheck relations in
+    Python ints."""
     from stark_rings_tpu_torch.mle.sumcheck_kernel import sumcheck_prove_many
     from stark_rings_tpu_torch.ops import stark as S
     from stark_rings_tpu_torch.protocol import FoldingStep, FoldingTree
@@ -1774,6 +2031,7 @@ def test_stark_step_tree_sumcheck_on_card(dev):
         assert torch.equal(out[key].cpu(), val), key
     assert torch.equal(fs.commit(c, fs.tm.crt_t(out["digits"]), block=7),
                        out["cd"])
+    _hold_witness_in_ints(fs, c, out, 2)
     ft = FoldingTree(ring, 2, 2, base=1 << 16, psi_check=False)
     rng = np.random.default_rng(34)
     ct = ft.init_tables(rng)
@@ -1793,6 +2051,7 @@ def test_stark_step_tree_sumcheck_on_card(dev):
                                    field="stark_prime")
     assert msgs.shape == (10, 4, 8) and torch.equal(msgs.cpu(), m_c)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(finals, f_c))
+    _py_check_proof(f, tables, chal, msgs, finals)
 
 
 @pytest.mark.parametrize("b_shape", [(8, 64, 128), (64, 128), (1, 64, 128),
@@ -1890,7 +2149,8 @@ def test_sharded_sumcheck_runs_k7_per_shard(dev, name, no_twins):
     """ShardedMLE's provers on 8 shards of the card at nv = 20: one K7
     launch a shard a proof (k = 2 and 3), no twin call, and the
     messages and finals of the generic lsb prover on the whole
-    tables."""
+    tables; the sharded inner product, and round 0's p(0) + p(1) equal
+    to it in Python ints."""
     from stark_rings_tpu_torch.mle.sumcheck import (
         sumcheck_prove_many_with_challenges)
     from stark_rings_tpu_torch.parallel import ShardedMLE, make_mesh
@@ -1917,13 +2177,20 @@ def test_sharded_sumcheck_runs_k7_per_shard(dev, name, no_twins):
         assert msgs.shape == (nv, k + 1) and msgs.device == dev
         assert torch.equal(msgs, want_m)
         assert all(torch.equal(a, b) for a, b in zip(finals, want_f))
+    # round 0 of the k = 2 proof: p(0) + p(1) is the sharded inner
+    # product, in Python ints
+    ip = sm.make_inner_product_fn()(*shards[:2])
+    assert torch.equal(ip, f.sum(f.mul(tables[0], tables[1]), 0))
+    m0 = f.decode(sm.make_sumcheck_fn()(*shards[:2], *chal)[0][0]).tolist()
+    assert (m0[0] + m0[1]) % f.q == int(f.decode(ip))
 
 
 @pytest.mark.parametrize("nv", [3, 9, 20])
 def test_sharded_eval_runs_k5_per_shard(dev, nv, no_twins):
     """ShardedMLE.make_eval_fn on 8 shards of the card: one K5 launch a
     shard (none at nv = 3, one entry a shard), equal to
-    DenseMLE.evaluate; the sums equal the field's sum."""
+    DenseMLE.evaluate; the sums equal the field's sum; make_fix_fn (up to
+    k = 17) equals DenseMLE.fix_variables."""
     from stark_rings_tpu_torch.parallel import ShardedMLE, make_mesh
 
     f, P = GOLDILOCKS, 8
@@ -1936,9 +2203,14 @@ def test_sharded_eval_runs_k5_per_shard(dev, nv, no_twins):
     torch.cuda.synchronize()
     assert FX.LAUNCHES["evaluate_goldilocks"] - before == (P if nv > 3
                                                           else 0)
-    assert torch.equal(got, DenseMLE(FieldElems(f, dev), nv, T)
-                       .evaluate(pts))
+    dm = DenseMLE(FieldElems(f, dev), nv, T)
+    assert torch.equal(got, dm.evaluate(pts))
     assert torch.equal(sm.make_hypercube_sum_fn()(sm.shard(T)), f.sum(T, 0))
+    if nv > 3:          # fix the first variables, each shard's own
+        k = min(17, nv - 3)
+        fixed = sm.make_fix_fn(k)(sm.shard(T), *pts[:k])
+        assert torch.equal(torch.cat(list(fixed)),
+                           dm.fix_variables(pts[:k]).evals)
 
 
 @pytest.mark.parametrize("name", ["goldilocks", "babybear", "stark_prime"])
@@ -1946,7 +2218,7 @@ def test_sharded_model_mul_launch_counts(dev, name, no_twins):
     """ShardedModelMul on 8 shards of the card: the model CRT fold (K3,
     bb_fold_end, S3) three times a shard a mul, none for ntt_mul, two a
     shard and one for the challenge; equal to TModelMul on the whole
-    batch."""
+    batch, and 4 rows of the mul to the integer spec."""
     from stark_rings_tpu_torch.ops import stark as ST
     from stark_rings_tpu_torch.ops.model_mul import TModelMul
     from stark_rings_tpu_torch.parallel import ShardedModelMul, make_mesh
@@ -1973,6 +2245,129 @@ def test_sharded_model_mul_launch_counts(dev, name, no_twins):
         torch.cuda.synchronize()
         assert counts[key] - before == launches
         assert torch.equal(smm.gather(got, dev), want)
+    # rows of the sharded mul against the integer spec
+    got = ring.decode(smm.gather(smm.make_mul_fn()(sa, sb), dev)[:4])
+    ai, bi = ring.decode(a[:4]), ring.decode(b[:4])
+    for r in range(4):
+        assert [int(v) for v in got[r]] == ring.spec.coeff_mul(
+            [int(v) for v in ai[r]], [int(v) for v in bi[r]]), r
+
+
+@pytest.mark.parametrize("psi", [False, True], ids=["nopsi", "psi"])
+@pytest.mark.parametrize("W", [8, 16])
+def test_sharded_step_on_card(dev, W, psi, no_twins):
+    """FoldingStep.make_sharded_step_fn on 8 shards of the card at the
+    reference bench's width (n = 8, L = 1,024, base 256), witnesses
+    sharded on axis 1: every output equal to the unsharded step, 2 K3
+    launches a shard, no twin call."""
+    from stark_rings_tpu_torch.parallel import make_mesh, shard
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    P = 8
+    mesh = make_mesh(P, device=dev)
+    ring = get_ring("goldilocks", device=dev)
+    fs = FoldingStep(ring, 8, 1024, 256, psi_check=psi)
+    c, ins = _step_inputs(fs, np.random.default_rng(W + psi), W)
+    sins = [shard(x, mesh, 1) for x in ins[:4]]
+    step = fs.make_sharded_step_fn(mesh)
+    torch.cuda.synchronize()
+    before = K.LAUNCHES["fold_end"]
+    got = step(c, *sins, ins[4])
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fold_end"] - before == 2 * P
+    want = fs.step(c, *ins)
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        whole = torch.cat(list(got[key]), 0 if key.startswith("ok_") else 1)
+        assert torch.equal(whole, val), key
+
+
+def test_prove_sharded_on_card(dev, no_twins):
+    """FoldingTree.prove_sharded of 16 leaves (L = 256) on 8 shards of the
+    card: the levels and root of FoldingTree.prove, verified; K3 twice a
+    shard on the level whose pairs the shards divide, twice on each
+    level after it."""
+    from stark_rings_tpu_torch.parallel import make_mesh
+    from stark_rings_tpu_torch.protocol import FoldingTree
+    from stark_rings_tpu_torch.rings import get_ring
+
+    P, leaves = 8, 16
+    mesh = make_mesh(P, device=dev)
+    ring = get_ring("goldilocks", device=dev)
+    ft = FoldingTree(ring, 8, 256, base=256)
+    rng = np.random.default_rng(16)
+    tc = ft.init_tables(rng)
+    wt = ft.rand_witnesses(leaves, rng)
+    cw = ft.commit_witnesses(tc, wt)
+    rts = ft.precompute_challenges([ring.rand_coeff((), rng)
+                                    for _ in range(4)])
+    torch.cuda.synchronize()
+    before = K.LAUNCHES["fold_end"]
+    levels, rw, rc = ft.prove_sharded(mesh, tc, wt, cw, rts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fold_end"] - before == 2 * P + 2 * 3
+    lv, rw_l, rc_l = ft.prove(tc, wt, cw, rts)
+    assert torch.equal(rw, rw_l) and torch.equal(rc, rc_l)
+    for got, want in zip(levels, lv):
+        for key, val in want.items():
+            assert torch.equal(got[key], val), key
+    assert ft.verify(tc, wt, cw, levels, rts)
+
+
+def test_sharded_matvecs_on_card(dev, no_twins):
+    """ShardedSparseMatVec of config 4's A (nnz 2^22) and ShardedMatVec of
+    an 8 x 8,192 goldilocks ring matrix on 8 shards of the card: equal
+    to SparseMatrix.mul_vec and Matrix.mul_vec; 64 sparse rows and 2 ring
+    rows against Python-int sums."""
+    from stark_rings_tpu_torch.linalg import Matrix, RingElems
+    from stark_rings_tpu_torch.parallel import (ShardedMatVec,
+                                                ShardedSparseMatVec,
+                                                make_mesh)
+    from stark_rings_tpu_torch.rings import get_ring
+
+    P = 8
+    mesh = make_mesh(P, device=dev)
+    A, z, (data, cols, z_np), rng = _config4_matrix(dev)
+    ssmv = ShardedSparseMatVec(FieldElems(GOLDILOCKS, dev), mesh)
+    y = ssmv.make_matvec_fn(A.nrows)(*ssmv.shard(A), z)
+    assert torch.equal(y, A.mul_vec(z))
+    y_host = y.cpu().numpy().view(np.uint64)
+    for i in rng.choice(A.nrows, 64, replace=False):
+        want = sum(int(data[t]) * int(z_np[cols[t]])
+                   for t in range(4 * i, 4 * i + 4)) % Q
+        assert int(y_host[i]) == want, i
+    ring = get_ring("goldilocks", device=dev)
+    Am, vm = ring.rand_ntt((8, 8192), rng), ring.rand_ntt((8192,), rng)
+    smv = ShardedMatVec(RingElems(ring), mesh)
+    cv = smv.make_matvec_fn()(*smv.shard(Am, vm))
+    assert torch.equal(cv, Matrix(RingElems(ring), Am).mul_vec(vm))
+    vi = ring.decode(vm)
+    for i in (0, 7):
+        Ai, acc = ring.decode(Am[i]), [0] * ring.D
+        for j in range(8192):
+            p_ = ring.spec.ntt_mul([int(v) for v in Ai[j]],
+                                   [int(v) for v in vi[j]])
+            acc = [(x + w) % Q for x, w in zip(acc, p_)]
+        assert [int(v) for v in ring.decode(cv[i])] == acc, i
+
+
+def test_distributed_prover_on_card(dev, capsys):
+    """The distributed prover example on 8 shards of the card verifies:
+    its sharded multiply and commit are 3 K3 launches a shard and 2, its
+    sharded proof one K7 launch a shard."""
+    from stark_rings_tpu_torch.examples import distributed_prover
+
+    P = 8
+    torch.cuda.synchronize()
+    before = (K.LAUNCHES["fold_end"],
+              SK.LAUNCHES["sumcheck_prove_many_goldilocks"])
+    distributed_prover.main(device=dev, P=P)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["fold_end"] - before[0],
+            SK.LAUNCHES["sumcheck_prove_many_goldilocks"] - before[1]) \
+        == (3 * P + 2, P)
+    assert "sharded sumcheck verified" in capsys.readouterr().out
 
 
 # -- the entry points --------------------------------------------------
@@ -2035,11 +2430,22 @@ def test_entry_on_card(dev):
     torch.cuda.synchronize()
     assert K.LAUNCHES["fold_end"] - before == 3
     assert out.shape == (32, 24) and not out.any()
-    got = E.step_stages(get_ring("goldilocks", device=dev), a, b)
+    ring = get_ring("goldilocks", device=dev)
+    got = E.step_stages(ring, a, b)
     want = E.step_stages(get_ring("goldilocks", device="cpu"), a.cpu(),
                          b.cpu())
     for key in ("prod", "digits", "back", "zero"):
         assert torch.equal(got[key].cpu(), want[key]), key
+    # at the reference bench's goldilocks batch: the difference zero, and
+    # 64 rows of the product against the integer spec
+    rng = np.random.default_rng(65536)
+    x, y = ring.rand_coeff((65536,), rng), ring.rand_coeff((65536,), rng)
+    assert not step(x, y).any()
+    prod = E.step_stages(ring, x[:64], y[:64])["prod"]
+    xi, yi, pi = (ring.decode(v) for v in (x[:64], y[:64], prod))
+    for r in range(64):
+        assert [int(v) for v in pi[r]] == ring.spec.coeff_mul(
+            [int(v) for v in xi[r]], [int(v) for v in yi[r]]), r
 
 
 @pytest.mark.parametrize("n", [6, 8])
@@ -2121,7 +2527,10 @@ def test_compiled_calls_on_card(dev, engine):
     and staged_mul in its four granularities at N = 2^12, B = 3: each
     replay equals the eager call on the card (the eager mul also the CPU
     engine's); a second call on fresh inputs is right and leaves the
-    first result as it was; a replay launches nothing from Python."""
+    first result as it was; a replay launches nothing from Python.  The
+    first call of jit_mul, jit_mul_cached and jit_square (warm-up and
+    capture) launches twice the eager call's hand kernels, so its graph
+    holds them."""
     e = JIT_ENGINES[engine](dev)
     f, N = e.F, e.N
     rng = np.random.default_rng(17)
@@ -2143,9 +2552,21 @@ def test_compiled_calls_on_card(dev, engine):
     cpu = type(e)(N, device="cpu")
     assert torch.equal(want.cpu(), cpu.mul(a.cpu(), b.cpu()))
     for name, (jit, eager) in calls.items():
+        torch.cuda.synchronize()
+        before = _fold_launches()
         first = jit(a, b)
+        torch.cuda.synchronize()
+        captured = {k: v - before[k] for k, v in _fold_launches().items()}
         kept = first.clone()
+        before = _fold_launches()
         assert torch.equal(first, eager(a, b)), name
+        torch.cuda.synchronize()
+        # the first call's warm-up and capture each ran the eager call's
+        # hand kernels, so its graph replays them (a staged call replays
+        # a stage's graph where its eager call runs the stage again)
+        if name.startswith("jit"):
+            assert captured == {k: 2 * (v - before[k])
+                                for k, v in _fold_launches().items()}, name
         torch.cuda.synchronize()
         before = _fold_launches()
         second = jit(a2, b2)

@@ -7,7 +7,7 @@ partials in the work buffer, and shared memory within a block's 227 KB.
 
 The models replay ``csrc/mle.cu`` in torch on CPU tensors, step for
 step: K5's registers (16-byte loads, then the words' top bits; 16 words
-a thread, and the 8 of the variant ``examples/tile_variants.py`` times), lane
+a thread, and 8 a thread, the variant it was chosen over), lane
 shuffles, the warps' step and the ticket levels; K6's register tree
 (k <= 5) and, for k > 5, its eq weights (the chunk's high-bit factor
 times the in-chunk factors), 128-bit row sums, row adds and chunk

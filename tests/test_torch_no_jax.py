@@ -48,7 +48,6 @@ import stark_rings_tpu_torch.mle.sumcheck
 import stark_rings_tpu_torch.mle.sumcheck_kernel
 import stark_rings_tpu_torch.rings.absorb
 import stark_rings_tpu_torch.examples.sumcheck
-import stark_rings_tpu_torch.examples.tile_variants
 import stark_rings_tpu_torch.spec
 import stark_rings_tpu_torch.spec.decomp
 import stark_rings_tpu_torch.rings.ring

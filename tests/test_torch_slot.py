@@ -59,12 +59,22 @@ def ref():
 @pytest.mark.parametrize("device,want", [("cuda", True), ("cuda:0", True),
                                          ("cpu", False), ("meta", False)])
 @pytest.mark.parametrize("perm", [[0, 1, 2], [0, 2, 1], [2, 1, 0]])
-def test_predicate_goldilocks(device, want, perm):
+def test_predicate_goldilocks(device, want, perm, monkeypatch):
     """The predicate reads the field, E and the permutation; the device
-    is ``TModelMul.uses_slot_kernel``'s own test."""
+    is ``TModelMul.uses_slot_kernel``'s own test.  A Goldilocks ring in
+    another storage order stores no kernel pair."""
+    from stark_rings_tpu_torch.ops import model_mul as MM
+
     assert S.slot_kernel_applies(GOLDILOCKS, 3, perm) == (perm == [0, 1, 2])
     tm = TModelMul(get_ring("goldilocks", device="cpu"))
     assert tm.uses_slot_kernel(device) == want
+    assert tm._slot_pair == (S.slot_mul, S.slot_matvec)
+    monkeypatch.setattr(MM, "ext_tables", lambda ring: T._replace(
+        perm=torch.tensor(perm)))
+    permuted = TModelMul(get_ring("goldilocks", device="cpu"))
+    want_pair = (S.slot_mul, S.slot_matvec) if perm == [0, 1, 2] else None
+    assert permuted._slot_pair == want_pair
+    assert permuted.uses_slot_kernel(device) == (want and perm == [0, 1, 2])
 
 
 @pytest.mark.parametrize("name", ["babybear", "frog", "stark_prime"])
@@ -75,7 +85,10 @@ def test_predicate_other_fields(name, device):
     assert not S.slot_kernel_applies(ring.field, ring.E, perm)
     # the Goldilocks field with another E is no kernel's either
     assert not S.slot_kernel_applies(GOLDILOCKS, ring.E, perm)
-    assert not TModelMul(ring).uses_slot_kernel(device)
+    tm = TModelMul(ring)
+    assert not tm.uses_slot_kernel(device)
+    if name != "babybear":
+        assert tm._slot_pair is None    # frog, stark_prime: torch ops
 
 
 def test_tmodelmul_route():

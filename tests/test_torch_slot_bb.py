@@ -137,7 +137,9 @@ def test_kernel_route_on_cpu_tensors():
     torch-op route: products, the batch-1 challenge, and the commit at
     every block."""
     tm, route = TModelMul(RING), TModelMul(RING)
-    route.uses_bb_slot_kernel = lambda device: True
+    assert route._slot_pair == (SB.bb_slot_mul, SB.bb_slot_matvec)
+    route._kernels = lambda device: route._slot_pair
+    assert route.uses_bb_slot_kernel("cpu")
     rng = np.random.default_rng(11)
     f = RING.field
     a, b = (f.rand((D, 3, 5), rng, "cpu") for _ in range(2))
@@ -417,18 +419,18 @@ def test_matvec_kernel_model(n, W, m, monkeypatch):
                                    ((1, 1), (4, 5)), ((4, 1), (1, 5)),
                                    ((4, 1), (4, 5)), ((1,), (1,))])
 def test_bb_slot_mul_broadcasts(ba, bb):
-    """``TModelMul._slot_mul`` with ``bb_slot_mul`` (run here on the CPU,
-    where it answers with its twin) equals the torch ops for every
-    broadcast."""
+    """``TModelMul._slot_mul`` on the BabyBear model (``bb_slot_mul``, run
+    here on the CPU, where it answers with its twin) equals the torch ops
+    for every broadcast."""
     tm = TModelMul(RING)
     rng = np.random.default_rng(len(ba) + len(bb))
     a = _words(rng, (N, E) + ba)[1]
     b = _words(rng, (N, E) + bb)[1]
     want = S.ext_mul(BABYBEAR, tm._tables, a, b)
-    got = tm._slot_mul(a, b, SB.bb_slot_mul)
+    got = tm._slot_mul(a, b)
     assert got.shape == want.shape and torch.equal(got, want)
     strided = torch.stack([a, a], -1)[..., 0]       # a, not contiguous
-    assert torch.equal(tm._slot_mul(strided, b, SB.bb_slot_mul), want)
+    assert torch.equal(tm._slot_mul(strided, b), want)
 
 
 # -- the benchmark's rooflines read the wrappers' launches ----------------
