@@ -78,6 +78,8 @@ PALLAS_SUMCHECK = "stark_rings_tpu/mle/pallas_sumcheck.py"
 PALLAS_EXCHANGE = "stark_rings_tpu/parallel/pallas_exchange.py"
 STARK_FIELD = "stark_rings_tpu/fields/field.py"
 MODEL_MUL = "stark_rings_tpu/ops/model_mul.py"
+DIGIT_STAGE = ("stark_rings_tpu/decomp/balanced.py:149, decomp/norms.py:149, "
+               "rings/monomial.py:158")
 
 
 def phase(name, msg):
@@ -136,6 +138,8 @@ def u64_err(got, want, what) -> int:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
                              f"{want.dtype} {tuple(want.shape)}")
+    if got.dtype == torch.bool:
+        got, want = got.to(torch.int32), want.to(torch.int32)
     g, w = got.reshape(-1), want.reshape(-1)
     bad = (g != w).nonzero().reshape(-1)
     if not bad.numel():
@@ -187,6 +191,7 @@ def kernel_table(dev) -> tuple:
     from stark_rings_tpu_torch.fields import STARK
     from stark_rings_tpu_torch.mle import fix as FX
     from stark_rings_tpu_torch.mle import sumcheck_kernel as SK
+    from stark_rings_tpu_torch.ops import digits as DG
     from stark_rings_tpu_torch.ops import fold as K, fold_bb as KB
     from stark_rings_tpu_torch.ops import goldilocks_ntt as G
     from stark_rings_tpu_torch.ops import mxu_fused as MF
@@ -322,6 +327,27 @@ def kernel_table(dev) -> tuple:
     def blocked(twin):
         return lambda A, x, t: twin(A, x, t, block=1024)
 
+    def digit_stage(model, k):
+        """The fold cells' digit stage: coefficients [D, 16, 16,384], base
+        256, psi on; witnesses 0-7 uniform words, 8-15 small values in
+        psi's range."""
+        def make(rng):
+            ring = get_ring(model, device=dev)
+            coeff = ring.field.rand((ring.D, 16, 16384), rng, dev)
+            coeff[:, 8:] = ring.field.from_uint(
+                rng.integers(0, ring.D // 2, (ring.D, 8, 16384)).astype(
+                    np.uint64), dev)
+            return (ring, coeff, 256, k, 48_000_000), {}
+        return make
+
+    def digits_kernel(ring, coeff, base, k, bound):
+        dt, ok_l2, fails = DG.step_digits(ring, coeff, base, k, bound, True)
+        return dt, ok_l2, DG.check_psi(ring, dt, fails)
+
+    def digits_twin(ring, coeff, base, k, bound):
+        dt, ok_l2, _ = DG.step_digits_ref(ring, coeff, base, k, bound)
+        return dt, ok_l2, DG.check_psi(ring, dt, None)
+
     fold_src, bb_src = "csrc/fold.cu", "csrc/fold_bb.cu"
     POW16, FUSED16, RADIX = ("gl-pow16-mul-B80 (mxu_ctx().mul, deg 2^16, "
                              "B = 80)", "Mxu2FusedNTT.mul, deg 2^16, B = 80",
@@ -414,6 +440,11 @@ def kernel_table(dev) -> tuple:
          pair(SB.bb_slot_matvec, blocked(SB.bb_slot_matvec_ref),
               slot("babybear", 9, (8, 1 << 16), (16, 1 << 16), bb_t),
               matvec_ops(BB_SLOT_MATVEC_INSTRUCTIONS))),
+        # the fold cells' decompose, L2 and psi in one pass
+        ("step_digits", "csrc/digits.cu", DIGIT_STAGE, GL_STEP,
+         pair(digits_kernel, digits_twin, digit_stage("goldilocks", 8))),
+        ("bb_step_digits", "csrc/digits.cu", DIGIT_STAGE, BB_STEP,
+         pair(digits_kernel, digits_twin, digit_stage("babybear", 4))),
     ]
 
     # -- the main-path calls ------------------------------------------------
@@ -482,10 +513,12 @@ def kernel_table(dev) -> tuple:
         MUL_T: (mul_t, {"fold_end": 3, "slot_mul": 1}),
         GL_STEP: (fold_step("goldilocks", 16384, 16, base=256, k=8,
                             l2_bound_sq=16_000_000, psi_check=True),
-                  {"fold_end": 3, "slot_mul": 2, "slot_matvec": 1}),
+                  {"fold_end": 3, "slot_mul": 2, "slot_matvec": 1,
+                   "step_digits": 1}),
         BB_STEP: (fold_step("babybear", 16384, 16, base=256, k=4,
                             l2_bound_sq=48_000_000, psi_check=True),
-                  {"bb_fold_end": 3, "bb_slot_mul": 2, "bb_slot_matvec": 1}),
+                  {"bb_fold_end": 3, "bb_slot_mul": 2, "bb_slot_matvec": 1,
+                   "bb_step_digits": 1}),
         BB_MUL: (power_mul("babybear", 12, 4096),
                  {"bb_fold_tw": 3, "bb_fold_end2_mul": 1, "bb_fold_end": 1}),
         MATMUL: (engine_mul(matmul, 14), {"mxu_mod_mat": 6}),
@@ -501,7 +534,7 @@ def kernel_table(dev) -> tuple:
                      {"stark_mul": 32, "stark_add": 11, "stark_sub": 18,
                       "limb_fold": 2}),
     }
-    counter = {k: mod for mod in (K, KB, G, MF, FX, SK, EX, ST, SL, SB)
+    counter = {k: mod for mod in (K, KB, G, MF, FX, SK, EX, ST, SL, SB, DG)
                for k in mod.LAUNCHES}
     if sorted(r[0] for r in rows) != sorted(counter):
         raise AssertionError(f"the kernel table's rows "

@@ -140,6 +140,9 @@ def kernels() -> ctypes.CDLL:
     lib.srt_bb_slot_mul.argtypes = [p, p, p, i64, i64, i32, i32, u32, p]
     lib.srt_bb_slot_matvec.argtypes = [p, p, p, i64, i32, i32, i64, i64,
                                        i64, i32, i32, u32, p, p, p]
+    digits = [lib.srt_step_digits, lib.srt_bb_step_digits]
+    for fn in digits:
+        fn.argtypes = [p, p, p, i32, i32, i64, i32, u64, i32, i32, p, p, p, p]
     for fn in (lib.srt_fold_tw, lib.srt_fold_end2_mul, lib.srt_fold_end,
                lib.srt_pointwise_mul, lib.srt_pointwise_chain,
                lib.srt_ntt_stage, lib.srt_ntt_tile, lib.srt_mxu_mod_mat,
@@ -148,7 +151,7 @@ def kernels() -> ctypes.CDLL:
                lib.srt_mle_eval, lib.srt_mle_fix, *sumcheck,
                *exchange, *stark, lib.srt_limb_fold, lib.srt_slot_mul,
                lib.srt_slot_matvec, lib.srt_bb_slot_mul,
-               lib.srt_bb_slot_matvec):
+               lib.srt_bb_slot_matvec, *digits):
         fn.restype = ctypes.c_int
     lib.srt_error_string.argtypes = [i32]
     lib.srt_error_string.restype = ctypes.c_char_p

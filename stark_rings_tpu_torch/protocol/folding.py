@@ -23,7 +23,11 @@ babybear, S3 (``limb_fold``) for stark_prime; frog folds in torch ops.
 A step runs one ICRT and one CRT; the challenge's precompute one more
 CRT.  Over goldilocks the challenge's two slot products and the commit
 are the kernels of ``ops/slot.py`` on the card (two ``slot_mul``, one
-``slot_matvec``).  Every other stage is torch ops on the ring's device,
+``slot_matvec``), over babybear those of ``ops/slot_bb.py``.  Over both
+fields decompose, the L2 sums and psi's checks are one kernel on the
+card (``ops/digits.py``: ``step_digits``, ``bb_step_digits``), under the
+``fold.decompose`` span; ``fold.l2`` and ``fold.psi`` then hold [W]
+compares.  Every other stage is torch ops on the ring's device,
 and over stark_prime every field product, add and subtract is kernel S1
 or S2 (its limb axis trails every tensor: [D, W, L, 8]).
 """
@@ -35,8 +39,7 @@ import copy
 import numpy as np
 import torch
 
-from ..decomp import decompose
-from ..decomp.norms import l2_check
+from ..ops.digits import check_psi, step_digits
 from ..ops.model_mul import TModelMul
 from ..spec.decomp import decomposition_max_length
 from ..utils.trace import trace_span
@@ -184,26 +187,20 @@ class FoldingStep:
                 st = f.add(s0t, tm.ntt_mul_bt(s1t, rt))
                 ct = f.add(c0t, tm.ntt_mul_bt(c1t, rt))
             coeff = tm.icrt_t(st, tmc)                   # [D, W, L]
-            with trace_span("fold.decompose"):
-                # [D, W, L, k(, l)]; digit j of column l -> gadget column
-                # l*k + j (mod.rs:163-175)
-                dig = decompose(f, coeff, self.base, self.k)
-                dt = dig.reshape((dig.shape[0], dig.shape[1], self.M)
-                                 + f.limb_shape)
-            with trace_span("fold.l2"):
-                ok_l2 = l2_check(f, dt, self.l2_bound_sq, axis=(0, 2))  # [W]
+            # decompose and L2 (and psi's counts): one kernel over
+            # Goldilocks and BabyBear on the card, torch ops otherwise
+            dt, ok_l2, psi_fails = step_digits(
+                self.ring, coeff, self.base, self.k, self.l2_bound_sq,
+                self.psi_check)
             d_ntt = tm.crt_t(dt, tmc)
             with trace_span("fold.commit"):
                 cd = self.commit(c, d_ntt)
             out = {"s": st, "c": ct, "digits": dt, "cd": cd, "ok_l2": ok_l2}
             if self.psi_check:
-                from ..rings.monomial import psi_range_check_batched
-
                 with trace_span("fold.psi"):
                     # per coefficient of the digit tensor; all of (D, M) a
                     # witness
-                    okp = psi_range_check_batched(self.ring, dt)
-                    out["ok_psi"] = okp.all(dim=2).all(dim=0)
+                    out["ok_psi"] = check_psi(self.ring, dt, psi_fails)
             return out
 
     # -- multi-device -------------------------------------------------------

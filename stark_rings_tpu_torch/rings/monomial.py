@@ -156,10 +156,13 @@ def psi_range_check_batched(ring, a):
     valid(exp) and ct(psi * exp(a)) == a.
 
     ct(psi * X^pos) is read from :func:`_ct_psi_table` by an unrolled
-    chain of D selects, not a gather (the reference measured its TPU
-    gather inside a composed step about 30x slower than the whole
-    step).  Equal to the one-hot and ``coeff_mul`` formulation on every
-    input, valid or not."""
+    chain of D selects, the reference's form (its TPU gather measured
+    about 30x slower inside a composed step).  Equal to the one-hot and
+    ``coeff_mul`` formulation on every input, valid or not.  On the card
+    the folding step's Goldilocks and BabyBear digits take the one-pass
+    kernel of :mod:`..ops.digits` instead, which reads the same table
+    from shared memory by the same formula; this chain is its twin and
+    the path of every other field and of CPU tensors."""
     f = ring.field
     pos, valid = _exp_pos_batched(ring, a)
     tbl = _ct_psi_table(ring)

@@ -1619,6 +1619,141 @@ def _step_inputs(fs, rng, W):
     return c, (s0, s1, c0, c1, rt)
 
 
+# -- the fold step's digit kernels (ops/digits.py) -----------------------
+
+
+def _digit_coeff(ring, base, W, L, rng):
+    """[D, W, L] storage words; witness w of class w mod 4: 0 uniform over
+    [0, q) with the edge values 0, 1, b/2, b/2 + 1, (q - 1)/2, (q + 1)/2,
+    q - 1 (and their neighbours) planted first; 1 small non-negative
+    values in psi's range (one digit at base 256: passes psi); 2 the same
+    with one value of D planted (fails psi at base 256); 3 small negative
+    values (negative digits, which fail psi on these rings)."""
+    D, q, h = ring.D, ring.q, (ring.q - 1) // 2
+    vals = np.zeros((D, W, L), dtype=np.uint64)
+    edges = np.array([e % q for e in (
+        0, 1, q - 1, base // 2, base // 2 + 1, base // 2 - 1, h, h + 1,
+        h - 1, q - base // 2, q - base // 2 - 1, q - 2, base, q - base)],
+        dtype=np.uint64)
+    for w in range(W):
+        cls = w % 4
+        if cls == 0:
+            col = rng.integers(0, q, D * L, dtype=np.uint64)
+            col[:len(edges)] = edges[:D * L]
+            vals[:, w] = col.reshape(D, L)
+        elif cls in (1, 2):
+            vals[:, w] = rng.integers(0, D // 2, (D, L))
+            if cls == 2:
+                vals[D // 2, w, L // 2] = D
+        else:
+            vals[:, w] = np.uint64(q) - rng.integers(1, 6, (D, L)).astype(
+                np.uint64)
+    return ring.field.from_uint(vals, "cpu")
+
+
+def _digits_both(ring, coeff, base, k, bound, psi):
+    """(kernel's outputs, twin's outputs) as (dt, ok_l2, ok_psi or None),
+    and the kernel's launches."""
+    from stark_rings_tpu_torch.ops import digits as DG
+
+    name = ("step_digits" if ring.field.name == "goldilocks"
+            else "bb_step_digits")
+    torch.cuda.synchronize()
+    before = DG.LAUNCHES[name]
+    dt, ok_l2, fails = DG.step_digits(ring, coeff, base, k, bound, psi)
+    torch.cuda.synchronize()
+    launched = DG.LAUNCHES[name] - before
+    got = (dt, ok_l2, DG.check_psi(ring, dt, fails) if psi else None)
+    rdt, rok, _ = DG.step_digits_ref(ring, coeff, base, k, bound)
+    want = (rdt, rok, DG.check_psi(ring, rdt, None) if psi else None)
+    return got, want, launched
+
+
+@pytest.mark.parametrize("psi", [False, True], ids=["nopsi", "psi"])
+@pytest.mark.parametrize("W,L,base", [(1, 300, 256), (16, 1000, 256),
+                                      (5, 257, 6), (4, 64, 2)])
+@pytest.mark.parametrize("name", ["goldilocks", "babybear"])
+def test_step_digits_matches_twin(dev, name, W, L, base, psi):
+    """The digit kernel against the twin (decompose, l2_check and
+    psi_range_check_batched in torch ops on the card) on every word of
+    dt, ok_l2 and ok_psi: the field's edge values, psi failures planted
+    and negative, L not a multiple of the block, W = 1 and 16, a base that
+    is not a power of two and k not a multiple of a 16-byte store; bounds
+    at a witness's exact sum, one below it, and at 2^64 and past it; one
+    launch a call."""
+    from stark_rings_tpu_torch.decomp.norms import (l2_norm_squared_words,
+                                                    words_to_int)
+    from stark_rings_tpu_torch.ops import digits as DG
+    from stark_rings_tpu_torch.rings import get_ring
+    from stark_rings_tpu_torch.spec.decomp import decomposition_max_length
+
+    ring = get_ring(name, device=dev)
+    k = decomposition_max_length(ring.q, base)
+    coeff = _digit_coeff(ring, base, W, L, np.random.default_rng(W * L)).to(
+        dev)
+    dt, _, _ = DG.step_digits_ref(ring, coeff, base, k, 0)
+    words = l2_norm_squared_words(ring.field, dt, axis=(0, 2)).cpu()
+    sums = [words_to_int(words[w]) for w in range(W)]
+    for bound in (sums[-1], sums[-1] - 1, 1 << 64, (1 << 64) - 1, 1 << 70):
+        got, want, launched = _digits_both(ring, coeff, base, k, bound, psi)
+        assert launched == 1
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1]), bound
+        assert got[1].tolist() == [s <= bound for s in sums]
+        if psi:
+            assert torch.equal(got[2], want[2])
+            if W >= 4 and base == 256:
+                assert got[2].tolist()[:4] == [False, True, False, False]
+
+
+@pytest.mark.parametrize("name,k", [("goldilocks", 8), ("babybear", 4)])
+def test_step_digits_at_the_cells_shape(dev, name, k):
+    """At the fold cells' shape ([D, 16, 16,384], base 256, psi on) the
+    kernel equals the twin word for word in one launch, and the cell's
+    FoldingStep.step launches it once."""
+    from stark_rings_tpu_torch.ops import digits as DG
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring = get_ring(name, device=dev)
+    coeff = _digit_coeff(ring, 256, 16, 16384,
+                         np.random.default_rng(k)).to(dev)
+    got, want, launched = _digits_both(ring, coeff, 256, k, 48_000_000, True)
+    assert launched == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    fs = FoldingStep(ring, 8, 16384, 256, k=k, l2_bound_sq=48_000_000,
+                     psi_check=True)
+    c, ins = _step_inputs(fs, np.random.default_rng(k + 1), W=16)
+    torch.cuda.synchronize()
+    before = dict(DG.LAUNCHES)
+    fs.step(c, *ins)
+    torch.cuda.synchronize()
+    assert {n: DG.LAUNCHES[n] - before[n] for n in before} == {
+        "step_digits": name == "goldilocks",
+        "bb_step_digits": name == "babybear"}
+
+
+def test_step_digits_sums_past_2_63(dev):
+    """Goldilocks sums at and past 2^63 (base 2^20: every digit of
+    magnitude 2^19 but the top one, 24 x 466,100 coefficients): the u64
+    sum is exact and compared unsigned, as the twin's words are."""
+    from stark_rings_tpu_torch.rings import get_ring
+
+    ring = get_ring("goldilocks", device=dev)
+    base, k, L = 1 << 20, 4, 466_100
+    v = (1 << 19) * (1 + (1 << 20) + (1 << 40))
+    coeff = torch.full((24, 1, L), v, dtype=torch.int64, device=dev)
+    total = 24 * L * 3 * (1 << 38)
+    assert (1 << 63) < total < 1 << 64
+    for bound, ok in ((total, True), (total - 1, False),
+                      ((1 << 63) - 1, False), (1 << 64, True)):
+        got, want, launched = _digits_both(ring, coeff, base, k, bound, False)
+        assert launched == 1
+        assert torch.equal(got[0], want[0])
+        assert got[1].tolist() == want[1].tolist() == [ok]
+
+
 # -- the BabyBear slot-product kernels (ops/slot_bb.py) ------------------
 
 
@@ -2129,8 +2264,9 @@ def test_goldilocks_fourstep_runs_on_kernels(dev, N, P):
 
 @pytest.fixture
 def no_twins(monkeypatch):
-    """Make the K5, K7, model-fold and slot-product twins (Goldilocks and
-    BabyBear) fail if the card route calls them."""
+    """Make the K5, K7, model-fold, slot-product and digit-stage twins
+    (Goldilocks and BabyBear) fail if the card route calls them."""
+    from stark_rings_tpu_torch.ops import digits as DG
     from stark_rings_tpu_torch.ops import stark as ST
 
     def refuse(*args, **kw):
@@ -2140,7 +2276,8 @@ def no_twins(monkeypatch):
                       (SK, "sumcheck_prove_many_ref"), (K, "fold_end_ref"),
                       (KB, "bb_fold_end_ref"), (ST, "limb_fold_ref"),
                       (SL, "slot_mul_ref"), (SL, "slot_matvec_ref"),
-                      (SB, "bb_slot_mul_ref"), (SB, "bb_slot_matvec_ref")):
+                      (SB, "bb_slot_mul_ref"), (SB, "bb_slot_matvec_ref"),
+                      (DG, "step_digits_ref")):
         monkeypatch.setattr(mod, name, refuse)
 
 
@@ -2271,11 +2408,14 @@ def test_sharded_step_on_card(dev, W, psi, no_twins):
     c, ins = _step_inputs(fs, np.random.default_rng(W + psi), W)
     sins = [shard(x, mesh, 1) for x in ins[:4]]
     step = fs.make_sharded_step_fn(mesh)
+    from stark_rings_tpu_torch.ops import digits as DG
+
     torch.cuda.synchronize()
-    before = K.LAUNCHES["fold_end"]
+    before = K.LAUNCHES["fold_end"], DG.LAUNCHES["step_digits"]
     got = step(c, *sins, ins[4])
     torch.cuda.synchronize()
-    assert K.LAUNCHES["fold_end"] - before == 2 * P
+    assert K.LAUNCHES["fold_end"] - before[0] == 2 * P
+    assert DG.LAUNCHES["step_digits"] - before[1] == P
     want = fs.step(c, *ins)
     assert sorted(got) == sorted(want)
     for key, val in want.items():
