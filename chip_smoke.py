@@ -13,10 +13,11 @@
    The script fails when they fail.
 3. kernel table: one row per launch name of the port's ``LAUNCHES``
    counters.  First each main-path call runs once at its shape, every
-   counter set to 0 just before it: the four cells' calls (the
+   counter set to 0 just before it: the five cells' calls (the
    ``gl-pow16-mul-B80`` multiply, the D = 24 ``mul_t`` at B = 2^18, and
-   the D = 24 and D = 72 folding steps at L = 16,384, W = 16) and the
-   calls PERF.md's kernel table names for the kernels no cell runs.
+   the D = 24, D = 72 and stark_prime D = 16 folding steps at L = 16,384,
+   W = 16) and the calls PERF.md's kernel table names for the kernels no
+   cell runs.
    Each call's launches, by name, must be what that table gives; a row's
    ``launches`` is its kernel's count on its path.  Then each kernel
    alone at the shape of its main path: one call through its wrapper,
@@ -298,17 +299,34 @@ def kernel_table(dev) -> tuple:
             return (xs, tws, field), {}
         return make
 
-    def stark(rng):         # BASELINE config 3: 2^20 random elements
-        return (STARK.rand((1 << 20,), rng, dev),
-                STARK.rand((1 << 20,), rng, dev)), {}
+    # S1-S3 as the stark16 cell's step calls them (n = 8, L = 16,384,
+    # W = 16, k = 16: M = 262,144), each name's call that moves the most
+    def stark_commit(rng):  # S1: a commit block's A by the digits, 8,192
+        A = STARK.rand((16, 8, 8192), rng, dev)     # columns, as views
+        x = STARK.rand((16, 16, 8192), rng, dev)
+        return (A[:, None], x[:, :, None]), {}
+
+    def stark_fold(rng):    # S2 add: the challenge fold of the witnesses
+        return tuple(STARK.rand((16, 16, 16384), rng, dev)
+                     for _ in range(2)), {}
+
+    def stark_digits(rng):  # S2 sub: a word less the digits, [16, 16, M]
+        return (STARK.rand((), rng, dev),
+                STARK.rand((16, 16, 1 << 18), rng, dev)), {}
 
     def stark_ops(name):
-        return lambda a, *args: a.shape[0] * STARK_INSTRUCTIONS[name] / issue
+        return lambda a, b: (torch.broadcast_shapes(a.shape, b.shape)
+                             .numel() // 8 * STARK_INSTRUCTIONS[name] / issue)
 
-    def limb_fold(rng):     # a deg-2^12 level's buckets at B = 256
-        V = torch.randint(-2**31, 2**31, (32 * 64, 16384), generator=gen,
+    def limb_fold(rng):     # the digits' CRT: R = 16 over W M columns
+        V = torch.randint(-2**31, 2**31, (32 * 16, 16 << 18), generator=gen,
                           dtype=torch.int32, device=dev)
-        return (V, 64), {"signed": False}
+        return (V, 16), {"signed": False}
+
+    def limb_fold_twin(V, R, **kw):     # in slices of 2^18 columns: the
+        step = 1 << 18                  # twin holds 0.8 GB a M words out
+        return torch.cat([ST.limb_fold_ref(V[:, c:c + step], R, **kw)
+                          for c in range(0, V.shape[1], step)], dim=1)
 
     def limb_ops(V, R):
         return R * V.shape[1] * STARK_INSTRUCTIONS["limb_fold"] / issue
@@ -353,12 +371,12 @@ def kernel_table(dev) -> tuple:
                              "B = 80)", "Mxu2FusedNTT.mul, deg 2^16, B = 80",
                              "GoldilocksKernelNTT.mul, deg 2^16, B = 80")
     MUL_T = "gl24-mul_t-B262144 (TModelMul.mul_t, B = 262,144)"
-    GL_STEP, BB_STEP = (f"{cell}-L16384-fold-W16 (precompute_challenge and "
-                        "FoldingStep.step)" for cell in ("gl24", "bb72"))
+    GL_STEP, BB_STEP, STARK_STEP = (
+        f"{cell}-L16384-fold-W16 (precompute_challenge and FoldingStep.step)"
+        for cell in ("gl24", "bb72", "stark16"))
     BB_MUL = "BabyBear mxu_ctx().mul, deg 2^12, B = 4,096"
     MATMUL = "MatmulNTT.mul on MxuModMatFused levels, deg 2^14, B = 80"
     SHARDED = "ShardedNTT({!r}).mul, deg 2^20, P = 8 shards, B = 8"
-    STARK_STEP = "stark_prime FoldingStep.step, n = 8, L = 1,024, W = 16"
     rows = [
         ("fold_tw", fold_src, f"{PALLAS_FOLD}:141", POW16,
          pair(K.fold_tw, K.fold_tw_ref, fold_tw)),
@@ -415,12 +433,13 @@ def kernel_table(dev) -> tuple:
           for field in ("goldilocks", "babybear")
           for d, line in (("fwd", 241), ("inv", 268))),
         *((name, "csrc/stark.cu", f"{STARK_FIELD}:{line}", STARK_STEP,
-           pair(getattr(ST, name), getattr(ST, name + "_ref"), stark,
+           pair(getattr(ST, name), getattr(ST, name + "_ref"), make,
                 stark_ops(name)))
-          for name, line in (("stark_mul", 665), ("stark_add", 624),
-                             ("stark_sub", 638))),
+          for name, line, make in (("stark_mul", 665, stark_commit),
+                                   ("stark_add", 624, stark_fold),
+                                   ("stark_sub", 638, stark_digits))),
         ("limb_fold", "csrc/stark.cu", "stark_rings_tpu/ops/mxu_limb.py:133",
-         STARK_STEP, pair(ST.limb_fold, ST.limb_fold_ref, limb_fold,
+         STARK_STEP, pair(ST.limb_fold, limb_fold_twin, limb_fold,
                           limb_ops)),
         # the D = 24 model's mul_t at B = 262,144, and the D = 24 fold's
         # commit at n = 8, M = k L = 131,072, W = 16
@@ -468,9 +487,9 @@ def kernel_table(dev) -> tuple:
         a, b = (words("goldilocks", (24, 1 << 18))(rng) for _ in range(2))
         return lambda: tm.mul_t(a, b)
 
-    def fold_step(model, L, W, challenge=True, **kw):
-        """A folding step on random NTT-form inputs; with ``challenge``
-        the cells' call, the challenge's NTT form and the step."""
+    def fold_step(model, L, W, **kw):
+        """The fold cells' call on random NTT-form inputs: the
+        challenge's NTT form and a folding step."""
         def make(rng):
             ring = get_ring(model, device=dev)
             fs = FoldingStep(ring, 8, L, **kw)
@@ -479,10 +498,7 @@ def kernel_table(dev) -> tuple:
             ins = (fs.rand_witness(W, rng), fs.rand_witness(W, rng),
                    *(fs.tm.to_t(ring.rand_ntt((W, 8), rng)).contiguous()
                      for _ in range(2)))
-            if challenge:
-                return lambda: fs.step(c, *ins, fs.precompute_challenge(r))
-            rt = fs.precompute_challenge(r)
-            return lambda: fs.step(c, *ins, rt)
+            return lambda: fs.step(c, *ins, fs.precompute_challenge(r))
         return make
 
     def matmul():
@@ -529,10 +545,10 @@ def kernel_table(dev) -> tuple:
         SHARDED.format("babybear"): (sharded("babybear"), {
             "twiddle_exchange_fwd_babybear": 2,
             "twiddle_exchange_inv_babybear": 1}),
-        STARK_STEP: (fold_step("stark_prime", 1024, 16, challenge=False,
-                               base=1 << 16),
-                     {"stark_mul": 32, "stark_add": 11, "stark_sub": 18,
-                      "limb_fold": 2}),
+        STARK_STEP: (fold_step("stark_prime", 16384, 16, base=1 << 16, k=16,
+                               l2_bound_sq=4_718_592, psi_check=True),
+                     {"stark_mul": 64, "stark_add": 11, "stark_sub": 19,
+                      "limb_fold": 3}),
     }
     counter = {k: mod for mod in (K, KB, G, MF, FX, SK, EX, ST, SL, SB, DG)
                for k in mod.LAUNCHES}

@@ -10,9 +10,10 @@
 // of its own, so here each is one kernel with one thread an element and
 // every limb and word in registers.
 //
-// S1 stark_binary_kernel<0>:    out = a * b * 2^-256 mod q (CIOS,
+// S1 stark_mul_kernel:          out = a * b * 2^-256 mod q (CIOS,
 //                                stark.cuh)
-// S2 stark_binary_kernel<1, 2>: out = a + b, a - b mod q
+// S2 stark_add_kernel,
+//    stark_sub_kernel:          out = a + b, a - b mod q
 //   a is [rows, 8] u32 limbs, b is [b_rows, 8] read at row (row mod
 //   b_rows): b_rows = rows for two full operands, fewer for a table
 //   broadcast over leading axes (the four-step's mid twiddle [n2, k1, 8]
@@ -61,10 +62,11 @@ __device__ __forceinline__ void store_row(uint32_t* __restrict__ p,
 
 // OP: 0 mul, 1 add, 2 sub
 template <int OP>
-__global__ void __launch_bounds__(THREADS)
-stark_binary_kernel(const uint32_t* __restrict__ a,
-                    const uint32_t* __restrict__ b, int64_t b_rows,
-                    uint32_t* __restrict__ out, int64_t rows) {
+__device__ __forceinline__ void binary_row(const uint32_t* __restrict__ a,
+                                           const uint32_t* __restrict__ b,
+                                           int64_t b_rows,
+                                           uint32_t* __restrict__ out,
+                                           int64_t rows) {
     const int64_t row = static_cast<int64_t>(blockIdx.x) * THREADS
                         + threadIdx.x;
     if (row >= rows) return;
@@ -79,6 +81,27 @@ stark_binary_kernel(const uint32_t* __restrict__ a,
     else
         sp::sub(x, y, z);
     store_row(out + row * sp::L, z);
+}
+
+__global__ void __launch_bounds__(THREADS)
+stark_mul_kernel(const uint32_t* __restrict__ a,
+                 const uint32_t* __restrict__ b, int64_t b_rows,
+                 uint32_t* __restrict__ out, int64_t rows) {
+    binary_row<0>(a, b, b_rows, out, rows);
+}
+
+__global__ void __launch_bounds__(THREADS)
+stark_add_kernel(const uint32_t* __restrict__ a,
+                 const uint32_t* __restrict__ b, int64_t b_rows,
+                 uint32_t* __restrict__ out, int64_t rows) {
+    binary_row<1>(a, b, b_rows, out, rows);
+}
+
+__global__ void __launch_bounds__(THREADS)
+stark_sub_kernel(const uint32_t* __restrict__ a,
+                 const uint32_t* __restrict__ b, int64_t b_rows,
+                 uint32_t* __restrict__ out, int64_t rows) {
+    binary_row<2>(a, b, b_rows, out, rows);
 }
 
 template <bool SIGNED>
@@ -153,13 +176,14 @@ limb_fold_kernel(const int32_t* __restrict__ v, uint32_t* __restrict__ out,
     store_row(out + o * sp::L, x);
 }
 
-template <int OP>
-int launch_binary(const void* a, const void* b, int64_t b_rows, void* out,
-                  int64_t rows, void* stream) {
+using BinaryKernel = void (*)(const uint32_t*, const uint32_t*, int64_t,
+                              uint32_t*, int64_t);
+
+int launch_binary(BinaryKernel kernel, const void* a, const void* b,
+                  int64_t b_rows, void* out, int64_t rows, void* stream) {
     const auto blocks = static_cast<unsigned>((rows + THREADS - 1)
                                               / THREADS);
-    stark_binary_kernel<OP><<<blocks, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
         b_rows, static_cast<uint32_t*>(out), rows);
     return static_cast<int>(cudaGetLastError());
@@ -174,17 +198,20 @@ int launch_binary(const void* a, const void* b, int64_t b_rows, void* out,
 
 extern "C" int srt_stark_mul(const void* a, const void* b, int64_t b_rows,
                              void* out, int64_t rows, void* stream) {
-    return launch_binary<0>(a, b, b_rows, out, rows, stream);
+    return launch_binary(stark_mul_kernel, a, b, b_rows, out, rows,
+                         stream);
 }
 
 extern "C" int srt_stark_add(const void* a, const void* b, int64_t b_rows,
                              void* out, int64_t rows, void* stream) {
-    return launch_binary<1>(a, b, b_rows, out, rows, stream);
+    return launch_binary(stark_add_kernel, a, b, b_rows, out, rows,
+                         stream);
 }
 
 extern "C" int srt_stark_sub(const void* a, const void* b, int64_t b_rows,
                              void* out, int64_t rows, void* stream) {
-    return launch_binary<2>(a, b, b_rows, out, rows, stream);
+    return launch_binary(stark_sub_kernel, a, b, b_rows, out, rows,
+                         stream);
 }
 
 extern "C" int srt_limb_fold(const void* v, void* out, int64_t R,

@@ -17,7 +17,8 @@ one ``torch._int_mm`` and one fold kernel: K3 (``fold_end``) for
 goldilocks, K4's ``bb_fold_end`` for babybear, S3 (``limb_fold``) for
 stark_prime; frog folds in torch ops.  A ``mul_t`` is three of them.
 stark_prime's limb axis trails ([D, *batch, 8]), and its slot product
-(E = 1) is the field's Montgomery product, kernel S1 on the card.  The
+(E = 1) is the field's Montgomery product, kernel S1 on the card, under
+the same ``model.slot_product`` span as the other models' products.  The
 Goldilocks model's slot products (E = 3) are the kernels of
 ``ops/slot.py`` on the card: one ``slot_mul`` a product, one
 ``slot_matvec`` a ``matvec_t``; the BabyBear model's (E = 9) those of
@@ -160,7 +161,8 @@ class TModelMul:
         [D, *batch] of one batch shape."""
         N, E = self.ring.N, self.ring.E
         if E == 1:
-            return self.f.mul(at, bt)
+            with trace_span("model.slot_product"):
+                return self.f.mul(at, bt)
         B = at[0].numel()
         out = self._slot_product(at.reshape(N, E, B), bt.reshape(N, E, B))
         return out.reshape(at.shape)
@@ -170,7 +172,8 @@ class TModelMul:
         ``bt [D, *bb]`` (right-aligned) -> ``[D, *broadcast(ba, bb)]``."""
         N, E = self.ring.N, self.ring.E
         if E == 1:
-            return self.f.mul(at, bt)
+            with trace_span("model.slot_product"):
+                return self.f.mul(at, bt)
         return self._slot_product(at.reshape((N, E) + at.shape[1:]),
                                    bt.reshape((N, E) + bt.shape[1:]))
 

@@ -55,19 +55,28 @@ def ntt_matvec(f, tm, E, At, xt, block: int | None = None):
 
     ``block``: m-blocked widened-word accumulation (the Matrix.mul_mat
     pattern) bounding the live product tensor; bit-equal to the
-    unblocked contraction."""
+    unblocked contraction.  At E == 1 each block's products lie in a
+    ``model.slot_product`` span and its widened sum, and the final fold
+    mod q, in ``model.commit_acc`` (the spans of ``ops/slot.py``
+    ``ext_matvec``, the E > 1 path)."""
     if E > 1:
         return tm.matvec_t(At, xt, block=block)   # block >= m: unblocked
     # slot field == base field: the slot product is the field's product
     m = At.shape[2]
     if block is None or block >= m:
-        return f.sum(f.mul(At[:, None], xt[:, :, None]), axis=3)
+        with trace_span("model.slot_product"):
+            prod = f.mul(At[:, None], xt[:, :, None])
+        return f.sum(prod, axis=3)
     acc = None
     for s in range(0, m, block):
-        prod = f.mul(At[:, None, :, s:s + block], xt[:, :, None, s:s + block])
-        w = f.widen(prod).sum(dim=3)
-        acc = w if acc is None else acc + w
-    return f.reduce_words(acc)
+        with trace_span("model.slot_product"):
+            prod = f.mul(At[:, None, :, s:s + block],
+                         xt[:, :, None, s:s + block])
+        with trace_span("model.commit_acc"):
+            w = f.widen(prod).sum(dim=3)
+            acc = w if acc is None else acc + w
+    with trace_span("model.commit_acc"):
+        return f.reduce_words(acc)
 
 
 class FoldingStep:

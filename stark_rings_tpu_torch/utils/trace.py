@@ -31,9 +31,12 @@ event under it belongs to that one call):
 * the folding step's stages: ``fold.challenge``, ``fold.decompose``,
   ``fold.l2``, ``fold.commit``, ``fold.psi``;
 * the model multiply's field arithmetic: ``model.crt``, ``model.icrt``,
-  ``model.slot_product``, and ``model.commit_acc``, the blocked
-  commit's accumulation (``ops/slot.py`` ``ext_matvec``: each block's
-  widened sum and the final fold mod q);
+  ``model.slot_product`` (every slot product, the E = 1 field products
+  of stark_prime included: ``TModelMul.ntt_mul_t`` / ``ntt_mul_bt`` and
+  each commit block's products in ``protocol/folding.py``
+  ``ntt_matvec``), and ``model.commit_acc``, the blocked commit's
+  accumulation (``ops/slot.py`` ``ext_matvec`` and ``ntt_matvec``'s
+  E = 1 branch: each block's widened sum and the final fold mod q);
 * the engine's transforms: ``mxu.forward``, ``mxu.pointwise``,
   ``mxu.inverse``;
 * the digit GEMM's torch work: ``digits.planes``, ``digits.offsets``.

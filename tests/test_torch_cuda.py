@@ -2060,6 +2060,102 @@ def test_stark_kernels_match_twins(dev):
                     signed=False)
 
 
+def test_stark_step_launches_match_twins_at_the_cells_shape(dev,
+                                                            monkeypatch):
+    """Every S1-S3 launch of the stark16 cell's call (the challenge's
+    precompute and a step at n = 8, L = 16,384, W = 16, base 2^16, k = 16,
+    psi on) equals its twin word for word at the shape the step gives it:
+    the commit blocks' broadcast pairs, the challenge's [16, 1, 1, 8]
+    operand, the words read at row mod b_rows = 1, and the CRTs' R = 16
+    folds over W L and W k L columns.  The twins run in slices (the
+    result's first axis; 2^18 columns of a fold)."""
+    from stark_rings_tpu_torch.ops import mxu_limb as ML
+    from stark_rings_tpu_torch.ops import stark as S
+    from stark_rings_tpu_torch.protocol import FoldingStep
+    from stark_rings_tpu_torch.rings import get_ring
+
+    seen = {}
+    binary, fold = S._binary, ML.limb_fold
+
+    def checked_binary(name, twin, a, b, commutative):
+        before = S.LAUNCHES[name]
+        out = binary(name, twin, a, b, commutative)
+        assert S.LAUNCHES[name] - before == 1, name
+        ae, be = a.expand(out.shape), b.expand(out.shape)
+        for i in range(out.shape[0]):
+            assert torch.equal(out[i], twin(ae[i], be[i])), (
+                name, tuple(a.shape), tuple(b.shape), i)
+        key = (name, tuple(a.shape), tuple(b.shape))
+        seen[key] = seen.get(key, 0) + 1
+        return out
+
+    def checked_fold(V, R, *, signed, transpose_out=False):
+        before = S.LAUNCHES["limb_fold"]
+        out = fold(V, R, signed=signed, transpose_out=transpose_out)
+        assert S.LAUNCHES["limb_fold"] - before == 1
+        assert not transpose_out
+        for c in range(0, V.shape[1], 1 << 18):
+            assert torch.equal(out[:, c:c + (1 << 18)], S.limb_fold_ref(
+                V[:, c:c + (1 << 18)], R, signed=signed)), (V.shape, c)
+        key = ("limb_fold", tuple(V.shape), R, signed)
+        seen[key] = seen.get(key, 0) + 1
+        return out
+
+    monkeypatch.setattr(S, "_binary", checked_binary)
+    monkeypatch.setattr(ML, "limb_fold", checked_fold)
+    fs = FoldingStep(get_ring("stark_prime", device=dev), 8, 16384,
+                     1 << 16, k=16, l2_bound_sq=4_718_592, psi_check=True)
+    c, ins = _step_inputs(fs, np.random.default_rng(42), W=16)
+    fs.step(c, *ins)
+    torch.cuda.synchronize(dev)
+    by_name = {}
+    for key, n in seen.items():
+        by_name[key[0]] = by_name.get(key[0], 0) + n
+    assert by_name == {"stark_mul": 64, "stark_add": 11, "stark_sub": 19,
+                       "limb_fold": 3}
+    M, WL = 16 * 16384, 16 * 16384
+    assert seen[("stark_mul", (16, 1, 8, 8192, 8), (16, 16, 1, 8192, 8))] \
+        == 32
+    assert seen[("stark_mul", (16, 16, 16384, 8), (16, 1, 1, 8))] == 1
+    assert seen[("stark_mul", (16, 16, M, 8), (8,))] == 3
+    assert seen[("limb_fold", (512, WL), 16, False)] == 1
+    assert seen[("limb_fold", (512, 16 * M), 16, False)] == 1
+
+
+def test_stark_kernels_carry_their_launch_names(dev):
+    """Under ``torch.profiler`` each stark kernel's device name maps to
+    its own launch name by the benchmark's rule (``portbench/trace.py``
+    ``_hand_name``: the longest launch name its base name begins with,
+    over every ``LAUNCHES`` counter of the program), so the trace
+    classes S1-S3 as hand kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import trace as tr
+    from stark_rings_tpu_torch.fields import STARK
+    from stark_rings_tpu_torch.ops import stark as S
+
+    rng = np.random.default_rng(41)
+    x, y = (STARK.rand((4096,), rng, dev) for _ in range(2))
+    V = torch.zeros((32 * 4, 256), dtype=torch.int32, device=dev)
+    calls = {"stark_mul": lambda: S.stark_mul(x, y),
+             "stark_add": lambda: S.stark_add(x, y),
+             "stark_sub": lambda: S.stark_sub(x, y),
+             "limb_fold": lambda: S.limb_fold(V, 4, signed=False)}
+    names = set(tr.launch_counters())
+    assert set(S.LAUNCHES) <= names
+    for want, call in calls.items():
+        call()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize(dev)
+        kernels = {e.name for e in prof.events()
+                   if e.device_type.name == "CUDA"
+                   and not e.name.startswith(("Memcpy", "Memset"))}
+        assert kernels, want
+        assert {tr._hand_name(k, names) for k in kernels} == {want}, kernels
+
+
 @pytest.mark.parametrize("unsigned", [True, False], ids=["u8", "s7"])
 @pytest.mark.parametrize("N", [16, 512, 4096])
 def test_stark_mxu_limb_ntt_on_card(dev, N, unsigned):

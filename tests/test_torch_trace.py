@@ -143,7 +143,8 @@ def test_fold_step_ops_each_lie_under_a_stage(fold_trace):
     assert "fold.decompose" in under["aten::reshape"]
 
 
-@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog"])
+@pytest.mark.parametrize("name", ["goldilocks", "babybear", "frog",
+                                  "stark_prime"])
 def test_mul_t_spans(name):
     ring = get_ring(name, device="cpu")
     tm = TModelMul(ring)
@@ -201,6 +202,34 @@ def test_blocked_commit_spans(monkeypatch):
     assert (fs.M, fs.commit_block(2)) == (12, 5)
     out, events = _traced(lambda: fs.step(c, s0, s1, c0[:, :, :2],
                                           c1[:, :, :2], rt))
+    assert torch.equal(out["cd"], whole["cd"])
+    assert _children(events, _one(events, "fold.commit")) == [
+        "model.slot_product", "model.commit_acc"] * 3 + ["model.commit_acc"]
+
+
+def test_stark_step_spans(monkeypatch):
+    """stark_prime's E = 1 step (M = 12 in blocks of 5): the challenge's
+    two field products under ``model.slot_product``; each commit block's
+    products under ``model.slot_product`` and its widened sum under
+    ``model.commit_acc``, then the fold mod q under one more
+    ``model.commit_acc``; the same words as the unblocked commit."""
+    ring = get_ring("stark_prime", device="cpu")
+    fs = FoldingStep(ring, n_rows=2, wit_len=3, base=1 << 16,
+                     psi_check=True)
+    rng = np.random.default_rng(4)
+    c = fs.init_tables(rng)
+    s0, s1, c0, c1 = (fs.rand_witness(2, rng) for _ in range(4))
+    rt = fs.precompute_challenge(ring.rand_coeff((), rng))
+    args = (c, s0, s1, c0[:, :, :2], c1[:, :, :2], rt)
+    whole, events = _traced(lambda: fs.step(*args))
+    assert _children(events, _one(events, "fold.challenge")) == [
+        "model.slot_product", "model.slot_product"]
+    assert _children(events, _one(events, "fold.commit")) == [
+        "model.slot_product"]
+    monkeypatch.setattr(FoldingStep, "_COMMIT_BUDGET_WORDS",
+                        ring.D * 2 * 2 * 8 * 20)
+    assert (fs.M, fs.commit_block(2)) == (48, 20)
+    out, events = _traced(lambda: fs.step(*args))
     assert torch.equal(out["cd"], whole["cd"])
     assert _children(events, _one(events, "fold.commit")) == [
         "model.slot_product", "model.commit_acc"] * 3 + ["model.commit_acc"]
